@@ -1,0 +1,269 @@
+"""Plain PyTorch semantics of the ISA: the oracle the CUDA kernel is held to.
+
+Port of ``repro.core.bsp._alu_branches`` and of ``repro.kernels.ref``
+(``slot_ref``/``vcycle_ref``). Machine words are 32-bit: the reference
+holds them in ``uint32``, the port's state tensors store the same bit
+patterns in ``int32``. PyTorch's CPU build has almost no ``uint32``
+arithmetic and ``int32`` overflows on MULH's ``0xFFFF * 0xFFFF``, so this
+module computes on ``int64`` values in ``[0, 2**32)`` and re-creates every
+place where the reference's ``uint32`` arithmetic wraps:
+
+* SUB/SUBB wrap before the 16-bit mask (two's complement low bits agree);
+* BORROW compares against ``(v2 + v3) mod 2**32``;
+* MULH takes bits 16..31 of the 32-bit product, computed in halves so no
+  ``int64`` product can overflow;
+* SRA sign-extends through ``int32(uint32((v1 ^ 0x8000) - 0x8000))``;
+* SLICE's ``v1 >> off`` is 0 for ``off >= 32``, as XLA's logical shift is;
+* ``imm`` is the instruction's field reinterpreted as ``uint32``: the LUT
+  row is ``min(imm, L - 1)`` in unsigned order, MOVI masks it and EXPECT
+  keeps all 32 bits in the flag.
+
+Register writes store the unmasked result (as the reference's slot step
+does); a SEND's capture is masked to 16 bits.
+"""
+from __future__ import annotations
+
+from typing import FrozenSet, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.isa import Op
+
+MASK = 0xFFFF
+U32 = 0xFFFFFFFF
+
+# opcodes with no register result (SEND's value goes to the exchange only)
+NO_WRITE_OPS = (Op.NOP, Op.ST, Op.GST, Op.EXPECT, Op.SEND)
+# opcodes whose third / fourth operand is read
+V3_OPS = frozenset({Op.ADDC, Op.CARRY, Op.SUBB, Op.BORROW, Op.MUX, Op.ST,
+                    Op.GST, Op.LUT})
+V4_OPS = frozenset({Op.LUT, Op.GST})
+# every opcode the Vcycle engines execute (global memory is not ported)
+ENGINE_OPS = frozenset(Op) - {Op.GLD, Op.GST}
+
+
+def to_u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 values in [0, 2**32)."""
+    return x.to(torch.int64) & U32
+
+
+def from_u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values (any) -> int32 holding their low 32 bits."""
+    x = x & U32
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+_PATTERN_BITS = {}
+
+
+def _pattern_bits(device) -> torch.Tensor:
+    """[4, 16] bool: bit i of LUT pattern p (LUT input i is bit i)."""
+    key = str(device)
+    if key not in _PATTERN_BITS:
+        p = torch.arange(16, device=device)
+        _PATTERN_BITS[key] = torch.stack([(p >> i) & 1 == 1
+                                          for i in range(4)])
+    return _PATTERN_BITS[key]
+
+
+def lut4(v1, v2, v3, v4, lut_tt) -> torch.Tensor:
+    """Per-bit-lane 4-input LUT: ``OR_p (m_p & tt[p])`` where ``m_p`` ANDs
+    each input or its 16-bit complement as pattern ``p`` selects.
+
+    The 16 minterm masks are pairwise disjoint (two patterns differ in some
+    input ``i``, and ``v_i & (~v_i & 0xFFFF) == 0``; bits above 15 can only
+    survive in pattern 15, which negates nothing), so the OR over patterns
+    is their sum: one reduction instead of sixteen ORs."""
+    bits = _pattern_bits(v1.device)
+    m = None
+    for i, v in enumerate((v1, v2, v3, v4)):
+        sel = torch.where(bits[i], v[..., None], ((~v) & MASK)[..., None])
+        m = sel if m is None else m & sel
+    return (m & lut_tt).sum(-1)
+
+
+def alu_branches(ops: FrozenSet[Op], v1, v2, v3, v4, imm, lut_tt=None,
+                 ld_val=None) -> List[Tuple[Op, torch.Tensor]]:
+    """(op, value) for every result-producing opcode in ``ops``: the one
+    definition of the ALU semantics (``repro.core.bsp._alu_branches``).
+    Operands are int64 in [0, 2**32); ``lut_tt`` is the gathered
+    ``[..., 16]`` truth table, ``ld_val`` the gathered scratchpad read
+    (required iff LUT / LD is in ``ops``)."""
+    out = []
+
+    def b(o, thunk):
+        if o in ops:
+            out.append((o, thunk()))
+
+    def mulh():
+        lo1, lo2 = v1 & MASK, v2 & MASK
+        return (((lo1 * lo2) >> 16) + (v1 >> 16) * lo2
+                + lo1 * (v2 >> 16)) & MASK
+
+    def sra():
+        x = ((v1 ^ 0x8000) - 0x8000) & U32
+        x = torch.where(x >= 1 << 31, x - (1 << 32), x)
+        return (x >> (imm & 15)) & MASK
+
+    def slice_():
+        off = imm >> 5
+        shifted = torch.where(off >= 32, torch.zeros_like(v1),
+                              v1 >> off.clamp(max=31))
+        return shifted & ((torch.ones_like(imm) << (imm & 31)) - 1)
+
+    b(Op.MOV, lambda: v1)
+    b(Op.MOVI, lambda: imm & MASK)
+    b(Op.ADD, lambda: (v1 + v2) & MASK)
+    b(Op.ADDC, lambda: (v1 + v2 + v3) & MASK)
+    b(Op.CARRY, lambda: ((v1 + v2 + v3) >> 16) & MASK)
+    b(Op.SUB, lambda: (v1 - v2) & MASK)
+    b(Op.SUBB, lambda: (v1 - v2 - v3) & MASK)
+    b(Op.BORROW, lambda: (v1 < ((v2 + v3) & U32)).to(torch.int64))
+    b(Op.MUL, lambda: ((v1 & MASK) * (v2 & MASK)) & MASK)
+    b(Op.MULH, mulh)
+    b(Op.AND, lambda: v1 & v2)
+    b(Op.OR, lambda: v1 | v2)
+    b(Op.XOR, lambda: v1 ^ v2)
+    b(Op.NOT, lambda: (~v1) & MASK)
+    b(Op.MUX, lambda: torch.where(v1 != 0, v2, v3))
+    b(Op.SEQ, lambda: (v1 == v2).to(torch.int64))
+    b(Op.SNE, lambda: (v1 != v2).to(torch.int64))
+    b(Op.SLTU, lambda: (v1 < v2).to(torch.int64))
+    b(Op.SLL, lambda: (v1 << (imm & 15)) & MASK)
+    b(Op.SRL, lambda: v1 >> (imm & 15))
+    b(Op.SRA, sra)
+    b(Op.SLLV, lambda: (v1 << (v2 & 15)) & MASK)
+    b(Op.SRLV, lambda: v1 >> (v2 & 15))
+    b(Op.SLICE, slice_)
+    if Op.LUT in ops:
+        out.append((Op.LUT, lut4(v1, v2, v3, v4, lut_tt)))
+    if Op.LD in ops:
+        out.append((Op.LD, ld_val))
+    b(Op.SEND, lambda: v1)
+    return out
+
+
+class Slot:
+    """One decoded code row ``[C, 7]`` (int64 fields, ``imm`` as uint32)
+    plus the set of opcodes it contains — the static knowledge the plain
+    engine specializes each slot on."""
+
+    def __init__(self, row: torch.Tensor, ops: FrozenSet[Op],
+                 cap: Optional[torch.Tensor] = None):
+        f = row.to(torch.int64)
+        self.op, self.dst = f[:, 0], f[:, 1]
+        self.src = f[:, 2:6]
+        self.imm = f[:, 6] & U32
+        self.ops = ops
+        self.cap = None if cap is None else cap.to(torch.int64)
+        no_write = self.dst == 0
+        for o in NO_WRITE_OPS:
+            no_write = no_write | (self.op == int(o))
+        self.no_write = no_write
+        self.wdst = torch.where(no_write, 0, self.dst)
+
+
+def decode(code: torch.Tensor, cap: Optional[torch.Tensor] = None,
+           ops: Optional[FrozenSet[Op]] = None) -> List[Slot]:
+    """Decode ``code [T, C, 7]`` into per-slot :class:`Slot` records.
+    ``ops=None`` specializes every slot on the opcodes it holds (one host
+    read of the opcode plane); otherwise every slot selects over ``ops``."""
+    T = code.shape[0]
+    if ops is None:
+        plane = code[:, :, 0].cpu().numpy()
+        sets = [frozenset(Op(int(o)) for o in set(plane[t].tolist()))
+                for t in range(T)]
+    else:
+        sets = [ops] * T
+    return [Slot(code[t], sets[t], None if cap is None else cap[t])
+            for t in range(T)]
+
+
+def exec_slot(s: Slot, luts: torch.Tensor, regs: torch.Tensor,
+              spads: torch.Tensor, flags: torch.Tensor,
+              sbuf: Optional[torch.Tensor] = None,
+              regs_only: bool = False) -> torch.Tensor:
+    """Execute one slot for every lane of every batch element, in place.
+
+    ``regs [B, C, R]``, ``spads [B, C, S]``, ``flags [B, C]`` and
+    ``luts [C, L, 16]`` are int64 words in [0, 2**32). All operands are
+    read before any write (one instruction per lane per slot). The result
+    is written to ``dst`` (never r0, never for NOP/ST/GST/EXPECT/SEND);
+    unless ``regs_only``, ST stores ``v2`` at ``v1 % S`` when ``v3 != 0``,
+    EXPECT raises ``imm`` on a core whose flag is still 0, and every lane's
+    ``result & 0xFFFF`` lands in ``sbuf [B, n_sends + 1]`` through the slot's
+    capture row. Returns the unmasked ``[B, C]`` result."""
+    B, C, R = regs.shape
+    S = spads.shape[2]
+    ops = s.ops
+
+    def rd(k):
+        idx = s.src[:, k].view(1, C, 1).expand(B, C, 1)
+        return regs.gather(2, idx).squeeze(2)
+
+    v1, v2 = rd(0), rd(1)
+    zero = torch.zeros_like(v1)
+    v3 = rd(2) if ops & V3_OPS else zero
+    v4 = rd(3) if ops & V4_OPS else zero
+    imm = s.imm.view(1, C)
+    lut_tt = ld_val = None
+    if Op.LUT in ops:
+        rows = torch.clamp(s.imm, max=luts.shape[1] - 1)
+        lut_tt = luts[torch.arange(C, device=luts.device), rows][None]
+    if Op.LD in ops:
+        ld_val = spads.gather(2, (v1 % S)[..., None]).squeeze(2)
+    result = zero
+    for o, val in alu_branches(ops, v1, v2, v3, v4, imm, lut_tt, ld_val):
+        result = torch.where(s.op == int(o), val, result)
+
+    if ops - set(NO_WRITE_OPS):
+        wdst = s.wdst.view(1, C, 1).expand(B, C, 1)
+        wval = torch.where(s.no_write, regs[:, :, 0], result)
+        regs.scatter_(2, wdst, wval[..., None])
+    if regs_only:
+        return result
+    if Op.ST in ops:
+        st = (s.op == int(Op.ST)) & (v3 != 0)
+        addr = (v1 % S)[..., None]
+        old = spads.gather(2, addr).squeeze(2)
+        spads.scatter_(2, addr, torch.where(st, v2, old)[..., None])
+    if Op.EXPECT in ops:
+        exc = (s.op == int(Op.EXPECT)) & (v1 != v2) & (flags == 0)
+        flags.copy_(torch.where(exc, imm, flags))
+    if sbuf is not None:
+        sbuf.scatter_(1, s.cap.view(1, C).expand(B, C), result & MASK)
+    return result
+
+
+def slot_ref(code_t: torch.Tensor, luts: torch.Tensor, regs: torch.Tensor,
+             spads: torch.Tensor, flags: torch.Tensor,
+             ) -> Tuple[torch.Tensor, ...]:
+    """One slot for all lanes, the full ISA select (no global memory).
+    code_t [C, 7] int32; luts [C, L, 16], regs [C, R], spads [C, S],
+    flags [C] int32 bit patterns. Returns (regs, spads, flags, result &
+    0xFFFF), all int32 (``repro.kernels.ref.slot_ref``)."""
+    r, s, f = (to_u32(x)[None] for x in (regs, spads, flags))
+    res = exec_slot(Slot(code_t, ENGINE_OPS), to_u32(luts), r, s, f)
+    return from_u32(r[0]), from_u32(s[0]), from_u32(f[0]), \
+        from_u32(res[0] & MASK)
+
+
+def vcycle_ref(code: torch.Tensor, luts: torch.Tensor, regs: torch.Tensor,
+               spads: torch.Tensor, flags: torch.Tensor,
+               ) -> Tuple[torch.Tensor, ...]:
+    """One Vcycle's slot loop (no exchange). code [T, C, 7]. Returns
+    (regs, spads, flags, trace [T, C]) (``repro.kernels.ref.vcycle_ref``)."""
+    r, s, f = (to_u32(x)[None] for x in (regs, spads, flags))
+    lt = to_u32(luts)
+    trace = [exec_slot(sl, lt, r, s, f)[0] & MASK
+             for sl in decode(code, ops=ENGINE_OPS)]
+    tr = (torch.stack(trace) if trace
+          else torch.zeros((0, regs.shape[0]), dtype=torch.int64))
+    return from_u32(r[0]), from_u32(s[0]), from_u32(f[0]), from_u32(tr)
+
+
+def exec_rows(slots: Sequence[Slot], luts, regs, spads, flags, sbuf=None,
+              regs_only: bool = False) -> None:
+    """Execute consecutive decoded slots in place."""
+    for s in slots:
+        exec_slot(s, luts, regs, spads, flags, sbuf, regs_only)
