@@ -1,12 +1,20 @@
 """Static BSP executor on the card: a compiled Program run in K-Vcycle chunks.
 
-Port of ``repro.core.bsp`` (single device, specialized dispatch). Core *c*
-of the Manticore grid is thread *c* of a CUDA block, and one block holds a
-whole machine (one stimulus): ``kernels/csrc/vcycle_chunk.cu`` runs up to K
-Vcycles per launch, each one the slot loop on every core, then the BSP
-exchange of SEND values at the Vcycle boundary, then (for a modulo-pipelined
-program) the next Vcycle's prologue. The host reads the exception flags
-once per chunk.
+Port of ``repro.core.bsp`` (single device). Core *c* of the Manticore grid
+is thread *c* of a CUDA block, and one block holds a whole machine (one
+stimulus): ``kernels/csrc/vcycle_chunk.cu`` runs up to K Vcycles per
+launch, each one the slot loop on every core, then the BSP exchange of SEND
+values at the Vcycle boundary, then (for a modulo-pipelined program) the
+next Vcycle's prologue. The host reads the exception flags once per chunk.
+
+The privileged core's off-chip traffic (GLD/GST) runs inline through the
+paper's direct-mapped cache + global-stall cost model: stalls do not change
+simulation results, so the engines only count them (§7.7 / Fig. 8).
+
+``Machine(..., specialize=False)`` is the seed arm, the baseline of the
+engine benchmarks: one launch of ``kernels/csrc/vcycle_seed.cu`` per
+Vcycle (the whole stream, full ISA select, ``[T, C]`` result trace), the
+exchange routed from the trace, and one host read of the flags per Vcycle.
 
 The reference's XLA-specific machinery (the unrolled window graphs and the
 segmented-scan fallback) has no counterpart: on the card the kernel is the
@@ -24,7 +32,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..kernels.ops import make_vcycle_chunk
+from ..kernels.ops import make_vcycle, make_vcycle_chunk
 from .compile import Program
 from .isa import Op
 
@@ -94,13 +102,16 @@ class Machine:
     """Executable instance of a compiled Program (one stimulus, one card).
 
     ``compact`` simulates only the used cores and registers (as the
-    reference does); ``chunk`` is K, the Vcycles per kernel launch."""
+    reference does); ``chunk`` is K, the Vcycles per kernel launch.
+    ``specialize=False`` selects the seed arm (see the module docstring)."""
 
     def __init__(self, program: Program, *, device=None, compact: bool = True,
-                 chunk: int = DEFAULT_CHUNK, _batch: Optional[int] = None):
+                 chunk: int = DEFAULT_CHUNK, specialize: bool = True,
+                 _batch: Optional[int] = None):
         self.p = program
         self.device = resolve_device(device)
         self.chunk = max(1, int(chunk))
+        self.specialize = specialize
         hw = program.hw
         # active-core / active-register compaction (beyond-paper: the FPGA
         # burns idle cores and its 2048-entry register file for free)
@@ -115,8 +126,11 @@ class Machine:
         # rotated dispatch of a modulo-pipelined program: the stream's first
         # ``pipe_prologue`` slots hold the *next* Vcycle's hoisted pure ops;
         # the kernel runs them after the exchange, gated on "no exception
-        # this cycle", and ``init_state`` applies iteration 0's once
-        self.Tpro = int(program.pipe_prologue)
+        # this cycle", and ``init_state`` applies iteration 0's once. The
+        # seed arm keeps the whole stream: the prologue rows at its head are
+        # pure ops whose inputs are untouched since the previous Vcycle's
+        # tail, so both forms give identical registers.
+        self.Tpro = int(program.pipe_prologue) if specialize else 0
         if self.Tpro:
             head = program.code[:C, :self.Tpro, 0]
             illegal = {int(o) for o in np.unique(head)} & {
@@ -125,8 +139,17 @@ class Machine:
             if illegal:
                 raise ValueError(
                     f"pipelined prologue contains impure opcodes {illegal}")
-        self._kernel = make_vcycle_chunk(program, C, self.chunk,
-                                         batch=_batch, device=self.device)
+        if specialize:
+            self._kernel = make_vcycle_chunk(program, C, self.chunk,
+                                             batch=_batch, device=self.device)
+        else:
+            self._seed = make_vcycle(program, C, self.R, device=self.device)
+            self._xchg = tuple(
+                torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+                for a in (program.xchg_src_slot, program.xchg_src_core,
+                          program.xchg_dst_core, program.xchg_dst_reg))
+            self._vcycle_count = torch.tensor(
+                [1, 0, 0, 0], dtype=torch.int32, device=self.device)
 
     def _words(self, a) -> torch.Tensor:
         return to_words(a, self.device)
@@ -143,8 +166,9 @@ class Machine:
             regs = self._words(np.asarray(ri)[:self.C, :self.R])
             spads = self._words(np.asarray(si)[:self.C])
             gmem = self._words(gi)
-        # iteration 0's hoisted pure ops run once, before the first body
-        regs = self._kernel.prologue(regs, spads)
+        if self.Tpro:
+            # iteration 0's hoisted pure ops run once, before the first body
+            regs = self._kernel.prologue(regs, spads)
         return MachineState(
             regs=regs, spads=spads, gmem=gmem,
             flags=torch.zeros((self.C,), dtype=torch.int32,
@@ -157,9 +181,34 @@ class Machine:
     def run(self, state: MachineState, num_cycles: int) -> MachineState:
         """Run up to ``num_cycles`` Vcycles; freezes on the first exception
         (the host services it — paper's global stall + host handshake)."""
+        if not self.specialize:
+            return self._run_seed(state, int(num_cycles))
         cyc = torch.zeros((1,), dtype=torch.int32, device=self.device)
         carry = dispatch_chunks(self._kernel, cyc, tuple(state), self.chunk,
                                 int(num_cycles), lambda f: bool(f.any()))
+        return MachineState(*carry)
+
+    # ------------------------------------------------ seed (baseline) ----
+    def _vcycle_seed(self, carry):
+        """One seed Vcycle: the kernel, then the exchange from the trace
+        (``regs[d_core, d_reg] = trace[s_slot, s_core]``), then
+        ``counters[0] += 1``."""
+        (regs, spads, gmem, flags, tags, counters), trace = self._seed(carry)
+        if self.n_sends:
+            s_slot, s_core, d_core, d_reg = self._xchg
+            regs[d_core, d_reg] = trace[s_slot, s_core]
+        return (regs, spads, gmem, flags, tags,
+                counters + self._vcycle_count)
+
+    def _run_seed(self, state: MachineState, num_cycles: int):
+        """The reference's ``_run_legacy``: before each Vcycle, stop at the
+        budget or once a flag is set (one host read per Vcycle), so a
+        raising Vcycle completes its body, exchange and count."""
+        carry = tuple(state)
+        for _ in range(num_cycles):
+            if bool(carry[3].any()):
+                break
+            carry = self._vcycle_seed(carry)
         return MachineState(*carry)
 
     def exceptions(self, state: MachineState) -> Dict[int, int]:

@@ -27,6 +27,14 @@
 // Vcycle, the prologue rows [0, num_pro) of a modulo-pipelined program run
 // iff nothing was raised.
 //
+// Global memory (programs with GLD/GST): the thread that runs the privileged
+// core `gcore` reads and writes the element's gmem [G], cache tags [lines]
+// and counters [4] in device memory directly, in slot order; no other
+// thread touches them (the binding checks that GLD/GST sit on one core), so
+// no ordering across threads is needed. A raising Vcycle commits its GSTs
+// and counts like the rest of its body; a frozen element touches nothing.
+// Without global memory the pointers are null and cost nothing.
+//
 // Bound on this card: the bytes it must move (state in and out plus the
 // program tables, over 3.35 TB/s) against the integer operations it must do
 // (B * Vcycles * T * C instructions over the INT32 rate). At the main path's
@@ -34,105 +42,26 @@
 // dependent chain of K * T slots each thread walks in order (a shared-memory
 // read, a branch on the opcode and a shared-memory write per slot), which
 // only more independent elements per SM can hide.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "isa.cuh"
 
 namespace {
 
-enum Opcode : int {
-  NOP = 0, MOV, MOVI, ADD, ADDC, CARRY, SUB, SUBB, BORROW, MUL, MULH, AND,
-  OR, XOR, NOT, MUX, SEQ, SNE, SLTU, SLL, SRL, SRA, SLLV, SRLV, SLICE, LUT,
-  LD, ST, GLD, GST, SEND, EXPECT
-};
+using isa::Glob;
 
-constexpr uint32_t kMask = 0xFFFFu;
-
-// Per-bit-lane 4-input LUT: OR over patterns p of (minterm_p & tt[p]).
-__device__ __forceinline__ uint32_t lut4(const uint32_t* __restrict__ tt,
-                                         uint32_t a, uint32_t b, uint32_t c,
-                                         uint32_t d) {
-  const uint32_t na = ~a & kMask, nb = ~b & kMask, nc = ~c & kMask,
-                 nd = ~d & kMask;
-  uint32_t out = 0u;
-#pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const uint32_t m = ((p & 1) ? a : na) & ((p & 2) ? b : nb) &
-                       ((p & 4) ? c : nc) & ((p & 8) ? d : nd);
-    out |= m & __ldg(tt + p);
-  }
-  return out;
-}
-
-// One instruction of one core. kBody: also apply ST, EXPECT and the SEND
+// One slot of one core; kBody: also ST, GLD/GST, EXPECT and the SEND
 // capture (prologue rows are pure and write registers only).
 template <bool kBody>
 __device__ __forceinline__ void exec_slot(const int* __restrict__ ins,
                                           const uint32_t* __restrict__ luts_c,
                                           int L, uint32_t* regs_c,
                                           uint32_t* spad_c, int S,
-                                          uint32_t& flag, uint32_t* sbuf,
-                                          int capi, int n_sends) {
-  const int op = __ldg(ins + 0);
-  const int dst = __ldg(ins + 1);
-  const uint32_t v1 = regs_c[__ldg(ins + 2)];
-  const uint32_t v2 = regs_c[__ldg(ins + 3)];
-  const uint32_t v3 = regs_c[__ldg(ins + 4)];
-  const uint32_t v4 = regs_c[__ldg(ins + 5)];
-  const uint32_t imm = static_cast<uint32_t>(__ldg(ins + 6));
-  uint32_t res = 0u;
-  switch (op) {
-    case MOV: res = v1; break;
-    case MOVI: res = imm & kMask; break;
-    case ADD: res = (v1 + v2) & kMask; break;
-    case ADDC: res = (v1 + v2 + v3) & kMask; break;
-    case CARRY: res = ((v1 + v2 + v3) >> 16) & kMask; break;
-    case SUB: res = (v1 - v2) & kMask; break;
-    case SUBB: res = (v1 - v2 - v3) & kMask; break;
-    case BORROW: res = v1 < v2 + v3 ? 1u : 0u; break;
-    case MUL: res = (v1 * v2) & kMask; break;
-    case MULH: res = ((v1 * v2) >> 16) & kMask; break;
-    case AND: res = v1 & v2; break;
-    case OR: res = v1 | v2; break;
-    case XOR: res = v1 ^ v2; break;
-    case NOT: res = ~v1 & kMask; break;
-    case MUX: res = v1 != 0u ? v2 : v3; break;
-    case SEQ: res = v1 == v2 ? 1u : 0u; break;
-    case SNE: res = v1 != v2 ? 1u : 0u; break;
-    case SLTU: res = v1 < v2 ? 1u : 0u; break;
-    case SLL: res = (v1 << (imm & 15u)) & kMask; break;
-    case SRL: res = v1 >> (imm & 15u); break;
-    case SRA:
-      res = static_cast<uint32_t>(
-                static_cast<int32_t>((v1 ^ 0x8000u) - 0x8000u) >>
-                (imm & 15u)) & kMask;
-      break;
-    case SLLV: res = (v1 << (v2 & 15u)) & kMask; break;
-    case SRLV: res = v1 >> (v2 & 15u); break;
-    case SLICE: {
-      // a logical shift by 32 or more gives 0, as XLA's does
-      const uint32_t off = imm >> 5;
-      res = (off >= 32u ? 0u : v1 >> off) & ((1u << (imm & 31u)) - 1u);
-      break;
-    }
-    case LUT: {
-      const uint32_t last = static_cast<uint32_t>(L - 1);
-      res = lut4(luts_c + (imm < last ? imm : last) * 16u, v1, v2, v3, v4);
-      break;
-    }
-    case LD: res = spad_c[v1 % static_cast<uint32_t>(S)]; break;
-    case SEND: res = v1; break;
-    default: break;  // NOP, ST, GLD, GST, EXPECT: no ALU result
-  }
-  const bool writes = dst != 0 && op != NOP && op != ST && op != GST &&
-                      op != EXPECT && op != SEND;
-  if (writes) regs_c[dst] = res;
-  if (kBody) {
-    if (op == ST && v3 != 0u) spad_c[v1 % static_cast<uint32_t>(S)] = v2;
-    // the earliest raising EXPECT of the Vcycle wins
-    if (op == EXPECT && v1 != v2 && flag == 0u) flag = imm;
-    if (static_cast<unsigned>(capi) < static_cast<unsigned>(n_sends))
-      sbuf[capi] = res & kMask;
-  }
+                                          uint32_t& flag, const Glob& g,
+                                          uint32_t* sbuf, int capi,
+                                          int n_sends) {
+  const uint32_t res = isa::exec_ins<kBody, false>(ins, luts_c, L, regs_c,
+                                                   spad_c, S, flag, g);
+  if (kBody && static_cast<unsigned>(capi) < static_cast<unsigned>(n_sends))
+    sbuf[capi] = res & isa::kMask;
 }
 
 __global__ void vcycle_chunk_kernel(
@@ -143,9 +72,12 @@ __global__ void vcycle_chunk_kernel(
     const uint32_t* __restrict__ spads_in,
     const uint32_t* __restrict__ flags_in, const int* __restrict__ cyc,
     uint32_t* __restrict__ regs_out, uint32_t* __restrict__ spads_out,
-    uint32_t* __restrict__ flags_out, int* __restrict__ nexec_out, int C,
-    int Cp, int T, int R, int S, int L, int n_sends, int num_pro, int K,
-    int budget, int prologue_only) {
+    uint32_t* __restrict__ flags_out, int* __restrict__ nexec_out,
+    uint32_t* __restrict__ gmem, int* __restrict__ tags,
+    uint32_t* __restrict__ counters, int C, int Cp, int T, int R, int S,
+    int L, int n_sends, int num_pro, int K, int budget, int prologue_only,
+    int G, int lines, int line_words, int hit_stall, int miss_stall,
+    int gcore) {
   extern __shared__ uint32_t smem[];
   uint32_t* regs = smem;                                  // [roff[C]]
   uint32_t* spads = regs + __ldg(roff + C);               // [C, S]
@@ -170,6 +102,14 @@ __global__ void vcycle_chunk_kernel(
   uint32_t* my_regs = regs + (lane ? __ldg(roff + tid) : 0);
   uint32_t* my_spad = spads + static_cast<size_t>(tid) * S;
   const uint32_t* my_luts = luts + static_cast<size_t>(tid) * L * 16;
+  Glob g = {};
+  if (gmem != nullptr && tid == gcore)
+    g = Glob{gmem + static_cast<size_t>(b) * G,
+             tags + static_cast<size_t>(b) * lines, counters + 4 * b,
+             static_cast<uint32_t>(G), static_cast<uint32_t>(lines),
+             static_cast<uint32_t>(line_words),
+             static_cast<uint32_t>(hit_stall),
+             static_cast<uint32_t>(miss_stall)};
   __syncthreads();
 
   int n = 0;
@@ -177,7 +117,7 @@ __global__ void vcycle_chunk_kernel(
     if (lane)
       for (int t = 0; t < num_pro; ++t)
         exec_slot<false>(code + (static_cast<size_t>(t) * Cp + tid) * 7,
-                         my_luts, L, my_regs, my_spad, S, flag, sbuf,
+                         my_luts, L, my_regs, my_spad, S, flag, g, sbuf,
                          n_sends, n_sends);
   } else {
     const int base = cyc[b];
@@ -188,7 +128,7 @@ __global__ void vcycle_chunk_kernel(
         for (int t = num_pro; t < T; ++t) {
           const size_t row = static_cast<size_t>(t) * Cp + tid;
           exec_slot<true>(code + row * 7, my_luts, L, my_regs, my_spad, S,
-                          flag, sbuf, __ldg(cap + row), n_sends);
+                          flag, g, sbuf, __ldg(cap + row), n_sends);
         }
       __syncthreads();
       // BSP exchange; the buffer is cleared for the next Vcycle as it is read
@@ -201,7 +141,7 @@ __global__ void vcycle_chunk_kernel(
       if (!raised && lane)
         for (int t = 0; t < num_pro; ++t)
           exec_slot<false>(code + (static_cast<size_t>(t) * Cp + tid) * 7,
-                           my_luts, L, my_regs, my_spad, S, flag, sbuf,
+                           my_luts, L, my_regs, my_spad, S, flag, g, sbuf,
                            n_sends, n_sends);
       ++n;
     }
@@ -224,15 +164,20 @@ __global__ void vcycle_chunk_kernel(
 extern "C" {
 
 // Launches one chunk on `stream`; returns the cudaError_t of the launch.
+// gmem [B, G], tags [B, lines] and counters [B, 4] are updated in place;
+// all three are null for a program without global memory.
 int vcycle_chunk_launch(const int* code, const int* cap, const uint32_t* luts,
                         const int* dcore, const int* dreg, const int* roff,
                         const uint32_t* regs_in, const uint32_t* spads_in,
                         const uint32_t* flags_in, const int* cyc,
                         uint32_t* regs_out, uint32_t* spads_out,
-                        uint32_t* flags_out, int* nexec_out, int B, int C,
+                        uint32_t* flags_out, int* nexec_out, uint32_t* gmem,
+                        int* tags, uint32_t* counters, int B, int C,
                         int Cp, int T, int R, int S, int L, int n_sends,
                         int num_pro, int K, int budget, int prologue_only,
-                        int reg_words, void* stream) {
+                        int reg_words, int G, int lines, int line_words,
+                        int hit_stall, int miss_stall, int gcore,
+                        void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
   const size_t smem =
       sizeof(uint32_t) * (static_cast<size_t>(reg_words) +
@@ -244,8 +189,9 @@ int vcycle_chunk_launch(const int* code, const int* cap, const uint32_t* luts,
   const int threads = ((C + 31) / 32) * 32;
   vcycle_chunk_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       code, cap, luts, dcore, dreg, roff, regs_in, spads_in, flags_in, cyc,
-      regs_out, spads_out, flags_out, nexec_out, C, Cp, T, R, S, L, n_sends,
-      num_pro, K, budget, prologue_only);
+      regs_out, spads_out, flags_out, nexec_out, gmem, tags, counters, C, Cp,
+      T, R, S, L, n_sends, num_pro, K, budget, prologue_only, G, lines,
+      line_words, hit_stall, miss_stall, gcore);
   return static_cast<int>(cudaGetLastError());
 }
 

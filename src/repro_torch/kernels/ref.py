@@ -19,12 +19,23 @@ place where the reference's ``uint32`` arithmetic wraps:
   keeps all 32 bits in the flag.
 
 Register writes store the unmasked result (as the reference's slot step
-does); a SEND's capture is masked to 16 bits.
+does); a SEND's capture is masked to 16 bits. The seed form
+(``vcycle_seed_ref``, the plain version of ``_vcycle_kernel``) masks the
+result to 16 bits before the register write, as that kernel does; the two
+forms agree on every compiled Program, whose words never reach 2**16.
+
+Global memory (GLD/GST) and the privileged core's direct-mapped cache and
+stall model are ``repro.core.bsp.make_window_step``'s: the address is
+``((v1 << 16) | v2) % G`` in uint32 with G the length of ``gmem``; GST
+stores ``v3`` iff ``v4 != 0``; every GLD and every storing GST is one
+cache access, a hit when ``tags[line % lines] == line``, after which the
+tag is ``line``; ``counters[1..3]`` count hits, misses and stall cycles.
 """
 from __future__ import annotations
 
-from typing import FrozenSet, List, Optional, Sequence, Tuple
+from typing import FrozenSet, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.isa import Op
@@ -38,8 +49,34 @@ NO_WRITE_OPS = (Op.NOP, Op.ST, Op.GST, Op.EXPECT, Op.SEND)
 V3_OPS = frozenset({Op.ADDC, Op.CARRY, Op.SUBB, Op.BORROW, Op.MUX, Op.ST,
                     Op.GST, Op.LUT})
 V4_OPS = frozenset({Op.LUT, Op.GST})
-# every opcode the Vcycle engines execute (global memory is not ported)
-ENGINE_OPS = frozenset(Op) - {Op.GLD, Op.GST}
+# the privileged core's off-chip opcodes
+GLOBAL_OPS = frozenset({Op.GLD, Op.GST})
+# every opcode the Vcycle engines execute
+ENGINE_OPS = frozenset(Op)
+
+
+class CacheModel(NamedTuple):
+    """The privileged core's direct-mapped cache (``HardwareConfig``): words
+    per line and the global stall cycles charged on a hit and on a miss.
+    The number of lines is the length of the cache-tag array."""
+    line_words: int
+    hit_stall: int
+    miss_stall: int
+
+    @classmethod
+    def of(cls, hw) -> "CacheModel":
+        return cls(int(hw.cache_line_words), int(hw.cache_hit_stall),
+                   int(hw.cache_miss_stall))
+
+
+class Glob(NamedTuple):
+    """Global state of B elements for ``exec_slot``, updated in place:
+    ``gmem [B, G]`` and ``counters [B, 4]`` int64 words in [0, 2**32),
+    ``tags [B, LINES]`` int64 cache tags (-1 = invalid)."""
+    gmem: torch.Tensor
+    tags: torch.Tensor
+    counters: torch.Tensor
+    cache: CacheModel
 
 
 def to_u32(x: torch.Tensor) -> torch.Tensor:
@@ -83,12 +120,13 @@ def lut4(v1, v2, v3, v4, lut_tt) -> torch.Tensor:
 
 
 def alu_branches(ops: FrozenSet[Op], v1, v2, v3, v4, imm, lut_tt=None,
-                 ld_val=None) -> List[Tuple[Op, torch.Tensor]]:
+                 ld_val=None, gld_val=None) -> List[Tuple[Op, torch.Tensor]]:
     """(op, value) for every result-producing opcode in ``ops``: the one
     definition of the ALU semantics (``repro.core.bsp._alu_branches``).
     Operands are int64 in [0, 2**32); ``lut_tt`` is the gathered
-    ``[..., 16]`` truth table, ``ld_val`` the gathered scratchpad read
-    (required iff LUT / LD is in ``ops``)."""
+    ``[..., 16]`` truth table, ``ld_val``/``gld_val`` the gathered
+    scratchpad / global memory reads (required iff LUT / LD / GLD is in
+    ``ops``)."""
     out = []
 
     def b(o, thunk):
@@ -139,6 +177,8 @@ def alu_branches(ops: FrozenSet[Op], v1, v2, v3, v4, imm, lut_tt=None,
         out.append((Op.LUT, lut4(v1, v2, v3, v4, lut_tt)))
     if Op.LD in ops:
         out.append((Op.LD, ld_val))
+    if Op.GLD in ops:
+        out.append((Op.GLD, gld_val))
     b(Op.SEND, lambda: v1)
     return out
 
@@ -182,20 +222,24 @@ def decode(code: torch.Tensor, cap: Optional[torch.Tensor] = None,
 def exec_slot(s: Slot, luts: torch.Tensor, regs: torch.Tensor,
               spads: torch.Tensor, flags: torch.Tensor,
               sbuf: Optional[torch.Tensor] = None,
-              regs_only: bool = False) -> torch.Tensor:
+              regs_only: bool = False, glob: Optional[Glob] = None,
+              masked: bool = False) -> torch.Tensor:
     """Execute one slot for every lane of every batch element, in place.
 
     ``regs [B, C, R]``, ``spads [B, C, S]``, ``flags [B, C]`` and
     ``luts [C, L, 16]`` are int64 words in [0, 2**32). All operands are
     read before any write (one instruction per lane per slot). The result
-    is written to ``dst`` (never r0, never for NOP/ST/GST/EXPECT/SEND);
-    unless ``regs_only``, ST stores ``v2`` at ``v1 % S`` when ``v3 != 0``,
-    EXPECT raises ``imm`` on a core whose flag is still 0, and every lane's
-    ``result & 0xFFFF`` lands in ``sbuf [B, n_sends + 1]`` through the slot's
-    capture row. Returns the unmasked ``[B, C]`` result."""
+    is written to ``dst`` (never r0, never for NOP/ST/GST/EXPECT/SEND),
+    masked to 16 bits first when ``masked``; unless ``regs_only``, ST
+    stores ``v2`` at ``v1 % S`` when ``v3 != 0``, GLD/GST go through
+    ``glob`` (see ``global_access``), EXPECT raises ``imm`` on a core whose
+    flag is still 0, and every lane's ``result & 0xFFFF`` lands in
+    ``sbuf [B, n_sends + 1]`` through the slot's capture row. Without
+    ``glob`` a GLD yields 0 and a GST does nothing, as in
+    ``repro.kernels.ref.slot_ref``. Returns the ``[B, C]`` result."""
     B, C, R = regs.shape
     S = spads.shape[2]
-    ops = s.ops
+    ops = s.ops if glob is not None else s.ops - GLOBAL_OPS
 
     def rd(k):
         idx = s.src[:, k].view(1, C, 1).expand(B, C, 1)
@@ -206,15 +250,22 @@ def exec_slot(s: Slot, luts: torch.Tensor, regs: torch.Tensor,
     v3 = rd(2) if ops & V3_OPS else zero
     v4 = rd(3) if ops & V4_OPS else zero
     imm = s.imm.view(1, C)
-    lut_tt = ld_val = None
+    lut_tt = ld_val = gld_val = g_addr = None
     if Op.LUT in ops:
         rows = torch.clamp(s.imm, max=luts.shape[1] - 1)
         lut_tt = luts[torch.arange(C, device=luts.device), rows][None]
     if Op.LD in ops:
         ld_val = spads.gather(2, (v1 % S)[..., None]).squeeze(2)
+    if ops & GLOBAL_OPS:
+        g_addr = (((v1 << 16) & U32) | v2) % glob.gmem.shape[1]
+        if Op.GLD in ops:
+            gld_val = glob.gmem.gather(1, g_addr)
     result = zero
-    for o, val in alu_branches(ops, v1, v2, v3, v4, imm, lut_tt, ld_val):
+    for o, val in alu_branches(ops, v1, v2, v3, v4, imm, lut_tt, ld_val,
+                               gld_val):
         result = torch.where(s.op == int(o), val, result)
+    if masked:
+        result = result & MASK
 
     if ops - set(NO_WRITE_OPS):
         wdst = s.wdst.view(1, C, 1).expand(B, C, 1)
@@ -227,12 +278,71 @@ def exec_slot(s: Slot, luts: torch.Tensor, regs: torch.Tensor,
         addr = (v1 % S)[..., None]
         old = spads.gather(2, addr).squeeze(2)
         spads.scatter_(2, addr, torch.where(st, v2, old)[..., None])
+    if g_addr is not None:
+        global_access(s.op, g_addr, v3, v4, glob)
     if Op.EXPECT in ops:
         exc = (s.op == int(Op.EXPECT)) & (v1 != v2) & (flags == 0)
         flags.copy_(torch.where(exc, imm, flags))
     if sbuf is not None:
         sbuf.scatter_(1, s.cap.view(1, C).expand(B, C), result & MASK)
     return result
+
+
+def global_access(op, g_addr, v3, v4, glob: Glob) -> None:
+    """The privileged core's GST and cache/stall model for one slot, in
+    place on ``glob`` (``repro.core.bsp.make_window_step``). ``op [C]``;
+    ``g_addr``, ``v3``, ``v4`` are ``[B, C]``. The first lane that
+    accesses global memory (a GLD, or a GST with ``v4 != 0``) is the one
+    access of the slot; the bindings check that only one core holds
+    GLD/GST."""
+    gst = (op == int(Op.GST)) & (v4 != 0)
+    acc = (op == int(Op.GLD)) | gst
+    lane = acc.to(torch.int32).argmax(1, keepdim=True)
+    any_g = acc.any(1, keepdim=True)
+    addr = g_addr.gather(1, lane)
+    old = glob.gmem.gather(1, addr)
+    glob.gmem.scatter_(1, addr, torch.where(gst.gather(1, lane),
+                                            v3.gather(1, lane), old))
+    line = addr // glob.cache.line_words
+    idx = line % glob.tags.shape[1]
+    tag = glob.tags.gather(1, idx)
+    hit = (tag == line) & any_g
+    miss = (tag != line) & any_g
+    glob.tags.scatter_(1, idx, torch.where(any_g, line, tag))
+    cnt = glob.counters
+    cnt[:, 1:2] += hit
+    cnt[:, 2:3] += miss
+    cnt[:, 3:4] += hit * glob.cache.hit_stall + miss * glob.cache.miss_stall
+
+
+def global_core(code, C: int) -> int:
+    """The one core among the first C of ``code [T, Cp, 7]`` (host array or
+    tensor) that holds GLD/GST, or -1 when none does. Raises
+    ``ValueError`` when several do: the partitioner puts every privileged
+    instruction on one core, and the kernels model one cache access per
+    slot."""
+    plane = np.asarray(code[:, :C, 0].cpu() if torch.is_tensor(code)
+                       else code[:, :C, 0])
+    cores = np.flatnonzero(np.isin(plane, [int(o) for o in GLOBAL_OPS])
+                           .any(0))
+    if cores.size > 1:
+        raise ValueError("GLD/GST on more than one core "
+                         f"({cores.tolist()}): only the privileged core "
+                         "may touch global memory")
+    return int(cores[0]) if cores.size else -1
+
+
+def to_glob(gmem, tags, counters, cache: Optional[CacheModel]) -> Glob:
+    """``Glob`` of int64 words from the int32 tensors ``gmem [B, G]``,
+    ``tags [B, LINES]`` and ``counters [B, 4]``."""
+    if cache is None:
+        raise ValueError("global memory needs its CacheModel")
+    return Glob(to_u32(gmem), tags.to(torch.int64), to_u32(counters), cache)
+
+
+def from_glob(g: Glob) -> Tuple[torch.Tensor, ...]:
+    """(gmem, tags, counters) as int32 tensors."""
+    return from_u32(g.gmem), g.tags.to(torch.int32), from_u32(g.counters)
 
 
 def slot_ref(code_t: torch.Tensor, luts: torch.Tensor, regs: torch.Tensor,
@@ -251,8 +361,9 @@ def slot_ref(code_t: torch.Tensor, luts: torch.Tensor, regs: torch.Tensor,
 def vcycle_ref(code: torch.Tensor, luts: torch.Tensor, regs: torch.Tensor,
                spads: torch.Tensor, flags: torch.Tensor,
                ) -> Tuple[torch.Tensor, ...]:
-    """One Vcycle's slot loop (no exchange). code [T, C, 7]. Returns
-    (regs, spads, flags, trace [T, C]) (``repro.kernels.ref.vcycle_ref``)."""
+    """One Vcycle's slot loop (no exchange, no global memory). code
+    [T, C, 7]. Returns (regs, spads, flags, trace [T, C])
+    (``repro.kernels.ref.vcycle_ref``)."""
     r, s, f = (to_u32(x)[None] for x in (regs, spads, flags))
     lt = to_u32(luts)
     trace = [exec_slot(sl, lt, r, s, f)[0] & MASK
@@ -262,8 +373,44 @@ def vcycle_ref(code: torch.Tensor, luts: torch.Tensor, regs: torch.Tensor,
     return from_u32(r[0]), from_u32(s[0]), from_u32(f[0]), from_u32(tr)
 
 
+def vcycle_seed_ref(code: torch.Tensor, luts: torch.Tensor,
+                    regs: torch.Tensor, spads: torch.Tensor,
+                    flags: torch.Tensor, gmem: Optional[torch.Tensor] = None,
+                    tags: Optional[torch.Tensor] = None,
+                    counters: Optional[torch.Tensor] = None,
+                    cache: Optional[CacheModel] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """One Vcycle's slot loop as ``repro.kernels.vcycle._vcycle_kernel``
+    computes it, plus global memory: the full ISA select on every slot,
+    results masked to 16 bits before the register write, no exchange.
+
+    ``code [T, Cp, 7]`` (``Cp >= C``: padded lanes are never read),
+    ``luts [Cp, L, 16]``, ``regs [C, R]``, ``spads [C, S]``, ``flags [C]``;
+    a program with GLD/GST also needs ``gmem [G]``, ``tags [LINES]``,
+    ``counters [4]`` and the ``cache`` model. All int32 bit patterns.
+    Returns (regs, spads, flags, trace [T, C]), followed by (gmem, tags,
+    counters) when ``gmem`` is given."""
+    C = regs.shape[0]
+    g = None
+    if gmem is not None:
+        g = to_glob(gmem[None], tags[None], counters[None], cache)
+    elif global_core(code, C) >= 0:
+        raise ValueError("vcycle_seed: the program holds GLD/GST but no "
+                         "global memory was given")
+    r, s, f = (to_u32(x)[None] for x in (regs, spads, flags))
+    lt = to_u32(luts[:C])
+    trace = [exec_slot(sl, lt, r, s, f, glob=g, masked=True)[0]
+             for sl in decode(code[:, :C], ops=ENGINE_OPS)]
+    tr = (torch.stack(trace) if trace
+          else torch.zeros((0, C), dtype=torch.int64, device=regs.device))
+    out = (from_u32(r[0]), from_u32(s[0]), from_u32(f[0]), from_u32(tr))
+    if g is None:
+        return out
+    return out + tuple(x[0] for x in from_glob(g))
+
+
 def exec_rows(slots: Sequence[Slot], luts, regs, spads, flags, sbuf=None,
-              regs_only: bool = False) -> None:
+              regs_only: bool = False, glob: Optional[Glob] = None) -> None:
     """Execute consecutive decoded slots in place."""
     for s in slots:
-        exec_slot(s, luts, regs, spads, flags, sbuf, regs_only)
+        exec_slot(s, luts, regs, spads, flags, sbuf, regs_only, glob)

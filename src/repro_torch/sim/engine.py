@@ -4,8 +4,9 @@ Port of ``repro.sim.engine``. Every adapter owns its simulation state,
 ``run(num_cycles)`` advances *all* stimuli and returns the
 :class:`~repro_torch.sim.result.RunResult` of element 0, ``run_batch`` the
 full per-stimulus list, and the probe methods take a uniform optional batch
-index. ``MachineEngine`` and ``BatchedEngine`` run the CUDA chunk kernel
-(``device="cpu"`` selects its plain version); ``IsaEngine`` and
+index. ``MachineEngine`` and ``BatchedEngine`` run the CUDA chunk kernel,
+``MachineEngine(specialize=False)`` the seed arm's per-Vcycle kernel
+(``device="cpu"`` selects their plain versions); ``IsaEngine`` and
 ``OracleEngine`` are the numpy oracles.
 """
 from __future__ import annotations
@@ -93,19 +94,21 @@ def _snapshot(eng, b: int, regs: Optional[np.ndarray] = None) -> RunResult:
 
 
 class MachineEngine:
-    """Single-stimulus engine (``core.bsp.Machine``, the kernel at B=1).
-    ``images`` is one ``(reg_init, spad_init, gmem_init)`` stimulus plane
+    """Single-stimulus engine (``core.bsp.Machine``, the chunk kernel at
+    B=1). ``specialize=False`` selects the seed baseline arm. ``images`` is
+    one ``(reg_init, spad_init, gmem_init)`` stimulus plane
     (``Program.init_images``); omitted means the program's base init."""
 
     kind = "machine"
     batch = 1
 
     def __init__(self, program: Program, *, device=None,
-                 compact: bool = True, chunk: int = DEFAULT_CHUNK,
+                 specialize: bool = True, compact: bool = True,
+                 chunk: int = DEFAULT_CHUNK,
                  images: Optional[Images] = None):
         self.program = program
         self.m = Machine(program, device=device, compact=compact,
-                         chunk=chunk)
+                         chunk=chunk, specialize=specialize)
         self._images = images
         self.reset()
 

@@ -15,7 +15,8 @@ protocol-conforming engines on demand::
     assert all(r.finished for r in results)
 
 Engine auto-selection: a batch (``seeds=``/``images=`` with more than one
-stimulus) gets ``BatchedEngine``, a single stimulus ``MachineEngine``.
+stimulus) gets ``BatchedEngine``, a single stimulus ``MachineEngine``;
+``engine="seed"`` runs the seed baseline arm.
 ``device=`` (at ``compile`` or per engine) is the torch device the kernel
 engines run on; the default is the card, and ``device="cpu"`` runs the
 kernel's plain PyTorch version. Engine kinds of the reference that the port
@@ -40,15 +41,15 @@ from .result import RunResult
 # missing exception is detected as "ran past the end", never masked.
 CYCLE_SLACK = 10
 
-_ENGINE_KINDS = ("auto", "machine", "batched", "isa", "oracle", "netlist",
-                 "reference", "sharded", "grid", "seed", "pallas")
+# "jnp" and "pallas" name the reference's two backends of the specialized
+# single-stimulus engine; the port runs both as "machine", on one kernel
+_ENGINE_KINDS = ("auto", "machine", "jnp", "pallas", "seed", "batched",
+                 "sharded", "grid", "isa", "oracle", "netlist", "reference")
 
 # engine kinds of the reference that wait for a later slice of the port
 _NOT_PORTED = {
     "sharded": "ShardedBatchedMachine (batch sharded over several cards)",
     "grid": "GridMachine (cores sharded over several cards)",
-    "seed": "the seed arm, Machine(specialize=False), with _vcycle_kernel",
-    "pallas": "the seed arm, Machine(specialize=False), with _vcycle_kernel",
 }
 
 
@@ -130,13 +131,17 @@ class Simulation:
     def engine(self, kind: str = "auto", *,
                images: Optional[Sequence[Images]] = None,
                batch: Optional[int] = None, device=None,
-               workers: Optional[int] = None, **opts) -> Engine:
+               specialize: bool = True, workers: Optional[int] = None,
+               **opts) -> Engine:
         """Construct a protocol-conforming engine over this Program.
 
         ``kind="auto"`` picks batched (several stimuli) or the
-        single-stimulus machine. Explicit kinds: ``machine``, ``batched``,
-        ``isa``, ``oracle``/``netlist``/``reference``. ``device`` overrides
-        the Simulation's device for the kernel engines."""
+        single-stimulus machine. Explicit kinds: ``machine``/``jnp``/
+        ``pallas`` (the chunk kernel at B=1), ``seed`` (the unspecialized
+        baseline arm, as is ``machine`` with ``specialize=False``),
+        ``batched``, ``isa``, ``oracle``/``netlist``/``reference``.
+        ``device`` overrides the Simulation's device for the kernel
+        engines."""
         if kind not in _ENGINE_KINDS:
             raise ValueError(
                 f"unknown engine kind {kind!r}; choose from "
@@ -173,8 +178,10 @@ class Simulation:
         img0 = _first_image(images)
         if kind == "isa":
             return IsaEngine(self.program, images=img0)
+        if kind == "seed":
+            specialize = False
         return MachineEngine(self.program, images=img0, device=device,
-                             **opts)
+                             specialize=specialize, **opts)
 
     def run(self, cycles: Optional[int] = None, *, engine: str = "auto",
             **opts) -> Union[RunResult, List[RunResult]]:

@@ -14,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, FrozenSet
 
-# Exception-id conventions from repro.circuits.common: every self-checking
+# Exception-id conventions of repro.circuits.common: every self-checking
 # bench raises FINISH (1) on success and MISMATCH (2) on a failed golden
 # check. Engines that cannot attribute an exception to a core (the netlist
 # oracle) report it under negative pseudo-core keys.

@@ -199,10 +199,3 @@ def test_entry_points_run_on_the_card_unless_asked(small):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tbsp.BatchedMachine(port(prog), batch=2)
 
-
-def test_global_memory_programs_are_rejected(small):
-    _, prog = small["mc"]
-    p = port(prog)
-    p.stats["global_ops"] = 1
-    with pytest.raises(ValueError, match="GLD/GST"):
-        tbsp.Machine(p, device="cpu")

@@ -20,8 +20,8 @@ from test_kernels import random_program
 
 from repro_torch.core.isa import Op
 from repro_torch.kernels import vcycle as kv
-from repro_torch.kernels.randprog import random_chunk
-from repro_torch.kernels.ref import vcycle_ref
+from repro_torch.kernels.randprog import random_chunk, random_vcycle
+from repro_torch.kernels.ref import CacheModel, vcycle_ref
 
 def t32(a):
     """numpy words -> the port's int32 tensor of their bit patterns."""
@@ -197,7 +197,10 @@ def test_cpu_wrapper_never_counts_launches():
     kv.reset_counts()
     _, args, kw = _pallas_chunk("prologue", "batched")
     kv.vcycle_chunk(*args, **kw)
-    assert kv.COUNTS == {"vcycle_chunk": 0}
+    rng = np.random.default_rng(0)
+    kv.vcycle_seed(*[torch.from_numpy(a) for a in random_vcycle(
+        rng, 4, 8, 8, 4, 4, G=16)], cache=CacheModel(4, 14, 120))
+    assert kv.COUNTS == {"vcycle_chunk": 0, "vcycle_seed": 0}
 
 
 def test_packed_register_layout_covers_every_named_register():
