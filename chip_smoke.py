@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds both Vcycle kernels from ``src/repro_torch/kernels/csrc`` (one
-``nvcc -c`` each, in parallel, linked into one library) and holds each bit
-for bit against its plain PyTorch version on the card:
+Builds every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc -c``
+per source, all in parallel, linked into one library) and holds each
+against its plain PyTorch version on the card:
 
-* the chunk kernel on all nine full circuits on the paper's 15x15 grid at
-  B=8 seeds, both the single and the batched binding, run to the end, and
-  on random programs with mid-chunk exceptions, budgets, prologues and
-  global memory;
-* the seed kernel on random programs (32-bit words, global memory) and on
-  the first two Vcycles of each of the nine full circuits.
+* the chunk kernel, bit for bit, on all nine full circuits on the paper's
+  15x15 grid at B=8 seeds, both the single and the batched binding, run to
+  the end, and on random programs with mid-chunk exceptions, budgets,
+  prologues and global memory;
+* the seed kernel, bit for bit, on random programs (32-bit words, global
+  memory) and on the first two Vcycles of each of the nine full circuits;
+* the flash-attention kernel against ``flash_ref`` (fp32 within 1e-4,
+  bf16 within 2e-2) at the reference kernel test's five shapes, GQA, a
+  tail tile, a non-causal shape and the qwen3-0.6b prefill's.
 
 Then it drives the paths, each through the calls a user makes, with the
 launch counts set to 0 just before and read just after:
@@ -24,6 +27,11 @@ launch counts set to 0 just before and read just after:
   ``seed`` and ``batched`` (B=64 seeds), equal to the ISA simulator;
 * the main path ``repro_torch.sim.compile("mc", scale="full",
   seeds=range(512)).run()``;
+* LM serving, ``repro_torch.launch.steps.make_serve_steps`` on qwen3-0.6b
+  at full width (random weights from a seed): B=4 prompts of 2048 tokens,
+  one prefill (28 flash-attention launches) and 32 greedy decode steps in
+  bf16; in float32 the prefill equals the same model on ``flash_ref`` and
+  the first decode step equals a full forward over the 2049 tokens;
 
 and times each kernel against its bound. Each phase prints one JSON line;
 the last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -55,7 +63,12 @@ MAIN_FINISH = 130          # mc/full raises FINISH at cycle n_cycles + 2
 FIG8_N = 2048              # benchmarks/fig8_global_stall.py
 FIG8_SEEDS = 64
 FIG8_KIB = (1, 64, 512)
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+LM_CTX = LM_PROMPT + 64
+LM_GREEDY_CHECK = 8        # greedy tokens compared in float32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # INT32 issue rate: the H100 SXM's 67 TFLOP/s FP32 peak is 132 SMs x 128
 # lanes x 2 (FMA) x 1.98 GHz; each SM has 64 INT32 lanes, one op per clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -93,26 +106,28 @@ def phase_device(torch):
     return line
 
 
-def timed_build(kv):
+def timed_build(kbuild):
     t0 = time.perf_counter()
-    path, log = kv.build()
+    path, log = kbuild.build()
     return path, log, time.perf_counter() - t0
 
 
 def phase_build(build_future):
-    """The library both kernels are built into, with each kernel's
-    registers a thread from the compiler's -Xptxas -v report."""
+    """The library every kernel is built into, with each kernel's
+    registers a thread from the compiler's -Xptxas -v report (the most
+    over a kernel's template instances)."""
     t0 = time.perf_counter()
     path, log, build_s = build_future.result()
     regs, kernel = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            kernel = next((k for k in ("vcycle_chunk", "vcycle_seed")
+            kernel = next((k for k in ("vcycle_chunk", "vcycle_seed",
+                                       "flash_attention")
                            if k + "_kernel" in m.group(1)), m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and kernel:
-            regs[kernel] = int(m.group(1))
+            regs[kernel] = max(regs.get(kernel, 0), int(m.group(1)))
     info = [ln.strip() for ln in log.splitlines()
             if "entry function" in ln or "Used" in ln or "spill" in ln]
     emit({"phase": "build", "library": str(path.relative_to(ROOT)),
@@ -521,6 +536,230 @@ def phase_main(torch, kv, sim, IsaEngine):
           "T": int(s.program.code.shape[1])})
     return eng, launches
 
+# the flash kernel's shapes: (BH, BHkv, S, dh, dtype, causal)
+FLASH_CASES = (
+    # tests/test_kernels.py:122-127
+    (2, 2, 256, 64, "float32", True),
+    (2, 2, 256, 64, "float32", False),
+    (4, 4, 512, 128, "bfloat16", True),
+    (1, 1, 128, 32, "float32", True),
+    (3, 3, 384, 64, "bfloat16", True),
+    # the qwen3-0.6b prefill: B=4 x H=16 query heads over Hkv=8 (G=2)
+    (LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128, "bfloat16", True),
+    (16, 8, LM_PROMPT + 1, 128, "float32", True),
+    (8, 4, 512, 128, "bfloat16", False),
+    (6, 3, 1000, 64, "bfloat16", True),
+)
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def flash_inputs(torch, BH, BHkv, S, dh, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((n, S, dh), generator=g, device="cuda")
+                 .to(getattr(torch, dtype)) for n in (BH, BHkv, BHkv))
+
+
+def phase_flash(torch, fa, flash_ref):
+    """The flash kernel against its plain version on the same CUDA
+    tensors; fp32 within 1e-4 (sums in another order), bf16 within 2e-2
+    (the output's rounding)."""
+    cases = []
+    for i, (BH, BHkv, S, dh, dtype, causal) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, i)
+        out = fa.flash_attention(q, k, v, causal)
+        ref = flash_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"flash BH={BH} BHkv={BHkv} S={S} dh={dh} "
+                                 f"{dtype} causal={causal}: kernel != plain "
+                                 f"(max abs err {err})")
+        cases.append({"BH": BH, "BHkv": BHkv, "S": S, "dh": dh,
+                      "dtype": dtype, "causal": causal, "max_abs_err": err,
+                      "tol": tol})
+    emit({"phase": "flash_vs_plain", "cases": cases})
+    return max(c["max_abs_err"] for c in cases)
+
+
+def _full_forward_last(torch, model, L, params, tokens):
+    """Last-position logits of a full forward over ``tokens``."""
+    x, pos = model._embed_inputs(params, {"tokens": tokens})
+    h = model._trunk(params, x, pos)
+    return L.unembed(params["embed"], model.cfg, h[:, -1:]).float()
+
+
+def _greedy(torch, model, params, logits, cache, n):
+    """The ``n`` greedy tokens after prefill ``logits`` (decoding in place)
+    and the first decode step's logits."""
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    toks, first = [tok], None
+    for i in range(n - 1):
+        logits, cache = model.decode_step(params, tok, cache, LM_PROMPT + i)
+        first = logits if first is None else first
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, 1), first
+
+
+def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
+    """qwen3-0.6b at full width through ``make_serve_steps``: one prefill
+    and LM_DECODE greedy steps in the config's bf16, counted; prefill and
+    decode tokens/s; then the float32 checks (a) kernel prefill == the
+    same model on ``flash_ref`` (logits within 1e-3, LM_GREEDY_CHECK
+    greedy tokens equal) and (b) first decode step == a full forward over
+    the S+1 tokens (within 1e-3)."""
+    from unittest import mock
+    cfg = ARCHS[LM_ARCH]
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+    model, prefill_step, decode_step = steps.make_serve_steps(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    cache = model.make_cache(LM_BATCH, LM_CTX)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the path, counted: one prefill and LM_DECODE greedy steps
+    fa.reset_counts()
+    kv.reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": tokens}, cache)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    out = [tok]
+    for i in range(LM_DECODE):
+        tok, cache = decode_step(params, tok, cache, LM_PROMPT + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.COUNTS["flash_attention"]
+    if launches != cfg.n_layers or any(kv.COUNTS.values()):
+        raise AssertionError(f"serving launched flash_attention {launches}"
+                             f" times (not {cfg.n_layers}), Vcycle kernels "
+                             f"{kv.COUNTS}")
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(out, 1)
+    if (not bool(torch.isfinite(logits).all())
+            or logits.shape != (LM_BATCH, 1, cfg.vocab)
+            or gen.shape != (LM_BATCH, LM_DECODE + 1)
+            or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab):
+        raise AssertionError("serving gave non-finite logits or bad tokens")
+    # prefill tokens/s: 3 synced prefills after the one above
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    # decode tokens/s: the LM_DECODE-step loop again, on the fresh cache
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        tok, cache = decode_step(params, tok, cache, LM_PROMPT + i)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    # float32 checks at full width
+    cfg32 = cfg.scaled(dtype="float32")
+    m32 = steps.make_serve_steps(cfg32)[0]
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(1))
+    with torch.inference_mode():
+        c_k = m32.make_cache(LM_BATCH, LM_CTX)
+        lk, c_k = m32.prefill(p32, {"tokens": tokens}, c_k)
+        greedy_k, first = _greedy(torch, m32, p32, lk, c_k, LM_GREEDY_CHECK)
+        full = _full_forward_last(torch, m32, L, p32, torch.cat(
+            [tokens, greedy_k[:, :1]], 1))
+        with mock.patch.object(L, "flash_attention", flash_ref):
+            c_p = m32.make_cache(LM_BATCH, LM_CTX)
+            lp, c_p = m32.prefill(p32, {"tokens": tokens}, c_p)
+            greedy_p, _ = _greedy(torch, m32, p32, lp, c_p,
+                                  LM_GREEDY_CHECK)
+    torch.cuda.synchronize()
+    err_a = float((lk - lp).abs().max())
+    err_b = float((first - full).abs().max())
+    if err_a > 1e-3 or not torch.equal(greedy_k, greedy_p):
+        raise AssertionError(f"float32 prefill: kernel != flash_ref model "
+                             f"(logits {err_a}, greedy "
+                             f"{greedy_k.tolist()} vs {greedy_p.tolist()})")
+    if err_b > 1e-3:
+        raise AssertionError(f"float32 first decode step != full forward "
+                             f"over S+1 tokens ({err_b})")
+    del p32, c_k, c_p
+    torch.cuda.empty_cache()
+    ntok = LM_BATCH * LM_PROMPT
+    emit({"phase": "lm_serve", "arch": LM_ARCH,
+          "call": f"repro_torch.launch.steps.make_serve_steps(ARCHS"
+                  f"['{LM_ARCH}'])",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+          "B": LM_BATCH, "S": LM_PROMPT, "ctx": LM_CTX,
+          "decode_steps": LM_DECODE, "flash_launches_per_prefill": launches,
+          "first_run_s": first_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": [ntok / t for t in prefill_s],
+          "decode_s": decode_s,
+          "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+          "peak_memory_bytes": peak,
+          "fp32_prefill_vs_plain_max_abs_err": err_a,
+          "fp32_greedy_tokens_equal": LM_GREEDY_CHECK,
+          "fp32_first_decode_vs_full_forward_max_abs_err": err_b})
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def time_flash(torch, fa, flash_ref):
+    """The flash kernel at the qwen3-0.6b prefill's shape (bf16, causal,
+    GQA G=2): CUDA-event ms, the plain version's, the bound, and one
+    PyTorch call computing the same function (SDPA, the yardstick; the
+    port never calls it)."""
+    import torch.nn.functional as F
+    BH, BHkv, S, dh = LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128
+    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", 99)
+    out = [None]
+
+    def launch():
+        out[-1] = fa.flash_attention(q, k, v)
+
+    ms = cuda_ms(torch, launch, 20)
+    plain_ms = cuda_ms(torch, lambda: flash_ref(q, k, v), 3, warm=1)
+    B = LM_BATCH
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh) for t in (q, k, v))
+    try:
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), 20)
+        library = "scaled_dot_product_attention(is_causal, enable_gqa)"
+    except TypeError:          # a torch without enable_gqa
+        k4, v4 = (t.repeat_interleave(BH // BHkv, 1) for t in (k4, v4))
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 20)
+        library = "scaled_dot_product_attention(is_causal), K/V repeated"
+    err = float((out[-1].float() - flash_ref(q, k, v).float()).abs().max())
+    if err > FLASH_TOL["bfloat16"] * 4:
+        raise AssertionError(f"timed flash: kernel != plain ({err})")
+    # each input read once, the output written once; causal score and
+    # P V products: 2 x (BH S^2 dh / 2) multiply-adds
+    nbytes = 2 * (2 * BH * S * dh + 2 * BHkv * S * dh)
+    flops = 2 * BH * S * S * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 causal",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+            "library": library, "max_abs_err": err,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "tflops_per_s": flops / ms * 1e-9}
+
 
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
     """Milliseconds per call of ``fn`` by CUDA events over ``n`` calls
@@ -669,7 +908,7 @@ def kernel_line(name, source, replaces, launches, t):
             "replaces": replaces, "launches": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None}
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
 
 
 def main() -> int:
@@ -678,9 +917,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         import repro_torch.sim as sim
         from repro_torch.circuits.fig8 import build_membench
+        from repro_torch.configs import ARCHS
+        from repro_torch.kernels import build as kbuild
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels.ref import flash_ref
+        from repro_torch.launch import steps
+        from repro_torch.models import layers as L
         from repro_torch.core import bsp
         from repro_torch.core.isa import HardwareConfig, Op
         from repro_torch.core.isasim import IsaSim
@@ -696,10 +943,11 @@ def main() -> int:
     workers = max(1, min(len(NAMES), (os.cpu_count() or 2) - 1))
     with cf.ThreadPoolExecutor(1) as nvcc, cf.ProcessPoolExecutor(
             workers, mp_context=mp.get_context("spawn")) as pool:
-        build_future = nvcc.submit(timed_build, kv)
+        build_future = nvcc.submit(timed_build, kbuild)
         compiles = [pool.submit(compile_full, n, CHECK_SEEDS) for n in NAMES]
         smi = phase_device(torch)
         phase_build(build_future)
+        phase_flash(torch, fa, flash_ref)
         phase_random(torch, kv, random_chunk, CacheModel)
         phase_seed_random(torch, kv, random_vcycle, CacheModel)
         for fut in cf.as_completed(compiles):
@@ -720,11 +968,16 @@ def main() -> int:
     bat_fig8 = phase_fig8(torch, kv, sim, bsp, IsaEngine, build_membench,
                           fig8_hw, CacheModel)
     eng, launches = phase_main(torch, kv, sim, IsaEngine)
+    flash_launches = phase_lm_serve(torch, fa, kv, flash_ref, steps, L,
+                                    ARCHS)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8,
                                int(Op.LUT))
+    flash = time_flash(torch, fa, flash_ref)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
+          "flash_attention": flash,
           "seed_launches_on_seed_path": seed_launches,
-          "b1_chunk_launches_on_machine_path": b1_launches})
+          "b1_chunk_launches_on_machine_path": b1_launches,
+          "flash_launches_on_serving_path": flash_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     kernels = [
         kernel_line("vcycle_chunk",
@@ -735,7 +988,11 @@ def main() -> int:
         kernel_line("vcycle_seed",
                     "src/repro_torch/kernels/csrc/vcycle_seed.cu",
                     "src/repro/kernels/vcycle.py:45 _vcycle_kernel",
-                    seed_launches, seed)]
+                    seed_launches, seed),
+        kernel_line("flash_attention",
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:33 _flash_kernel",
+                    flash_launches, flash)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

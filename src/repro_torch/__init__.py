@@ -11,6 +11,10 @@ byte-identical Programs. The entry point is :mod:`repro_torch.sim`::
 
 The chunked Vcycle engine (``core.bsp``) runs the hand-written CUDA kernel
 ``kernels/csrc/vcycle_chunk.cu``; ``device="cpu"`` selects its plain
-PyTorch version. ``convert`` carries Programs and machine states across
-from the reference package as numpy arrays.
+PyTorch version. ``convert`` carries Programs, machine states and LM
+parameters across from the reference package as numpy arrays.
+
+The LM scaffold's serving path is ported for dense decoder-only configs:
+``launch.steps.make_serve_steps`` over ``models`` and ``configs``, with
+the prefill's attention on the kernel ``kernels/csrc/flash_attention.cu``.
 """

@@ -1,10 +1,12 @@
-"""Carry Programs and machine states across from the reference package.
+"""Carry Programs, machine states and LM parameters across from the
+reference package.
 
-For this system the "weights" are the compiled Program and the machine
-state. The reference package (``repro``) and the port hold them in
-different classes and array libraries; these functions move them as plain
-numpy arrays and dicts, so both packages can be fed the same program and
-the same state without the port importing anything of the reference.
+For the simulator the "weights" are the compiled Program and the machine
+state; for the LM scaffold they are the parameter pytree. The reference
+package (``repro``) and the port hold them in different classes and array
+libraries; these functions move them as plain numpy arrays and dicts, so
+both packages can be fed the same program, state and parameters without
+the port importing anything of the reference.
 """
 from __future__ import annotations
 
@@ -66,3 +68,34 @@ def state_to_numpy(state: MachineState):
             from_words(state.gmem), from_words(state.flags),
             state.cache_tags.detach().cpu().numpy().astype(np.int32),
             from_words(state.counters))
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy holds bf16 as ml_dtypes.bfloat16, which torch cannot read:
+        # carry the bit patterns through int16
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The port's LM parameters from the reference's parameter pytree with
+    numpy leaves (``jax.tree.map(np.asarray, params)``): the same nested
+    dict, name for name, stacked ``[L, ...]`` leaves kept, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: numpy leaves, bf16 as
+    ``ml_dtypes.bfloat16`` (imported only when a bf16 leaf is met)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

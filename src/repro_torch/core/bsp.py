@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.ops import make_vcycle, make_vcycle_chunk
 from .compile import Program
 from .isa import Op
@@ -39,18 +40,6 @@ from .isa import Op
 # Vcycles per chunked dispatch: one launch simulates up to K RTL cycles;
 # the host looks at the exception flags once per chunk.
 DEFAULT_CHUNK = 32
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; None means the card, and raises
-    when there is none (the CPU is used only when asked for)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "engine's plain PyTorch version on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def to_words(a, device) -> torch.Tensor:

@@ -1,2 +1,4 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version (``ref.py``) and its Program binding (``ops.py``)."""
+version (``ref.py``): the Vcycle kernels with their Program binding
+(``ops.py``), flash attention with its wrapper (``flash_attention.py``).
+``build.py`` compiles them all into one library."""

@@ -24,6 +24,9 @@ does); a SEND's capture is masked to 16 bits. The seed form
 result to 16 bits before the register write, as that kernel does; the two
 forms agree on every compiled Program, whose words never reach 2**16.
 
+``flash_ref`` is the plain version of the flash-attention kernel
+(``csrc/flash_attention.cu``), the port of ``repro.kernels.ref.flash_ref``.
+
 Global memory (GLD/GST) and the privileged core's direct-mapped cache and
 stall model are ``repro.core.bsp.make_window_step``'s: the address is
 ``((v1 << 16) | v2) % G`` in uint32 with G the length of ``gmem``; GST
@@ -33,6 +36,7 @@ tag is ``line``; ``counters[1..3]`` count hits, misses and stall cycles.
 """
 from __future__ import annotations
 
+import math
 from typing import FrozenSet, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -414,3 +418,24 @@ def exec_rows(slots: Sequence[Slot], luts, regs, spads, flags, sbuf=None,
     """Execute consecutive decoded slots in place."""
     for s in slots:
         exec_slot(s, luts, regs, spads, flags, sbuf, regs_only, glob)
+
+
+def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention, the oracle of ``csrc/flash_attention.cu``:
+    fp32 scores over ``sqrt(dh)``, -1e30 above the diagonal when causal,
+    softmax, ``P @ V`` in fp32, cast to q's dtype. q ``[BH, S, dh]``; k, v
+    ``[BHkv, S, dh]`` with ``BH = G * BHkv``: query row-set i reads
+    key/value row-set ``i // G`` (G = 1 is the reference's contract)."""
+    G = q.shape[0] // k.shape[0]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=0)
+        v = v.repeat_interleave(G, dim=0)
+    dh = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(dh)
+    if causal:
+        S = q.shape[1]
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask[None], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)

@@ -19,10 +19,9 @@ its direct-mapped cache and stall counters (``kernels/ref.py``).
 PyTorch versions. A wrapper runs them only when it is handed CPU tensors;
 on CUDA tensors it launches the kernel or raises.
 
-Both kernels are built at first use with ``nvcc`` into one shared library
-with a plain C interface (``build/`` beside this file, named by the hash of
-every source and the flags; the sources compile in parallel) and loaded
-through ``ctypes``.
+Both kernels are built at first use with ``nvcc``, with every other kernel
+of the port, into one shared library with a plain C interface
+(``kernels/build.py``) and loaded through ``ctypes``.
 
 Layouts (all int32 tensors; machine words are uint32 bit patterns):
 code ``[T, Cp, 7]`` | cap ``[T, Cp]`` | luts ``[Cp, L, 16]`` | dcore/dreg
@@ -35,35 +34,18 @@ same state without the leading ``[B]``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .build import check, load
 from .ref import (CacheModel, Glob, decode, exec_rows, from_glob, from_u32,
                   global_core, to_glob, to_u32, vcycle_seed_ref)
 
 # launches of each CUDA kernel since the last reset (the CPU path and the
 # plain versions never count)
 COUNTS = {"vcycle_chunk": 0, "vcycle_seed": 0}
-
-_HERE = Path(__file__).resolve().parent
-CSRC = _HERE / "csrc"
-# both kernels go into one shared library; the header is part of both
-SOURCES = {name: CSRC / f"{name}.cu" for name in COUNTS}
-HEADERS = (CSRC / "isa.cuh",)
-BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -141,72 +123,6 @@ def prologue_ref(code, luts, regs, spads, *, num_pro: int) -> torch.Tensor:
     return from_u32(r)
 
 
-# ---------------------------------------------------------------- build ----
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the Vcycle CUDA kernels")
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernel sources in ``SOURCES`` for sm_90a into one shared
-    library, unless one built from the same sources, header and flags
-    exists: one ``nvcc -c`` per source, all started together, then one
-    link. Returns (library path, the compiler's -Xptxas -v report)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (*SOURCES.values(), *HEADERS):
-        digest.update(path.read_bytes())
-    lib = BUILD_DIR / f"vcycle_{digest.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tmp = _nvcc(), lib.with_name(f".{lib.name}.{os.getpid()}")
-    objs = [tmp.with_name(f"{tmp.name}.{name}.o") for name in SOURCES]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for obj, src in zip(objs, SOURCES.values())]
-    report = "".join(p.communicate()[0] for p in procs)
-    try:
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"nvcc failed on {', '.join(SOURCES)}:\n"
-                               f"{report}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        if link.returncode:
-            raise RuntimeError(f"nvcc failed to link {lib.name}:\n"
-                               f"{link.stdout}{link.stderr}")
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    log.write_text(report)
-    tmp.replace(lib)
-    return lib, report
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()[0]))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.vcycle_chunk_launch.argtypes = [p] * 17 + [i] * 19 + [p]
-            lib.vcycle_chunk_launch.restype = i
-            lib.vcycle_seed_launch.argtypes = [p] * 12 + [i] * 12 + [p]
-            lib.vcycle_seed_launch.restype = i
-            lib.vcycle_error_string.argtypes = [i]
-            lib.vcycle_error_string.restype = ctypes.c_char_p
-            lib.vcycle_max_smem.argtypes = [ctypes.POINTER(i)]
-            lib.vcycle_max_smem.restype = i
-            _lib = lib
-    return _lib
-
-
 class RegLayout(NamedTuple):
     """The kernel's packed register file: core c keeps registers
     ``[0, rows[c])`` at shared-memory word ``roff[c]`` (``roff`` has C+1
@@ -251,18 +167,10 @@ def max_smem() -> int:
     """Opt-in shared memory per block on the current device."""
     dev = torch.cuda.current_device()
     if dev not in _MAX_SMEM:
-        lib = _load()
         out = ctypes.c_int(0)
-        _check(lib, "vcycle_chunk",
-               lib.vcycle_max_smem(ctypes.byref(out)))
+        check("vcycle_chunk", load().vcycle_max_smem(ctypes.byref(out)))
         _MAX_SMEM[dev] = out.value
     return _MAX_SMEM[dev]
-
-
-def _check(lib: ctypes.CDLL, kernel: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{kernel} CUDA error {err}: "
-                           f"{lib.vcycle_error_string(err).decode()}")
 
 
 def _cuda_int32(kernel: str, tensors, device) -> None:
@@ -335,7 +243,7 @@ def _launch(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
     bufs, gptrs, gints = _global_args("vcycle_chunk", *glob, cache, gcore,
                                       (B,), regs.device)
     with torch.cuda.device(regs.device):
-        lib = _load()
+        lib = load()
         need = smem_bytes(layout.words, C, S, n_sends)
         have = max_smem()
         if need > have:
@@ -356,7 +264,7 @@ def _launch(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
             B, C, Cp, T, R, S, L, n_sends, num_pro, K,
             min(int(budget), 2**31 - 1), int(prologue_only), layout.words,
             *gints, stream)
-        _check(lib, "vcycle_chunk", err)
+        check("vcycle_chunk", err)
     COUNTS["vcycle_chunk"] += 1
     out = (regs_o, spads_o, flags_o, nexec)
     return out if bufs[0] is None else out + bufs
@@ -391,7 +299,7 @@ def _launch_seed(code, luts, regs, spads, flags, glob, cache, gcore):
     bufs, gptrs, gints = _global_args("vcycle_seed", *glob, cache, gcore,
                                       (), regs.device)
     with torch.cuda.device(regs.device):
-        lib = _load()
+        lib = load()
         args = [t.contiguous() for t in (code, luts, regs, spads, flags)]
         regs_o = torch.empty_like(args[2])
         spads_o = torch.empty_like(args[3])
@@ -402,7 +310,7 @@ def _launch_seed(code, luts, regs, spads, flags, glob, cache, gcore):
             *(t.data_ptr() for t in args), regs_o.data_ptr(),
             spads_o.data_ptr(), flags_o.data_ptr(), trace.data_ptr(), *gptrs,
             C, Cp, T, R, S, L, *gints, stream)
-        _check(lib, "vcycle_seed", err)
+        check("vcycle_seed", err)
     COUNTS["vcycle_seed"] += 1
     out = (regs_o, spads_o, flags_o, trace)
     return out if bufs[0] is None else out + bufs

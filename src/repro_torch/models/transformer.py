@@ -1,0 +1,145 @@
+"""Decoder-only model stack: stacked ``[L, ...]`` layers applied in a loop.
+
+Port of the dense branch of ``repro.models.transformer`` (lines 60-160):
+``dense_block_init/fwd``, ``decoder_init/fwd``, ``_ring`` and
+``decoder_prefill``. ``scan_layers`` becomes a Python loop over the layer
+axis of the stacked leaves; ``_remat`` has no counterpart, since serving
+takes no gradient.
+
+One departure from the reference: ``decoder_prefill`` fills caches of the
+length ``Tw`` the caller allocated, with prompt token t in slot ``t % Tw``
+for the last ``min(S, Tw)`` tokens. The reference's ``_ring`` returns only
+``S`` slots when ``S < Tw``, so its first decode step writes slot
+``S % S = 0`` over the first prompt token (ROADMAP queue C). For
+``S >= Tw`` both give the same cache.
+
+MoE blocks, zamba2 (mamba2), xLSTM and the encoder-decoder stack are not
+ported yet (ROADMAP A7) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import layers as L
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.is_moe or cfg.block != "attn" or cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense decoder-only stacks; MoE, "
+            "zamba2, xLSTM and encoder-decoder wait for ROADMAP A7")
+
+
+def _stack(trees):
+    """Leaf-wise ``torch.stack`` of equally shaped parameter dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _stack_init(gen: torch.Generator, n: int, init_fn) -> Params:
+    return _stack([init_fn(gen) for _ in range(n)])
+
+
+def _layer(params: Params, i: int) -> Params:
+    """Layer i's parameters: index the leading axis of every stacked leaf."""
+    if isinstance(params, dict):
+        return {k: _layer(v, i) for k, v in params.items()}
+    return params[i]
+
+
+# ------------------------------------------------------- decoder-only ------
+def dense_block_init(gen: torch.Generator, cfg: ModelConfig,
+                     device) -> Params:
+    _dense_only(cfg)
+    dt = L._dtype(cfg)
+    p = {
+        "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
+        "attn": L.attention_init(gen, cfg, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, dt, device),
+    }
+    if cfg.d_ff:
+        p["mlp"] = L.mlp_init(gen, cfg, device)
+    return p
+
+
+def dense_block_fwd(cfg: ModelConfig, p: Params, x, pos,
+                    cache: Optional[Tuple] = None):
+    """Returns x; a cache ``(k, v)`` is updated in place. (The reference
+    also returns the cache and the MoE auxiliary loss, which is 0 for a
+    dense block.)"""
+    _dense_only(cfg)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cache is None:
+        a = L.attention_fwd(p["attn"], cfg, h, pos)
+    else:
+        a, _, _ = L.attention_decode(p["attn"], cfg, h, cache[0], cache[1],
+                                     pos)
+    x = x + a
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.d_ff:
+        x = x + L.mlp_fwd(p["mlp"], cfg, h)
+    return x
+
+
+def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    _dense_only(cfg)
+    return {
+        "embed": L.embed_init(gen, cfg, device),
+        "layers": _stack_init(gen, cfg.n_layers,
+                              lambda g: dense_block_init(g, cfg, device)),
+        "lnf": L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device),
+    }
+
+
+def decoder_fwd(cfg: ModelConfig, params: Params, x, pos,
+                caches: Optional[Tuple] = None):
+    """Loop over stacked layers. caches: (k [L,B,T,Hk,dh], v) or None;
+    a decode step updates them in place. Returns the normed hidden
+    states."""
+    for i in range(cfg.n_layers):
+        cache = None if caches is None else (caches[0][i], caches[1][i])
+        x = dense_block_fwd(cfg, _layer(params["layers"], i), x, pos, cache)
+    return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+def _ring(kv: torch.Tensor, S: int, Tw: int) -> torch.Tensor:
+    """The ``[B, Tw, ...]`` cache of a length-S prompt: slot j holds the
+    token with position = j mod Tw among the last min(S, Tw) tokens; slots
+    no token reached are zero."""
+    if S >= Tw:
+        return torch.roll(kv[:, -Tw:], S % Tw, dims=1)
+    out = kv.new_zeros((kv.shape[0], Tw) + tuple(kv.shape[2:]))
+    out[:, :S] = kv
+    return out
+
+
+def decoder_prefill(cfg: ModelConfig, params: Params, x, pos,
+                    caches: Tuple[torch.Tensor, torch.Tensor]):
+    """Forward the prompt once, filling the per-layer K/V ring caches
+    ``caches = (k, v)``, each ``[L, B, Tw, Hkv, dh]``, in place. Returns
+    the normed hidden states."""
+    _dense_only(cfg)
+    S = x.shape[1]
+    Tw = caches[0].shape[2]
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = L._qkv(p["attn"], cfg, hn, pos)
+        if cfg.swa_window is None:
+            a = L.flash_sdpa(q, k, v)
+        else:
+            mask = L.causal_mask(S, S, cfg.swa_window, device=x.device)
+            a = L._sdpa(q, k, v, mask, cfg)
+        x = x + a @ p["attn"]["wo"]
+        if cfg.d_ff:
+            x = x + L.mlp_fwd(p["mlp"], cfg,
+                              L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+        caches[0][i].copy_(_ring(k, S, Tw))
+        caches[1][i].copy_(_ring(v, S, Tw))
+    return L.rmsnorm(params["lnf"], x, cfg.norm_eps)

@@ -1,0 +1,97 @@
+"""The port's flash attention on the CPU (its plain version, ``flash_ref``)
+against the reference's Pallas kernel in interpret mode and its oracle.
+
+Inputs are made from a numpy seed and handed to both packages. Tolerances
+are the reference's own (``tests/test_kernels.py``): 2e-5 in float32,
+2e-2 in bfloat16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.ref import flash_ref as jax_flash_ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ref import flash_ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def inputs(seed, BH, BHkv, S, dh, dtype):
+    """q [BH, S, dh] and k, v [BHkv, S, dh]: numpy normals cast to dtype,
+    as jax arrays and as torch tensors holding the same values."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((BH, S, dh), (BHkv, S, dh), (BHkv, S, dh))]
+    return ([jnp.asarray(a, dtype) for a in arrays],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+def close(out, ref, dtype):
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("BH,S,dh,bq,bk,dtype,causal", [
+    (2, 256, 64, 64, 64, "float32", True),
+    (2, 256, 64, 64, 128, "float32", False),
+    (4, 512, 128, 128, 256, "bfloat16", True),
+    (1, 128, 32, 128, 64, "float32", True),
+    (3, 384, 64, 128, 128, "bfloat16", True),
+])
+def test_flash_matches_reference_kernel(BH, S, dh, bq, bk, dtype, causal):
+    """The five shapes of the reference's own kernel test."""
+    (q, k, v), (tq, tk, tv) = inputs(BH * S, BH, BH, S, dh, dtype)
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    close(out, jax_flash(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                         interpret=True), dtype)
+    close(out, jax_flash_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_reads_kv_head_h_div_g(dtype):
+    """G = 2 with distinct K/V per KV head: query row-set i reads KV row-set
+    i // G, which is the reference called with K/V repeated per group
+    (``jnp.repeat``), not tiled."""
+    B, H, Hkv, S, dh = 2, 4, 2, 128, 32
+    G = H // Hkv
+    (q, k, v), (tq, tk, tv) = inputs(7, B * H, B * Hkv, S, dh, dtype)
+    out = fa.flash_attention(tq, tk, tv)
+    kr, vr = jnp.repeat(k, G, axis=0), jnp.repeat(v, G, axis=0)
+    close(out, jax_flash(q, kr, vr, block_q=64, block_k=64, interpret=True),
+          dtype)
+    close(out, jax_flash_ref(q, kr, vr), dtype)
+    tiled = jax_flash_ref(q, jnp.tile(k, (G, 1, 1)), jnp.tile(v, (G, 1, 1)))
+    assert np.abs(out.float().numpy() - np.asarray(tiled, np.float32)).max() \
+        > 10 * TOL[dtype]
+
+
+@pytest.mark.parametrize("S,causal,dtype", [(200, True, "float32"),
+                                            (1000, True, "bfloat16"),
+                                            (77, False, "float32")])
+def test_any_sequence_length(S, causal, dtype):
+    """S that is no multiple of the kernel's 64-row tile."""
+    (q, k, v), (tq, tk, tv) = inputs(S, 3, 3, S, 64, dtype)
+    close(fa.flash_attention(tq, tk, tv, causal=causal),
+          jax_flash_ref(q, k, v, causal=causal), dtype)
+
+
+def test_plain_version_is_the_cpu_path_and_is_not_counted():
+    _, (tq, tk, tv) = inputs(0, 4, 2, 64, 16, "float32")
+    fa.reset_counts()
+    out = fa.flash_attention(tq, tk, tv)
+    assert torch.equal(out, flash_ref(tq, tk, tv))
+    assert fa.COUNTS == {"flash_attention": 0}
+
+
+def test_wrapper_rejects_what_it_cannot_run():
+    _, (tq, tk, tv) = inputs(0, 4, 2, 64, 16, "float32")
+    with pytest.raises(ValueError, match="BHkv dividing BH"):
+        fa.flash_attention(tq, tk.repeat(3, 1, 1)[:3], tv.repeat(3, 1, 1)[:3])
+    with pytest.raises(ValueError, match="dtypes differ"):
+        fa.flash_attention(tq, tk.double(), tv)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(*(t.to("meta") for t in (tq, tk, tv)))

@@ -182,3 +182,68 @@ def test_launch_bumps_the_counter(cuda):
     kv.vcycle_seed(*[a.to(cuda) for a in seed])
     kv.vcycle_seed_ref(*seed)
     assert kv.COUNTS == {"vcycle_chunk": 1, "vcycle_seed": 1}
+
+
+# ------------------------------------------------------- flash attention ----
+FLASH_SHAPES = [
+    # (BH, BHkv, S, dh, dtype, causal): tests/test_kernels.py's five, GQA,
+    # a tail tile, and the qwen3-0.6b prefill (B=4, H=16, Hkv=8, S=2048)
+    (2, 2, 256, 64, torch.float32, True),
+    (2, 2, 256, 64, torch.float32, False),
+    (4, 4, 512, 128, torch.bfloat16, True),
+    (1, 1, 128, 32, torch.float32, True),
+    (3, 3, 384, 64, torch.bfloat16, True),
+    (8, 4, 128, 32, torch.float32, True),
+    (3, 3, 1000, 64, torch.bfloat16, True),
+    (2, 1, 77, 16, torch.float32, False),
+    (64, 32, 2048, 128, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("BH,BHkv,S,dh,dtype,causal", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, BH, BHkv, S, dh, dtype, causal):
+    """The kernel against ``flash_ref`` on the same CUDA tensors: fp32
+    within 1e-4 (sums in another order), bf16 within 2e-2 (one rounding of
+    the output)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(BH * S + dh)
+    q, k, v = (torch.randn((n, S, dh), generator=g, device=cuda).to(dtype)
+               for n in (BH, BHkv, BHkv))
+    fa.reset_counts()
+    out = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"flash_attention": 1}
+    ref = flash_ref(q, k, v, causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
+    """qwen3-0.6b's SMOKE config in float32: the serve steps on the card
+    (flash kernel in the prefill) against the same on the CPU."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_serve_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKE["qwen3-0.6b"].scaled(dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, prefill, decode = make_serve_steps(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        fa.reset_counts()
+        logits, cache = prefill(params, {"tokens": tokens.to(dev)},
+                                model.make_cache(2, 128))
+        launches = fa.COUNTS["flash_attention"]
+        tok, seq = torch.argmax(logits[:, -1], -1)[:, None], []
+        for i in range(4):
+            tok, cache = decode(params, tok, cache, 100 + i)
+            seq.append(tok.cpu())
+        outs.append((logits.cpu(), torch.cat(seq, 1), launches))
+    (lg, toks, n), (lc, tokc, nc) = outs
+    assert n == cfg.n_layers and nc == 0
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(toks, tokc)
