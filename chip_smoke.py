@@ -13,9 +13,12 @@ against its plain PyTorch version on the card:
   prologues and global memory;
 * the seed kernel, bit for bit, on random programs (32-bit words, global
   memory) and on the first two Vcycles of each of the nine full circuits;
-* the flash-attention kernel against ``flash_ref`` (fp32 within 1e-4,
-  bf16 within 2e-2) at the reference kernel test's five shapes, GQA, a
-  tail tile, a non-causal shape and the qwen3-0.6b prefill's.
+* flash attention against ``flash_ref`` (fp32 within 1e-4, bf16 within
+  2e-2) at the reference kernel test's five shapes, GQA, a tail tile, a
+  non-causal shape and the qwen3-0.6b prefill's, each on the kernel that
+  ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the tensor-core
+  kernel ``flash_attention_sm90.cu``, float32 on the CUDA-core kernel
+  ``flash_attention.cu``.
 
 Then it drives the paths, each through the calls a user makes, with the
 launch counts set to 0 just before and read just after:
@@ -29,11 +32,14 @@ launch counts set to 0 just before and read just after:
   seeds=range(512)).run()``;
 * LM serving, ``repro_torch.launch.steps.make_serve_steps`` on qwen3-0.6b
   at full width (random weights from a seed): B=4 prompts of 2048 tokens,
-  one prefill (28 flash-attention launches) and 32 greedy decode steps in
-  bf16; in float32 the prefill equals the same model on ``flash_ref`` and
-  the first decode step equals a full forward over the 2049 tokens;
+  one prefill (28 ``flash_attention_sm90`` launches) and 32 greedy decode
+  steps in bf16; in float32 the prefill (28 ``flash_attention_simt``
+  launches) equals the same model on ``flash_ref`` and the first decode
+  step equals a full forward over the 2049 tokens;
 
-and times each kernel against its bound. Each phase prints one JSON line;
+and times each kernel against its bound (both flash kernels, the plain
+version and SDPA in turns at the prefill's shape). Each phase prints one
+JSON line;
 the last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 such line, when any phase fails, when no CUDA device is present, or when
 run outside a checkout.
@@ -112,27 +118,56 @@ def timed_build(kbuild):
     return path, log, time.perf_counter() - t0
 
 
-def phase_build(build_future):
+# each kernel's name in the compiler's report: the first key that its
+# mangled entry function holds
+PTXAS_KERNELS = {"vcycle_chunk_kernel": "vcycle_chunk",
+                 "vcycle_seed_kernel": "vcycle_seed",
+                 "flash_attention_sm90_kernel": "flash_attention_sm90",
+                 "flash_attention_kernel": "flash_attention_simt"}
+
+
+def phase_build(kbuild, build_future):
     """The library every kernel is built into, with each kernel's
-    registers a thread from the compiler's -Xptxas -v report (the most
-    over a kernel's template instances)."""
+    registers a thread, static shared memory and spills from the
+    compiler's -Xptxas -v report (the most over a kernel's template
+    instances), and the tensor-core flash kernel's dynamic shared memory.
+    That kernel must not spill."""
     t0 = time.perf_counter()
     path, log, build_s = build_future.result()
-    regs, kernel = {}, None
+    ptxas, kernel = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
         if m:
-            kernel = next((k for k in ("vcycle_chunk", "vcycle_seed",
-                                       "flash_attention")
-                           if k + "_kernel" in m.group(1)), m.group(1))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and kernel:
-            regs[kernel] = max(regs.get(kernel, 0), int(m.group(1)))
-    info = [ln.strip() for ln in log.splitlines()
-            if "entry function" in ln or "Used" in ln or "spill" in ln]
+            kernel = next((name for key, name in PTXAS_KERNELS.items()
+                           if key in m.group(1)), m.group(1))
+            ptxas.setdefault(kernel, {"registers": 0, "smem_bytes": 0,
+                                      "spill_bytes": 0})
+        if kernel is None:
+            continue
+        info = ptxas[kernel]
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
+                         ("spill_bytes", r"(\d+) bytes spill stores")):
+            m = re.search(pat, ln)
+            if m:
+                info[key] = max(info[key], int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill loads", ln)
+        if m:
+            info["spill_bytes"] = max(info["spill_bytes"], int(m.group(1)))
+    lib = kbuild.load()
+    if "flash_attention_sm90" in ptxas:
+        ptxas["flash_attention_sm90"]["dynamic_smem_bytes"] = {
+            dh: lib.flash_attention_sm90_smem_bytes(dh) for dh in (64, 128)}
     emit({"phase": "build", "library": str(path.relative_to(ROOT)),
-          "registers_per_thread": regs, "ptxas": info, "build_s": build_s,
-          "waited_s": time.perf_counter() - t0})
+          "registers_per_thread": {k: v["registers"]
+                                   for k, v in ptxas.items()},
+          "ptxas": ptxas, "ptxas_warnings": [
+              ln.strip() for ln in log.splitlines() if "arning" in ln],
+          "build_s": build_s, "waited_s": time.perf_counter() - t0})
+    sm90 = ptxas.get("flash_attention_sm90")
+    if sm90 is None or sm90["spill_bytes"]:
+        raise AssertionError(f"flash_attention_sm90: not built or spills "
+                             f"({sm90})")
 
 
 def _same(a, b) -> int:
@@ -560,24 +595,30 @@ def flash_inputs(torch, BH, BHkv, S, dh, dtype, seed):
 
 
 def phase_flash(torch, fa, flash_ref):
-    """The flash kernel against its plain version on the same CUDA
-    tensors; fp32 within 1e-4 (sums in another order), bf16 within 2e-2
-    (the output's rounding)."""
+    """Each case through ``flash_attention`` against the plain version on
+    the same CUDA tensors, with the kernel that ran (one launch, the one
+    ``route`` names); fp32 within 1e-4 (sums in another order), bf16
+    within 2e-2 (P and the output rounded to bf16)."""
     cases = []
     for i, (BH, BHkv, S, dh, dtype, causal) in enumerate(FLASH_CASES):
         q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, i)
+        fa.reset_counts()
         out = fa.flash_attention(q, k, v, causal)
+        ran = [name for name, n in fa.COUNTS.items() for _ in range(n)]
         ref = flash_ref(q, k, v, causal)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = FLASH_TOL[dtype]
+        tag = (f"flash BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} "
+               f"causal={causal}")
+        if ran != [fa.route(q.dtype, dh)]:
+            raise AssertionError(f"{tag}: launched {ran}")
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"flash BH={BH} BHkv={BHkv} S={S} dh={dh} "
-                                 f"{dtype} causal={causal}: kernel != plain "
-                                 f"(max abs err {err})")
+            raise AssertionError(f"{tag}: {ran[0]} != plain (max abs err "
+                                 f"{err})")
         cases.append({"BH": BH, "BHkv": BHkv, "S": S, "dh": dh,
-                      "dtype": dtype, "causal": causal, "max_abs_err": err,
-                      "tol": tol})
+                      "dtype": dtype, "causal": causal, "kernel": ran[0],
+                      "max_abs_err": err, "tol": tol})
     emit({"phase": "flash_vs_plain", "cases": cases})
     return max(c["max_abs_err"] for c in cases)
 
@@ -604,11 +645,13 @@ def _greedy(torch, model, params, logits, cache, n):
 
 def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
     """qwen3-0.6b at full width through ``make_serve_steps``: one prefill
-    and LM_DECODE greedy steps in the config's bf16, counted; prefill and
-    decode tokens/s; then the float32 checks (a) kernel prefill == the
-    same model on ``flash_ref`` (logits within 1e-3, LM_GREEDY_CHECK
-    greedy tokens equal) and (b) first decode step == a full forward over
-    the S+1 tokens (within 1e-3)."""
+    and LM_DECODE greedy steps in the config's bf16, counted (one
+    ``flash_attention_sm90`` launch a layer); prefill and decode
+    tokens/s; then the float32 checks (a) kernel prefill (one
+    ``flash_attention_simt`` launch a layer, counted) == the same model on
+    ``flash_ref`` (logits within 1e-3, LM_GREEDY_CHECK greedy tokens
+    equal) and (b) first decode step == a full forward over the S+1 tokens
+    (within 1e-3). Returns the two kernels' launches on their paths."""
     from unittest import mock
     cfg = ARCHS[LM_ARCH]
     rng = np.random.default_rng(13)
@@ -632,11 +675,12 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
         out.append(tok)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = fa.COUNTS["flash_attention"]
-    if launches != cfg.n_layers or any(kv.COUNTS.values()):
-        raise AssertionError(f"serving launched flash_attention {launches}"
-                             f" times (not {cfg.n_layers}), Vcycle kernels "
-                             f"{kv.COUNTS}")
+    launches = fa.COUNTS["flash_attention_sm90"]
+    if (launches != cfg.n_layers or fa.COUNTS["flash_attention_simt"]
+            or any(kv.COUNTS.values())):
+        raise AssertionError(f"bf16 serving launched {fa.COUNTS} (not "
+                             f"{cfg.n_layers} flash_attention_sm90), "
+                             f"Vcycle kernels {kv.COUNTS}")
     peak = torch.cuda.max_memory_allocated()
     gen = torch.cat(out, 1)
     if (not bool(torch.isfinite(logits).all())
@@ -669,7 +713,13 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
     p32 = m32.init(torch.Generator(device="cuda").manual_seed(1))
     with torch.inference_mode():
         c_k = m32.make_cache(LM_BATCH, LM_CTX)
+        fa.reset_counts()
         lk, c_k = m32.prefill(p32, {"tokens": tokens}, c_k)
+        launches32 = fa.COUNTS["flash_attention_simt"]
+        if launches32 != cfg.n_layers or fa.COUNTS["flash_attention_sm90"]:
+            raise AssertionError(f"float32 prefill launched {fa.COUNTS} "
+                                 f"(not {cfg.n_layers} "
+                                 "flash_attention_simt)")
         greedy_k, first = _greedy(torch, m32, p32, lk, c_k, LM_GREEDY_CHECK)
         full = _full_forward_last(torch, m32, L, p32, torch.cat(
             [tokens, greedy_k[:, :1]], 1))
@@ -697,7 +747,9 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
           "B": LM_BATCH, "S": LM_PROMPT, "ctx": LM_CTX,
-          "decode_steps": LM_DECODE, "flash_launches_per_prefill": launches,
+          "decode_steps": LM_DECODE,
+          "flash_attention_sm90_launches_per_prefill": launches,
+          "fp32_flash_attention_simt_launches_per_prefill": launches32,
           "first_run_s": first_s, "prefill_s": prefill_s,
           "prefill_tokens_per_s": [ntok / t for t in prefill_s],
           "decode_s": decode_s,
@@ -706,7 +758,7 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
           "fp32_prefill_vs_plain_max_abs_err": err_a,
           "fp32_greedy_tokens_equal": LM_GREEDY_CHECK,
           "fp32_first_decode_vs_full_forward_max_abs_err": err_b})
-    return launches
+    return launches, launches32
 
 
 def _leaves(tree):
@@ -718,47 +770,62 @@ def _leaves(tree):
 
 
 def time_flash(torch, fa, flash_ref):
-    """The flash kernel at the qwen3-0.6b prefill's shape (bf16, causal,
-    GQA G=2): CUDA-event ms, the plain version's, the bound, and one
-    PyTorch call computing the same function (SDPA, the yardstick; the
-    port never calls it)."""
+    """Both flash kernels at the qwen3-0.6b prefill's shape (bf16, causal,
+    GQA G=2), timed in one call in turns (tensor-core kernel, CUDA-core
+    kernel, plain version, SDPA, then the same in reverse): CUDA-event ms,
+    the bound they share, and one PyTorch call computing the same function
+    (SDPA, the yardstick; the port never calls it)."""
     import torch.nn.functional as F
     BH, BHkv, S, dh = LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", 99)
-    out = [None]
-
-    def launch():
-        out[-1] = fa.flash_attention(q, k, v)
-
-    ms = cuda_ms(torch, launch, 20)
-    plain_ms = cuda_ms(torch, lambda: flash_ref(q, k, v), 3, warm=1)
     B = LM_BATCH
     q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh) for t in (q, k, v))
-    try:
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True), 20)
-        library = "scaled_dot_product_attention(is_causal, enable_gqa)"
-    except TypeError:          # a torch without enable_gqa
-        k4, v4 = (t.repeat_interleave(BH // BHkv, 1) for t in (k4, v4))
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 20)
-        library = "scaled_dot_product_attention(is_causal), K/V repeated"
-    err = float((out[-1].float() - flash_ref(q, k, v).float()).abs().max())
-    if err > FLASH_TOL["bfloat16"] * 4:
-        raise AssertionError(f"timed flash: kernel != plain ({err})")
+    library = "scaled_dot_product_attention(is_causal, enable_gqa)"
+    out = {}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    def run(name, fn):
+        def launch():
+            out[name] = fn(q, k, v)
+        return launch
+
+    fns = {"flash_attention_sm90": (run("flash_attention_sm90",
+                                        fa.flash_attention_sm90), 20, 3),
+           "flash_attention_simt": (run("flash_attention_simt",
+                                        fa.flash_attention_simt), 5, 1),
+           "plain": (run("plain", flash_ref), 3, 1),
+           "library": (sdpa, 20, 3)}
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, n, warm = fns[name]
+            turns[name].append(cuda_ms(torch, fn, n, warm))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
     # each input read once, the output written once; causal score and
     # P V products: 2 x (BH S^2 dh / 2) multiply-adds
     nbytes = 2 * (2 * BH * S * dh + 2 * BHkv * S * dh)
     flops = 2 * BH * S * S * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 causal",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-            "library": library, "max_abs_err": err,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
-            "tflops_per_s": flops / ms * 1e-9}
+    common = {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 causal",
+              "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+              "library_ms": ms["library"],
+              "library_ms_turns": turns["library"], "library": library,
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "bytes": nbytes, "flops": flops}
+    res = {}
+    for name in ("flash_attention_sm90", "flash_attention_simt"):
+        err = float((out[name].float() - out["plain"].float()).abs().max())
+        if err > FLASH_TOL["bfloat16"] * 4:
+            raise AssertionError(f"timed {name} != plain ({err})")
+        res[name] = {**common, "ms": ms[name], "ms_turns": turns[name],
+                     "max_abs_err": err,
+                     "tflops_per_s": flops / ms[name] * 1e-9}
+    return res
 
 
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
@@ -946,7 +1013,7 @@ def main() -> int:
         build_future = nvcc.submit(timed_build, kbuild)
         compiles = [pool.submit(compile_full, n, CHECK_SEEDS) for n in NAMES]
         smi = phase_device(torch)
-        phase_build(build_future)
+        phase_build(kbuild, build_future)
         phase_flash(torch, fa, flash_ref)
         phase_random(torch, kv, random_chunk, CacheModel)
         phase_seed_random(torch, kv, random_vcycle, CacheModel)
@@ -968,16 +1035,17 @@ def main() -> int:
     bat_fig8 = phase_fig8(torch, kv, sim, bsp, IsaEngine, build_membench,
                           fig8_hw, CacheModel)
     eng, launches = phase_main(torch, kv, sim, IsaEngine)
-    flash_launches = phase_lm_serve(torch, fa, kv, flash_ref, steps, L,
-                                    ARCHS)
+    sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
+                                                  steps, L, ARCHS)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8,
                                int(Op.LUT))
     flash = time_flash(torch, fa, flash_ref)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
-          "flash_attention": flash,
+          **flash,
           "seed_launches_on_seed_path": seed_launches,
           "b1_chunk_launches_on_machine_path": b1_launches,
-          "flash_launches_on_serving_path": flash_launches})
+          "sm90_launches_on_bf16_serving_path": sm90_launches,
+          "simt_launches_on_fp32_serving_path": simt_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     kernels = [
         kernel_line("vcycle_chunk",
@@ -989,10 +1057,16 @@ def main() -> int:
                     "src/repro_torch/kernels/csrc/vcycle_seed.cu",
                     "src/repro/kernels/vcycle.py:45 _vcycle_kernel",
                     seed_launches, seed),
-        kernel_line("flash_attention",
+        kernel_line("flash_attention_sm90",
+                    "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
+                    "(bf16, dh 64 or 128)",
+                    sm90_launches, flash["flash_attention_sm90"]),
+        kernel_line("flash_attention_simt",
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
-                    "src/repro/kernels/flash_attention.py:33 _flash_kernel",
-                    flash_launches, flash)]
+                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
+                    "(float32, other head dims)",
+                    simt_launches, flash["flash_attention_simt"])]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

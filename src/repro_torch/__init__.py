@@ -16,5 +16,7 @@ parameters across from the reference package as numpy arrays.
 
 The LM scaffold's serving path is ported for dense decoder-only configs:
 ``launch.steps.make_serve_steps`` over ``models`` and ``configs``, with
-the prefill's attention on the kernel ``kernels/csrc/flash_attention.cu``.
+the prefill's attention on the kernels ``kernels/csrc/flash_attention_sm90.cu``
+(bf16, head dims 64 and 128, on the tensor cores) and
+``kernels/csrc/flash_attention.cu`` (float32 and the other head dims).
 """

@@ -19,6 +19,7 @@ import torch
 from .core.bsp import MachineState, from_words, to_words
 from .core.compile import Program
 from .core.isa import HardwareConfig
+from .device import resolve_device
 
 
 def program_to_arrays(program) -> Dict[str, Any]:
@@ -49,11 +50,13 @@ def program_from_arrays(fields: Dict[str, Any]) -> Program:
     return Program(hw=HardwareConfig(**hw), **f)
 
 
-def state_from_numpy(leaves: Sequence[np.ndarray], device="cpu"
+def state_from_numpy(leaves: Sequence[np.ndarray], device=None
                      ) -> MachineState:
     """A ``MachineState`` (single ``[C, ...]`` or batched ``[B, C, ...]``)
     from the reference's six leaves as numpy arrays, in its order
-    (regs, spads, gmem, flags, cache_tags, counters)."""
+    (regs, spads, gmem, flags, cache_tags, counters), on ``device`` (None:
+    the card, see ``device.resolve_device``)."""
+    device = resolve_device(device)
     regs, spads, gmem, flags, tags, counters = leaves
     return MachineState(
         regs=to_words(regs, device), spads=to_words(spads, device),
@@ -80,10 +83,12 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The port's LM parameters from the reference's parameter pytree with
     numpy leaves (``jax.tree.map(np.asarray, params)``): the same nested
-    dict, name for name, stacked ``[L, ...]`` leaves kept, on ``device``."""
+    dict, name for name, stacked ``[L, ...]`` leaves kept, on ``device``
+    (None: the card, see ``device.resolve_device``)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _leaf_from_numpy(tree, device)

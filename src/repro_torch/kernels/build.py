@@ -93,6 +93,11 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [
                 ctypes.c_float, p]
             lib.flash_attention_launch.restype = i
+            lib.flash_attention_sm90_launch.argtypes = [p] * 4 + [i] * 5 + [
+                ctypes.c_float, p]
+            lib.flash_attention_sm90_launch.restype = i
+            lib.flash_attention_sm90_smem_bytes.argtypes = [i]
+            lib.flash_attention_sm90_smem_bytes.restype = i
             lib.vcycle_error_string.argtypes = [i]
             lib.vcycle_error_string.restype = ctypes.c_char_p
             lib.vcycle_max_smem.argtypes = [ctypes.POINTER(i)]

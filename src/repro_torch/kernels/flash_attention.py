@@ -1,13 +1,25 @@
-"""Fused (flash) softmax attention: the CUDA kernel for Hopper and its wrapper.
+"""Fused (flash) softmax attention: two CUDA kernels for Hopper and their
+wrappers.
 
-``flash_attention`` launches ``csrc/flash_attention.cu``, which replaces
-the TPU kernel ``repro/kernels/flash_attention.py:33 _flash_kernel``
-(wrapper ``flash_attention`` :74). The prefill of every dense decoder runs
-its self-attention through it (``models/layers.py``). On CPU tensors the
+Both kernels replace the TPU kernel
+``repro/kernels/flash_attention.py:33 _flash_kernel`` (wrapper
+``flash_attention`` :74), each for its own part of the inputs:
+
+* ``flash_attention_sm90`` launches ``csrc/flash_attention_sm90.cu``:
+  bfloat16 with ``dh`` 64 or 128, on the tensor cores (wgmma, K/V tiles
+  by TMA into a ring of shared memory). Every served dense config has
+  ``dh = 128``.
+* ``flash_attention_simt`` launches ``csrc/flash_attention.cu``: float32,
+  and bfloat16 with any other ``dh <= 128``, on the CUDA cores in fp32.
+  float32 stays there because the bf16 tensor cores cannot hold 1e-4.
+
+``flash_attention`` picks one of them by ``route(dtype, dh)``; what no
+kernel takes raises. The prefill of every dense decoder runs its
+self-attention through it (``models/layers.py``). On CPU tensors every
 wrapper runs the plain version ``kernels/ref.py::flash_ref`` instead; on
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches its kernel or raises.
 
-The kernel is built at first use with the port's other kernels
+The kernels are built at first use with the port's other kernels
 (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -19,15 +31,33 @@ import torch
 from .build import check, load
 from .ref import flash_ref
 
-# launches of the CUDA kernel since the last reset (the CPU path and the
+# launches of each CUDA kernel since the last reset (the CPU path and the
 # plain version never count)
-COUNTS = {"flash_attention": 0}
+COUNTS = {"flash_attention_sm90": 0, "flash_attention_simt": 0}
 MAX_HEAD_DIM = 128
+SM90_HEAD_DIMS = (64, 128)
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel that runs attention of ``dtype`` and head dimension
+    ``dh``: ``"flash_attention_sm90"`` for bfloat16 with ``dh`` in
+    ``SM90_HEAD_DIMS``, ``"flash_attention_simt"`` for float32 and for
+    bfloat16 with any other ``dh <= MAX_HEAD_DIM``. Raises ``ValueError``
+    for anything else."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention's kernels take dh <= "
+                         f"{MAX_HEAD_DIM}, got dh={dh}")
+    if dtype == torch.bfloat16 and dh in SM90_HEAD_DIMS:
+        return "flash_attention_sm90"
+    if dtype in (torch.float32, torch.bfloat16):
+        return "flash_attention_simt"
+    raise ValueError("flash_attention's kernels take float32 or bfloat16, "
+                     f"got {dtype}")
 
 
 def _validate(q, k, v) -> None:
@@ -53,29 +83,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query row-set i reads key/value row-set ``i // G``, so batch-major
     ``[B * H]`` query heads over ``[B * Hkv]`` KV heads is grouped-query
     attention with head h reading KV head ``h // G`` and no copy of K/V.
-    Returns ``[BH, S, dh]`` in q's dtype. On the card: float32 or bfloat16,
-    ``dh <= 128``, any S."""
+    Returns ``[BH, S, dh]`` in q's dtype, for any S. The kernel is
+    ``route(q.dtype, dh)``'s: bfloat16 with dh 64 or 128 on
+    ``flash_attention_sm90``, float32 and bfloat16 with any other
+    ``dh <= 128`` on ``flash_attention_simt``; anything else raises."""
     _validate(q, k, v)
+    return _KERNELS[route(q.dtype, q.shape[-1])](q, k, v, causal)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied when it does not start on a 16-byte boundary (TMA
+    reads only from such)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` on ``csrc/flash_attention_sm90.cu``: bfloat16,
+    ``dh`` 64 or 128, any S (``ceil(S / 128) <= 65535``)."""
+    _validate(q, k, v)
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in SM90_HEAD_DIMS:
+        raise ValueError("flash_attention_sm90 takes bfloat16 with dh in "
+                         f"{SM90_HEAD_DIMS}, got {q.dtype} with "
+                         f"dh={q.shape[-1]}")
     if q.device.type == "cpu":
         return flash_ref(q, k, v, causal)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+        raise ValueError(f"flash_attention_sm90: no kernel for {q.device}")
     BH, S, dh = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("flash_attention's kernel takes float32 or "
-                         f"bfloat16, got {q.dtype}")
-    if dh > MAX_HEAD_DIM or BH > 65535:
-        raise ValueError(f"flash_attention's kernel takes dh <= "
-                         f"{MAX_HEAD_DIM} and BH <= 65535, got dh={dh}, "
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = load().flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH,
+            k.shape[0], S, dh, int(causal), 1.0 / math.sqrt(dh), _stream(q))
+        check("flash_attention_sm90", err)
+    COUNTS["flash_attention_sm90"] += 1
+    return o
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` on ``csrc/flash_attention.cu``: float32 or
+    bfloat16, ``dh <= 128``, any S. ``flash_attention`` sends it float32
+    and the bfloat16 head dims ``flash_attention_sm90`` does not take."""
+    _validate(q, k, v)
+    route(q.dtype, q.shape[-1])     # raises for what no kernel takes
+    if q.device.type == "cpu":
+        return flash_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_simt: no kernel for {q.device}")
+    BH, S, dh = q.shape
+    if BH > 65535:
+        raise ValueError(f"flash_attention_simt takes BH <= 65535, got "
                          f"BH={BH}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = load().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH,
             k.shape[0], S, dh, int(causal), int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(dh), stream)
-        check("flash_attention", err)
-    COUNTS["flash_attention"] += 1
+            1.0 / math.sqrt(dh), _stream(q))
+        check("flash_attention_simt", err)
+    COUNTS["flash_attention_simt"] += 1
     return o
+
+
+_KERNELS = {"flash_attention_sm90": flash_attention_sm90,
+            "flash_attention_simt": flash_attention_simt}

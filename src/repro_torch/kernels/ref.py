@@ -24,8 +24,9 @@ does); a SEND's capture is masked to 16 bits. The seed form
 result to 16 bits before the register write, as that kernel does; the two
 forms agree on every compiled Program, whose words never reach 2**16.
 
-``flash_ref`` is the plain version of the flash-attention kernel
-(``csrc/flash_attention.cu``), the port of ``repro.kernels.ref.flash_ref``.
+``flash_ref`` is the plain version of the flash-attention kernels
+(``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention.cu``), the port
+of ``repro.kernels.ref.flash_ref``.
 
 Global memory (GLD/GST) and the privileged core's direct-mapped cache and
 stall model are ``repro.core.bsp.make_window_step``'s: the address is
@@ -422,7 +423,7 @@ def exec_rows(slots: Sequence[Slot], luts, regs, spads, flags, sbuf=None,
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
-    """Plain softmax attention, the oracle of ``csrc/flash_attention.cu``:
+    """Plain softmax attention, the oracle of both flash kernels:
     fp32 scores over ``sqrt(dh)``, -1e30 above the diagonal when causal,
     softmax, ``P @ V`` in fp32, cast to q's dtype. q ``[BH, S, dh]``; k, v
     ``[BHkv, S, dh]`` with ``BH = G * BHkv``: query row-set i reads

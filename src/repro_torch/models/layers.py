@@ -9,8 +9,10 @@ What differs from the reference:
 * Full self-attention without a window (``attention_fwd``) runs the
   flash-attention kernel (``kernels/flash_attention.py``), the port of the
   TPU kernel the reference names as the target form of that attention.
-  It keeps the softmax weights in fp32 for ``P @ V``, where ``_sdpa``
-  casts them to v's dtype first, so in bf16 the two differ by rounding.
+  Its float32 kernel keeps the softmax weights in fp32 for ``P @ V``; the
+  bf16 tensor-core kernel rounds them to bf16 as ``_sdpa`` casts them to
+  v's dtype, but after the running max, not after the whole softmax, so
+  in bf16 the two differ by rounding.
   Windowed attention and decode keep ``_sdpa``. ``_sdpa_chunked`` and
   ``REPRO_ATTN_CHUNK`` have no counterpart: the kernel replaces them.
 * ``attention_decode`` writes the new K/V into the cache in place.

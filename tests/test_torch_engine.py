@@ -187,6 +187,20 @@ def test_batched_exception_freeze_per_element():
         assert tm.perf(ts, i)["vcycles"] == stop + 1
 
 
+def test_state_from_numpy_goes_to_the_card_unless_asked(small):
+    """No ``device`` means the card; without one ``state_from_numpy`` raises
+    rather than placing the state on the CPU."""
+    _, prog = small["mc"]
+    leaves = state_to_numpy(tbsp.Machine(port(prog), device="cpu")
+                            .init_state())
+    if torch.cuda.is_available():
+        assert state_from_numpy(leaves).regs.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            state_from_numpy(leaves)
+    assert state_from_numpy(leaves, device="cpu").regs.device.type == "cpu"
+
+
 def test_entry_points_run_on_the_card_unless_asked(small):
     """No ``device`` means the card; without one the constructor raises
     rather than falling back to the CPU."""

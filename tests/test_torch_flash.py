@@ -84,7 +84,50 @@ def test_plain_version_is_the_cpu_path_and_is_not_counted():
     fa.reset_counts()
     out = fa.flash_attention(tq, tk, tv)
     assert torch.equal(out, flash_ref(tq, tk, tv))
-    assert fa.COUNTS == {"flash_attention": 0}
+    assert fa.COUNTS == {"flash_attention_sm90": 0,
+                         "flash_attention_simt": 0}
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "flash_attention_sm90",
+                                     "flash_attention_simt"])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_every_wrapper_runs_the_plain_version_on_the_cpu(wrapper, dh):
+    """bf16 at the tensor-core kernel's head dims: on CPU tensors each
+    wrapper returns ``flash_ref``'s output and bumps neither counter."""
+    _, (tq, tk, tv) = inputs(dh, 4, 2, 40, dh, "bfloat16")
+    fa.reset_counts()
+    out = getattr(fa, wrapper)(tq, tk, tv, causal=False)
+    assert torch.equal(out, flash_ref(tq, tk, tv, causal=False))
+    assert not any(fa.COUNTS.values())
+
+
+@pytest.mark.parametrize("dtype,dh,kernel", [
+    (torch.bfloat16, 128, "flash_attention_sm90"),
+    (torch.bfloat16, 64, "flash_attention_sm90"),
+    (torch.bfloat16, 32, "flash_attention_simt"),
+    (torch.bfloat16, 16, "flash_attention_simt"),
+    (torch.bfloat16, 96, "flash_attention_simt"),
+    (torch.bfloat16, 1, "flash_attention_simt"),
+    (torch.float32, 128, "flash_attention_simt"),
+    (torch.float32, 64, "flash_attention_simt"),
+    (torch.float32, 16, "flash_attention_simt"),
+])
+def test_route_by_dtype_and_head_dim(dtype, dh, kernel):
+    """bf16 with dh 64 or 128 on the tensor cores; float32 and every other
+    bf16 head dim up to 128 on the CUDA cores."""
+    assert fa.route(dtype, dh) == kernel
+
+
+@pytest.mark.parametrize("dtype,dh,match", [
+    (torch.bfloat16, 129, "dh <= 128, got dh=129"),
+    (torch.float32, 256, "dh <= 128, got dh=256"),
+    (torch.bfloat16, 0, "dh <= 128, got dh=0"),
+    (torch.float16, 64, "float32 or bfloat16, got torch.float16"),
+    (torch.float64, 128, "float32 or bfloat16, got torch.float64"),
+])
+def test_route_raises_for_what_no_kernel_takes(dtype, dh, match):
+    with pytest.raises(ValueError, match=match):
+        fa.route(dtype, dh)
 
 
 def test_wrapper_rejects_what_it_cannot_run():
@@ -95,3 +138,24 @@ def test_wrapper_rejects_what_it_cannot_run():
         fa.flash_attention(tq, tk.double(), tv)
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention(*(t.to("meta") for t in (tq, tk, tv)))
+
+
+def test_wrapper_error_messages():
+    """What the wrappers say, on the CPU as on the card, for a head dim
+    above 128, a dtype no kernel takes, BHkv not dividing BH, and a
+    tensor-core call outside its contract."""
+    _, (tq, tk, tv) = inputs(1, 4, 2, 16, 160, "float32")
+    with pytest.raises(ValueError, match="dh <= 128, got dh=160"):
+        fa.flash_attention(tq, tk, tv)
+    _, (tq, tk, tv) = inputs(2, 4, 2, 16, 64, "float32")
+    with pytest.raises(ValueError, match="float32 or bfloat16, got "
+                                         "torch.float16"):
+        fa.flash_attention(tq.half(), tk.half(), tv.half())
+    with pytest.raises(ValueError, match=r"BHkv dividing BH; got q \(4, 16, "
+                                         r"64\), k \(3, 16, 64\)"):
+        fa.flash_attention(tq, tk[:1].repeat(3, 1, 1), tv[:1].repeat(3, 1, 1))
+    with pytest.raises(ValueError, match="flash_attention_sm90 takes "
+                                         "bfloat16 with dh in"):
+        fa.flash_attention_sm90(tq, tk, tv)
+    with pytest.raises(ValueError, match="dh <= 128, got dh=160"):
+        fa.flash_attention_simt(*inputs(1, 4, 2, 16, 160, "float32")[1])

@@ -202,9 +202,9 @@ FLASH_SHAPES = [
 
 @pytest.mark.parametrize("BH,BHkv,S,dh,dtype,causal", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, BH, BHkv, S, dh, dtype, causal):
-    """The kernel against ``flash_ref`` on the same CUDA tensors: fp32
-    within 1e-4 (sums in another order), bf16 within 2e-2 (one rounding of
-    the output)."""
+    """``flash_attention`` against ``flash_ref`` on the same CUDA tensors,
+    through the kernel ``route`` picks: fp32 within 1e-4 (sums in another
+    order), bf16 within 2e-2 (P and the output rounded to bf16)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,10 +214,69 @@ def test_flash_kernel_matches_plain(cuda, BH, BHkv, S, dh, dtype, causal):
     fa.reset_counts()
     out = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fa.COUNTS == {"flash_attention": 1}
+    kernel = fa.route(dtype, dh)
+    assert fa.COUNTS == {name: int(name == kernel) for name in fa.COUNTS}
     ref = flash_ref(q, k, v, causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _bf16_qkv(cuda, BH, BHkv, S, dh, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn((n, S, dh), generator=g, device=cuda)
+                 .to(torch.bfloat16) for n in (BH, BHkv, BHkv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("S", [1, 17, 128, 129, 1000, 2048])
+def test_flash_sm90_matches_plain(cuda, S, G, dh, causal):
+    """The tensor-core kernel against ``flash_ref`` in bf16 within 2e-2:
+    one key tile and less (S = 1, 17, 128: the accumulator-to-A-fragment
+    identity on one tile), a tail tile of one row (129), many tiles with a
+    ragged tail (1000) and the serving length (2048), each with 2 KV heads
+    read by G query heads."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_ref
+    q, k, v = _bf16_qkv(cuda, 2 * G, 2, S, dh, S * 100 + G * 10 + dh)
+    fa.reset_counts()
+    out = fa.flash_attention_sm90(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["flash_attention_sm90"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), flash_ref(q, k, v, causal)
+                               .float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_sm90_reads_kv_head_h_div_g(cuda):
+    """Distinct K/V per KV head at G = 2 over a ragged S: query row-set i
+    must read K/V row-set i // G (repeat_interleave), not i % BHkv (tile),
+    and only rows below S of its own row-set."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_ref
+    BHkv, G, S = 3, 2, 200
+    q, k, v = _bf16_qkv(cuda, BHkv * G, BHkv, S, 128, 5)
+    out = fa.flash_attention_sm90(q, k, v).float()
+    torch.testing.assert_close(out, flash_ref(q, k, v).float(), rtol=2e-2,
+                               atol=2e-2)
+    tiled = flash_ref(q, k.repeat(G, 1, 1), v.repeat(G, 1, 1)).float()
+    assert float((out - tiled).abs().max()) > 0.2
+
+
+def test_flash_routing_picks_the_kernel(cuda):
+    """bf16 at dh = 128 runs on the tensor-core kernel, float32 on the
+    CUDA-core one, each launched once."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _bf16_qkv(cuda, 4, 2, 64, 128, 0)
+    for dtype, kernel in ((torch.bfloat16, "flash_attention_sm90"),
+                          (torch.float32, "flash_attention_simt")):
+        fa.reset_counts()
+        fa.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+        assert fa.COUNTS == {name: int(name == kernel)
+                             for name in fa.COUNTS}
+    with pytest.raises(ValueError, match="flash_attention_sm90 takes"):
+        fa.flash_attention_sm90(q.float(), k.float(), v.float())
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
@@ -237,13 +296,14 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
         fa.reset_counts()
         logits, cache = prefill(params, {"tokens": tokens.to(dev)},
                                 model.make_cache(2, 128))
-        launches = fa.COUNTS["flash_attention"]
+        launches = fa.COUNTS["flash_attention_simt"]
         tok, seq = torch.argmax(logits[:, -1], -1)[:, None], []
         for i in range(4):
             tok, cache = decode(params, tok, cache, 100 + i)
             seq.append(tok.cpu())
         outs.append((logits.cpu(), torch.cat(seq, 1), launches))
     (lg, toks, n), (lc, tokc, nc) = outs
-    assert n == cfg.n_layers and nc == 0
+    assert n == cfg.n_layers and nc == 0 and not fa.COUNTS[
+        "flash_attention_sm90"]
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(toks, tokc)

@@ -51,7 +51,7 @@ class Case:
         tree = jax.tree.map(np.asarray, self.ref.init(jax.random.key(2)))
         self.np_params = perturb(rng, tree)
         self.rparams = jax.tree.map(jnp.asarray, self.np_params)
-        self.params = params_from_jax(self.np_params)
+        self.params = params_from_jax(self.np_params, device="cpu")
         self.tokens = rng.integers(0, self.cfg.vocab, (B, S)).astype(np.int32)
         self.ref_prefill = jax.jit(self.ref.prefill)
         self.ref_decode = jax.jit(self.ref.decode_step)
@@ -131,7 +131,8 @@ def test_norm_rope_and_qkv_match_reference(case, m_rope):
     x = rng.standard_normal((B, S, case.cfg.d_model)).astype(np.float32)
     rx, tx = jnp.asarray(x, dt), t(x).to(getattr(torch, dt))
     ln = jax.tree.map(lambda a: a[0], case.np_params["layers"]["ln1"])
-    case.close(L.rmsnorm(params_from_jax(ln), tx, case.cfg.norm_eps),
+    case.close(L.rmsnorm(params_from_jax(ln, device="cpu"), tx,
+                         case.cfg.norm_eps),
                RL.rmsnorm(jax.tree.map(jnp.asarray, ln), rx,
                           case.rcfg.norm_eps))
     heads = rng.standard_normal((B, S, 4, case.cfg.d_head)).astype(np.float32)
@@ -143,7 +144,7 @@ def test_norm_rope_and_qkv_match_reference(case, m_rope):
     attn = jax.tree.map(lambda a: a[0], case.np_params["layers"]["attn"])
     cfg_t = case.cfg.scaled(m_rope=m_rope)
     cfg_r = case.rcfg.scaled(m_rope=m_rope)
-    mine = L._qkv(params_from_jax(attn), cfg_t, tx, t(pos))
+    mine = L._qkv(params_from_jax(attn, device="cpu"), cfg_t, tx, t(pos))
     ref = RL._qkv(jax.tree.map(jnp.asarray, attn), cfg_r, rx,
                   jnp.asarray(pos))
     for a, b in zip(mine, ref):
@@ -248,6 +249,21 @@ def test_entry_points_need_a_card_or_device_cpu():
         build(cfg).make_cache(1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build(cfg).init(torch.Generator())
+
+
+def test_params_from_jax_go_to_the_card_unless_asked():
+    """No ``device`` means the card; without one ``params_from_jax`` raises
+    as ``resolve_device`` does, rather than placing weights on the CPU."""
+    tree = {"embed": np.ones((4, 2), np.float32),
+            "layers": {"w": np.zeros((2, 3, 3), np.float32)}}
+    if torch.cuda.is_available():
+        assert params_from_jax(tree)["layers"]["w"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            params_from_jax(tree)
+    cpu = params_from_jax(tree, device="cpu")
+    assert cpu["embed"].device.type == "cpu"
+    assert torch.equal(cpu["layers"]["w"], torch.zeros((2, 3, 3)))
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "zamba2-7b", "xlstm-125m",
