@@ -38,8 +38,13 @@ launch counts set to 0 just before and read just after:
   step equals a full forward over the 2049 tokens;
 
 and times each kernel against its bound (both flash kernels, the plain
-version and SDPA in turns at the prefill's shape). Each phase prints one
-JSON line;
+version and SDPA in turns at the prefill's shape in bf16, and the CUDA-core
+kernel, the plain version and SDPA in turns in float32). Each Vcycle case
+of the timing also reports what bounds the kernel: the busiest core's rows
+a Vcycle (``busy_rows``), the kernel's ns per such row
+(``ns_per_busy_row``), the bytes of code rows it reads a launch
+(``code_bytes``) and, for the chunk kernel, its shared memory a block,
+blocks an SM and waves. Each phase prints one JSON line;
 the last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 such line, when any phase fails, when no CUDA device is present, or when
 run outside a checkout.
@@ -75,6 +80,7 @@ LM_CTX = LM_PROMPT + 64
 LM_GREEDY_CHECK = 8        # greedy tokens compared in float32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 # INT32 issue rate: the H100 SXM's 67 TFLOP/s FP32 peak is 132 SMs x 128
 # lanes x 2 (FMA) x 1.98 GHz; each SM has 64 INT32 lanes, one op per clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -131,7 +137,7 @@ def phase_build(kbuild, build_future):
     registers a thread, static shared memory and spills from the
     compiler's -Xptxas -v report (the most over a kernel's template
     instances), and the tensor-core flash kernel's dynamic shared memory.
-    That kernel must not spill."""
+    That kernel and the two Vcycle kernels must not spill."""
     t0 = time.perf_counter()
     path, log, build_s = build_future.result()
     ptxas, kernel = {}, None
@@ -164,10 +170,10 @@ def phase_build(kbuild, build_future):
           "ptxas": ptxas, "ptxas_warnings": [
               ln.strip() for ln in log.splitlines() if "arning" in ln],
           "build_s": build_s, "waited_s": time.perf_counter() - t0})
-    sm90 = ptxas.get("flash_attention_sm90")
-    if sm90 is None or sm90["spill_bytes"]:
-        raise AssertionError(f"flash_attention_sm90: not built or spills "
-                             f"({sm90})")
+    for name in ("flash_attention_sm90", "vcycle_chunk", "vcycle_seed"):
+        info = ptxas.get(name)
+        if info is None or info["spill_bytes"]:
+            raise AssertionError(f"{name}: not built or spills ({info})")
 
 
 def _same(a, b) -> int:
@@ -182,10 +188,10 @@ SEED_OUTPUTS = ("regs", "spads", "flags", "trace", "gmem", "tags",
                 "counters")
 
 
-def check_chunk(kv, args, budget, kw, tag, layout=None):
+def check_chunk(kv, args, budget, kw, tag, layout=None, rows=None):
     """One chunk through the kernel and the plain version on the same
     inputs; returns the kernel's outputs after asserting bit equality."""
-    out_k = kv.vcycle_chunk(*args, budget, layout=layout, **kw)
+    out_k = kv.vcycle_chunk(*args, budget, layout=layout, rows=rows, **kw)
     out_p = kv.vcycle_chunk_ref(*args, budget, **kw)
     if len(out_k) != len(out_p):
         raise AssertionError(f"{tag}: {len(out_k)} outputs != "
@@ -228,7 +234,8 @@ def phase_circuit(torch, kv, bsp, IsaSim, item):
     while True:
         args = (*kb.tables(), regs, spads, flags, cyc)
         regs2, spads2, flags2, nexec = check_chunk(
-            kv, args, budget, kw, f"{name} chunk {chunks}", kb.layout)
+            kv, args, budget, kw, f"{name} chunk {chunks}", kb.layout,
+            kb.rows)
         carry0 = tuple(x[0] for x in (regs, spads, st.gmem, flags,
                                       st.cache_tags, st.counters))
         cyc1, out1 = ks(cyc[:1].clone(), budget, carry0)
@@ -305,6 +312,7 @@ def check_seed(kv, args, glob, tag, **kw):
     inputs; returns the kernel's outputs after asserting bit equality."""
     out_k = kv.vcycle_seed(*args, *glob, **kw)
     kw.pop("gcore", None)
+    kw.pop("tables", None)
     out_p = kv.vcycle_seed_ref(*args, *glob, **kw)
     if len(out_k) != len(out_p):
         raise AssertionError(f"{tag}: {len(out_k)} outputs != "
@@ -352,7 +360,8 @@ def check_seed_circuit(torch, kv, bsp, item):
         regs, spads, gmem, flags, tags, counters = carry
         glob = (gmem, tags, counters) if b.gcore >= 0 else ()
         check_seed(kv, (b.code, b.luts, regs, spads, flags), glob,
-                   f"{name} Vcycle {v}", cache=b.cache)
+                   f"{name} Vcycle {v}", cache=b.cache, gcore=b.gcore,
+                   tables=b.tables)
         carry = m._vcycle_seed(carry)
     emit({"phase": "seed_vs_plain", "circuit": name, "C": m.C,
           "T": int(prog.code.shape[1]), "R": m.R,
@@ -507,7 +516,7 @@ def check_fig8_chunks(torch, kv, bat, n, tag):
         args = (*k.tables(), regs, spads, flags, cyc)
         out = check_chunk(kv, args, n, dict(kw, gmem=gmem, tags=tags,
                                             counters=counters),
-                          f"{tag} chunk {c}", k.layout)
+                          f"{tag} chunk {c}", k.layout, k.rows)
         regs, spads, flags, nexec, gmem, tags, counters = out
         cyc = cyc + nexec
     return 2
@@ -828,6 +837,60 @@ def time_flash(torch, fa, flash_ref):
     return res
 
 
+def time_flash_fp32(torch, fa, flash_ref):
+    """``flash_attention_simt`` on its own path's type: float32 at the
+    serving shape (causal, GQA G=2), timed in one call in turns with the
+    plain version and float32 SDPA (kernel, plain, SDPA, then the same in
+    reverse), against its bound: the causal products at the card's
+    float32 rate outside the tensor cores."""
+    import torch.nn.functional as F
+    BH, BHkv, S, dh = LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128
+    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "float32", 98)
+    B = LM_BATCH
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh) for t in (q, k, v))
+    out = {}
+
+    def run(name, fn):
+        def launch():
+            out[name] = fn(q, k, v)
+        return launch
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    fns = {"flash_attention_simt": (run("flash_attention_simt",
+                                        fa.flash_attention_simt), 5, 1),
+           "plain": (run("plain", flash_ref), 3, 1),
+           "library": (sdpa, 5, 1)}
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, n, warm = fns[name]
+            turns[name].append(cuda_ms(torch, fn, n, warm))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    nbytes = 4 * (2 * BH * S * dh + 2 * BHkv * S * dh)
+    flops = 2 * BH * S * S * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    err = float((out["flash_attention_simt"] - out["plain"]).abs().max())
+    if err > FLASH_TOL["float32"]:
+        raise AssertionError(f"timed float32 flash_attention_simt != plain "
+                             f"({err})")
+    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} float32 causal",
+            "ms": ms["flash_attention_simt"],
+            "ms_turns": turns["flash_attention_simt"],
+            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+            "library_ms": ms["library"],
+            "library_ms_turns": turns["library"],
+            "library": "scaled_dot_product_attention(is_causal, enable_gqa) "
+                       "in float32",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "tflops_per_s": flops / ms["flash_attention_simt"] * 1e-9}
+
+
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
     """Milliseconds per call of ``fn`` by CUDA events over ``n`` calls
     after ``warm`` warm-up calls."""
@@ -843,6 +906,45 @@ def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
     return e0.elapsed_time(e1) / n
 
 
+def device_ms(torch, kv, fn, n: int, name: str, tries: int = 3) -> float:
+    """Milliseconds of device time per launch of the CUDA kernel ``name``
+    (a key of ``kv.COUNTS``; its entry function is ``<name>_kernel``) over
+    ``n`` calls of ``fn`` under ``torch.profiler``, after one warm-up
+    call. Unlike CUDA events around the calls, this leaves out the host's
+    time between launches, which exceeds a short kernel's. The calls must
+    launch the kernel ``n`` times by the wrapper's count. On the card the
+    profiler now and then drops launches from its trace (one of 50, or
+    all of 20): the time is the mean over the launches the trace holds,
+    and a trace that holds fewer than half is taken again, up to
+    ``tries`` times; then it raises."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernel = f"{name}_kernel"
+    for _ in range(tries):
+        before = kv.COUNTS[name]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        if kv.COUNTS[name] - before != n:
+            raise AssertionError(f"{n} calls launched {name} "
+                                 f"{kv.COUNTS[name] - before} times")
+        us, calls, seen = 0.0, 0, []
+        for e in prof.key_averages():
+            if e.device_type == cuda:
+                seen.append(e.key[:60])
+            if e.device_type == cuda and kernel in e.key:
+                us += float(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0.0)))
+                calls += e.count
+        if 2 * calls >= n and us > 0:
+            return us / 1e3 / calls
+    raise AssertionError(f"profiler saw {calls} of {n} launches of {kernel} "
+                         f"with {us} us; device events: {seen[:8]}")
+
+
 def bound(nbytes: int, ops: int) -> dict:
     """The least time for the work: bytes over the memory rate against
     instructions over the INT32 rate, whichever is larger."""
@@ -853,23 +955,32 @@ def bound(nbytes: int, ops: int) -> dict:
             "bytes": nbytes, "int_ops": ops}
 
 
-def table_words(torch, code, luts, C: int, lut_op: int) -> int:
-    """Words of the program tables a kernel reads for its C live cores
-    (padded lanes return or run NOPs): every code row of those cores, and
-    each LUT row their LUT instructions index (the index is the immediate,
-    clamped to the last row as the kernels clamp it)."""
-    T, L = code.shape[0], luts.shape[1]
-    ins = code[:, :C]
-    lut = ins[..., 0] == lut_op
-    core = torch.arange(C, device=code.device).expand(T, C)[lut]
-    row = (ins[..., 6][lut].long() & 0xFFFFFFFF).clamp(max=L - 1)
-    return T * C * 7 + 16 * int(torch.unique(core * L + row).numel())
+def table_words(rows, row_words: int, ctab: bool) -> int:
+    """Words of the code tables a Vcycle kernel must read (``RowTables``):
+    the ``row_words`` of each row that it reads (of a row's eight: the
+    first four, and the capture index where it captures SEND values), the
+    per-core table where it is handed one (``ctab``), and the distinct LUT
+    truth tables. The chunk kernel's rows are each core's live rows only,
+    so NOP slots it never reads are not charged."""
+    return (row_words * rows.n_rows + (rows.ctab.numel() if ctab else 0)
+            + 16 * rows.n_tts)
 
 
-def time_chunk(torch, kv, k, st, cyc, tag, lut_op):
+def row_fields(ms: float, vcycles: int, rows, code_bytes: int) -> dict:
+    """What bounds a Vcycle kernel: the busiest core's rows a Vcycle, the
+    kernel's ns per such row (ms over Vcycles x busy rows), and the bytes
+    of code rows it reads from device memory a launch."""
+    return {"busy_rows": rows.busy, "live_rows": rows.n_rows,
+            "ns_per_busy_row": ms * 1e6 / max(vcycles * rows.busy, 1),
+            "code_bytes": code_bytes}
+
+
+def time_chunk(torch, kv, k, st, cyc, tag):
     """One chunk of binding ``k`` on state ``st`` ([B, ...] leaves): the
-    kernel (CUDA events, 20 launches after 3 warm-ups), the plain version
-    once on the same inputs, and the bound."""
+    kernel's device time (``device_ms``, 20 launches) and the time of a
+    wrapper call (CUDA events, 20 calls after 3 warm-ups), the plain
+    version once on the same inputs, the bound, what bounds the kernel
+    (``row_fields``) and its occupancy (blocks an SM holds, waves)."""
     glob = {}
     if k.gcore >= 0:
         glob = dict(gmem=st.gmem, tags=st.cache_tags, counters=st.counters,
@@ -881,9 +992,10 @@ def time_chunk(torch, kv, k, st, cyc, tag, lut_op):
 
     def launch():
         out[-1] = kv.vcycle_chunk(*args, budget, layout=k.layout,
-                                  gcore=k.gcore, **kw)
+                                  gcore=k.gcore, rows=k.rows, **kw)
 
-    ms = cuda_ms(torch, launch, 20)
+    event_ms = cuda_ms(torch, launch, 20)
+    ms = device_ms(torch, kv, launch, 20, "vcycle_chunk")
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -906,18 +1018,32 @@ def time_chunk(torch, kv, k, st, cyc, tag, lut_op):
         # place; that copy is part of ``ms``
         extra["copy_ms"] = cuda_ms(torch, lambda: tuple(
             t.clone() for t in (st.gmem, st.cache_tags, st.counters)), 20)
-    # code and capture rows and indexed LUT rows of the live cores, the
-    # exchange, the register offsets, the state in and out, cyc and nexec
-    nbytes = 4 * (table_words(torch, k.code, k.luts, C, lut_op) + T * C
-                  + 2 * M + C + 1 + 2 * state + 2 * B)
-    return {"case": tag, "ms": ms, "plain_ms": t0.elapsed_time(t1), **extra,
-            **bound(nbytes, int(nexec.sum()) * T * C), "max_abs_err": err,
+    # the code tables it reads (a row's first 16 bytes and its capture
+    # index, the per-core table), the exchange, the register offsets, the
+    # state in and out, cyc and nexec; one instruction per live row run
+    nbytes = 4 * (table_words(k.rows, 5, True) + 2 * M + C + 1 + 2 * state
+                  + 2 * B)
+    n_run = int(nexec.sum())
+    smem, per_sm, staged = kv.chunk_occupancy(C, k.rows, k.layout.words, S,
+                                              k.n_sends, bool(glob))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # staged: each block copies every row's first 16 bytes and capture
+    # index once; else each row run is a 32-byte read
+    code_bytes = (20 * B * k.rows.n_rows if staged
+                  else 32 * n_run * k.rows.n_rows)
+    return {"case": tag, "ms": ms, "event_ms": event_ms,
+            "plain_ms": t0.elapsed_time(t1), **extra,
+            **bound(nbytes, n_run * k.rows.n_rows), "max_abs_err": err,
+            **row_fields(ms, int(nexec.max()), k.rows, code_bytes),
+            "rows_staged": staged, "smem_bytes_per_block": smem,
+            "blocks_per_sm": per_sm,
+            "waves": -(-B // (sms * per_sm)) if per_sm else None,
             "shape": {"B": B, "C": C, "T": T, "R": R, "S": S, "K": k.K,
                       "G": int(st.gmem.shape[-1]) if glob else 0},
             "vcycles_per_chunk": nexec.tolist()[:1]}
 
 
-def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8, lut_op):
+def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8):
     """Each kernel at the shapes its paths give it: the chunk kernel at the
     main path's (mc/full, B=512), at B=1 (mc/full) and at Fig 8's
     ram/512 KiB with B=64; the seed kernel at mc/full."""
@@ -925,18 +1051,17 @@ def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8, lut_op):
     chunk = {"main": time_chunk(
         torch, kv, m._kernel, m.init_state(),
         torch.zeros((m.B,), dtype=torch.int32, device=m.device),
-        f"mc/full B={m.B}", lut_op)}
+        f"mc/full B={m.B}")}
     m1 = bsp.Machine(s_mc.program)
     st1 = bsp.MachineState(*(x[None] for x in m1.init_state()))
     chunk["b1"] = time_chunk(torch, kv, m1._kernel, st1,
                              torch.zeros((1,), dtype=torch.int32,
-                                         device=m1.device), "mc/full B=1",
-                             lut_op)
+                                         device=m1.device), "mc/full B=1")
     mb = bat_fig8.m
     chunk["fig8"] = time_chunk(torch, kv, mb._kernel, mb.init_state(),
                                torch.zeros((mb.B,), dtype=torch.int32,
                                            device=mb.device),
-                               f"fig8 ram/512KiB B={mb.B}", lut_op)
+                               f"fig8 ram/512KiB B={mb.B}")
     # the seed kernel: one Vcycle of mc/full from its initial state
     ms_ = bsp.Machine(s_mc.program, specialize=False)
     b = ms_._seed
@@ -945,9 +1070,10 @@ def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8, lut_op):
     out = [None]
 
     def launch():
-        out[-1] = kv.vcycle_seed(*args, gcore=b.gcore)
+        out[-1] = kv.vcycle_seed(*args, gcore=b.gcore, tables=b.tables)
 
-    ms = cuda_ms(torch, launch, 50)
+    event_ms = cuda_ms(torch, launch, 50)
+    ms = device_ms(torch, kv, launch, 50, "vcycle_seed")
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -960,12 +1086,18 @@ def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8, lut_op):
     T = b.code.shape[0]
     C, R = regs.shape
     S = spads.shape[1]
-    # code rows and indexed LUT rows of the live cores, the state in and
-    # out, the trace
-    nbytes = 4 * (table_words(torch, b.code, b.luts, C, lut_op)
+    # the code tables it reads (a row's first 16 bytes: seed rows capture
+    # nothing, and it is handed no per-core table), the register offsets,
+    # the state in and out, the trace
+    rows = b.tables.rows
+    nbytes = 4 * (table_words(rows, 4, False) + C + 1
                   + 2 * (C * R + C * S + C) + T * C)
-    seed = {"case": "mc/full", "ms": ms, "plain_ms": t0.elapsed_time(t1),
+    seed = {"case": "mc/full", "ms": ms, "event_ms": event_ms,
+            "plain_ms": t0.elapsed_time(t1),
             **bound(nbytes, T * C), "max_abs_err": err,
+            # each warp copies its core's T rows' first 16 bytes once
+            # (mc's T=137 rows fit: the kernel stages them)
+            **row_fields(ms, 1, rows, 16 * C * T),
             "shape": {"C": C, "T": T, "R": R, "S": S}}
     return chunk, seed
 
@@ -996,7 +1128,7 @@ def main() -> int:
         from repro_torch.launch import steps
         from repro_torch.models import layers as L
         from repro_torch.core import bsp
-        from repro_torch.core.isa import HardwareConfig, Op
+        from repro_torch.core.isa import HardwareConfig
         from repro_torch.core.isasim import IsaSim
         from repro_torch.kernels import vcycle as kv
         from repro_torch.kernels.randprog import random_chunk, random_vcycle
@@ -1037,11 +1169,11 @@ def main() -> int:
     eng, launches = phase_main(torch, kv, sim, IsaEngine)
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
-    chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8,
-                               int(Op.LUT))
+    chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
+    flash32 = time_flash_fp32(torch, fa, flash_ref)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
-          **flash,
+          **flash, "flash_attention_simt_fp32": flash32,
           "seed_launches_on_seed_path": seed_launches,
           "b1_chunk_launches_on_machine_path": b1_launches,
           "sm90_launches_on_bf16_serving_path": sm90_launches,
@@ -1066,7 +1198,7 @@ def main() -> int:
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
                     "(float32, other head dims)",
-                    simt_launches, flash["flash_attention_simt"])]
+                    simt_launches, flash32)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

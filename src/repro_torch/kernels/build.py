@@ -88,8 +88,17 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.vcycle_chunk_launch.argtypes = [p] * 17 + [i] * 19 + [p]
             lib.vcycle_chunk_launch.restype = i
-            lib.vcycle_seed_launch.argtypes = [p] * 12 + [i] * 12 + [p]
+            lib.vcycle_chunk_smem.argtypes = [i] * 8
+            lib.vcycle_chunk_smem.restype = ctypes.c_size_t
+            lib.vcycle_chunk_blocks_per_sm.argtypes = [i] * 9 + [
+                ctypes.POINTER(i)]
+            lib.vcycle_chunk_blocks_per_sm.restype = i
+            lib.vcycle_chunk_max_threads.argtypes = []
+            lib.vcycle_chunk_max_threads.restype = i
+            lib.vcycle_seed_launch.argtypes = [p] * 13 + [i] * 14 + [p]
             lib.vcycle_seed_launch.restype = i
+            lib.vcycle_seed_smem.argtypes = [i] * 6
+            lib.vcycle_seed_smem.restype = ctypes.c_size_t
             lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [
                 ctypes.c_float, p]
             lib.flash_attention_launch.restype = i

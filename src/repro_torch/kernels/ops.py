@@ -1,14 +1,16 @@
 """Bind a compiled Program to the Vcycle kernels.
 
 Port of ``repro.kernels.ops``. ``make_vcycle_chunk`` lays the program's
-tables out once on the device (core axis padded to a warp multiple with
-all-NOP lanes, compact SEND-capture table, exchange tables, the global
-memory's cache model and privileged core) for the chunked K-Vcycle kernel,
-and the returned binding advances a ``MachineState`` carry by up to K
-Vcycles per call. ``make_vcycle`` binds the same padded tables to the
-per-Vcycle seed kernel, whose call returns the carry and the ``[T, C]``
-result trace. Unlike the reference's Pallas path, both bindings execute
-programs with privileged off-chip traffic (GLD/GST).
+tables out once for the chunked K-Vcycle kernel (each core's live code
+rows, ``rows.chunk_rows``; the exchange tables; the packed register
+layout; the global memory's cache model and privileged core), and the
+returned binding advances a ``MachineState`` carry by up to K Vcycles per
+call. ``make_vcycle`` lays every slot's row out for the per-Vcycle seed
+kernel, whose call returns the carry and the ``[T, C]`` result trace.
+The dense tables (core axis padded to a warp multiple with all-NOP
+lanes) stay on the host: the plain versions read them, and the kernels
+are handed only the row tables. Unlike the reference's Pallas path, both
+bindings execute programs with privileged off-chip traffic (GLD/GST).
 """
 from __future__ import annotations
 
@@ -18,15 +20,16 @@ import numpy as np
 import torch
 
 from .ref import CacheModel, global_core
-from .vcycle import (reg_layout, seed_check, vcycle_chunk, vcycle_prologue,
-                     vcycle_seed)
+from .rows import chunk_rows
+from .vcycle import (reg_layout, seed_check, seed_layout, vcycle_chunk,
+                     vcycle_prologue, vcycle_seed)
 
 # padded lanes of the code/capture/LUT tables are all-NOP; the kernels run
 # one thread per core, so a warp is the natural padding unit
 WARP = 32
 
 
-def _dev(a, device) -> torch.Tensor:
+def _dev(a, device="cpu") -> torch.Tensor:
     """Host array -> int32 tensor of its (uint32) bit patterns."""
     a = np.ascontiguousarray(a)
     if a.dtype != np.int32:
@@ -48,8 +51,10 @@ def _padded_tables(program, C: int):
 
 class VcycleChunk:
     """``program`` laid out for ``vcycle_chunk``, with its packed register
-    layout (``reg_layout``) and privileged core (``global_core``) computed
-    once.
+    layout (``reg_layout``), privileged core (``global_core``) and each
+    core's compacted code rows (``rows.chunk_rows``) computed once. The
+    dense ``code``, ``cap`` and ``luts`` stay on the host, for the plain
+    version.
 
     ``chunk(cyc, budget, carry) -> (cyc, carry)``, the contract of
     ``Machine._run_chunk``: one call advances the machine by up to K
@@ -68,17 +73,20 @@ class VcycleChunk:
         dreg = np.zeros((max(n, 1),), np.int32)
         dcore[:n] = program.xchg_dst_core
         dreg[:n] = program.xchg_dst_reg
-        self.code = _dev(code, device)
-        self.cap = _dev(program.send_capture(code.shape[1]), device)
-        self.luts = _dev(luts, device)
+        self.code = _dev(code)
+        self.cap = _dev(program.send_capture(code.shape[1]))
+        self.luts = _dev(luts)
         self.dcore, self.dreg = _dev(dcore, device), _dev(dreg, device)
         self.n_sends = n
         self.num_pro = int(getattr(program, "pipe_prologue", 0))
         self.layout = reg_layout(code, dcore, dreg, C, n, device)
+        self.rows = chunk_rows(code, self.cap, luts, C, self.num_pro, n,
+                               device)
         self.gcore = global_core(code, C)
         self.cache = CacheModel.of(program.hw)
 
     def tables(self):
+        """(code, cap, luts) on the host, (dcore, dreg) on the device."""
         return self.code, self.cap, self.luts, self.dcore, self.dreg
 
     def __call__(self, cyc: torch.Tensor, budget: int, carry):
@@ -93,7 +101,7 @@ class VcycleChunk:
         out = vcycle_chunk(
             *self.tables(), regs, spads, flags, cyc, budget, K=self.K,
             n_sends=self.n_sends, num_pro=self.num_pro, layout=self.layout,
-            gcore=self.gcore, **glob)
+            gcore=self.gcore, rows=self.rows, **glob)
         regs, spads, flags, nexec = out[:4]
         # the kernel's global state is already a new tensor
         gmem, tags, counters = out[4:] if glob else (gmem, tags,
@@ -115,7 +123,7 @@ class VcycleChunk:
             regs, spads = regs[None], spads[None]
         out = vcycle_prologue(*self.tables(), regs.contiguous(),
                               spads.contiguous(), num_pro=self.num_pro,
-                              layout=self.layout)
+                              layout=self.layout, rows=self.rows)
         return out[0] if single else out
 
 
@@ -128,7 +136,9 @@ def make_vcycle_chunk(program, C: int, K: int, batch: Optional[int] = None,
 
 class SeedVcycle:
     """``program`` laid out for ``vcycle_seed`` (the seed arm's kernel) at
-    register width R, checked once (``seed_check``).
+    register width R, checked once (``seed_check``), with every slot's code
+    row and each block's packed registers (``seed_layout``). The dense
+    ``code`` and ``luts`` stay on the host, for the plain version.
 
     ``vcycle(carry) -> (carry, trace)``: one Vcycle of one machine (carry
     leaves ``[C, ...]``, registers ``[C, R]``), the whole stream with the
@@ -140,8 +150,8 @@ class SeedVcycle:
         self.C, self.R = C, R
         code, luts = _padded_tables(program, C)
         self.gcore = seed_check(code, C, R)
-        self.code = _dev(code, device)
-        self.luts = _dev(luts, device)
+        self.code, self.luts = _dev(code), _dev(luts)
+        self.tables = seed_layout(code, luts, C, device)
         self.cache = CacheModel.of(program.hw)
 
     def __call__(self, carry):
@@ -151,7 +161,8 @@ class SeedVcycle:
                              f"{(self.C, self.R)}, got {tuple(regs.shape)}")
         glob = (gmem, tags, counters) if self.gcore >= 0 else ()
         out = vcycle_seed(self.code, self.luts, regs, spads, flags, *glob,
-                          cache=self.cache, gcore=self.gcore)
+                          cache=self.cache, gcore=self.gcore,
+                          tables=self.tables)
         if glob:
             gmem, tags, counters = out[4:]
         return (out[0], out[1], gmem, out[2], tags, counters), out[3]

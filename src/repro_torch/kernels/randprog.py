@@ -13,6 +13,10 @@ exchange. Core 0 counts Vcycles in registers R-4..R-1, which nothing else
 writes, and raises EXPECT 7 when its count reaches the element's target, so
 elements freeze at chosen Vcycles inside a chunk. Every other EXPECT
 compares a register with itself and never raises.
+
+``edge_chunk`` is ``random_chunk`` with the edges of the chunk kernel's
+compacted rows: its last core has no live row, core 1 is live in every
+slot, and the exchange tables are padded to one entry for ``n_sends = 0``.
 """
 from typing import Optional, Sequence
 
@@ -121,3 +125,23 @@ def random_chunk(rng, targets: Sequence[int], C: int, T: int, R: int, S: int,
     tags = rng.integers(-1, 2 * lines, (B, lines)).astype(np.int32)
     counters = rng.integers(0, 1000, (B, 4)).astype(np.int32)
     return out + (_words(rng, B, G), tags, counters)
+
+
+def edge_chunk(rng, targets: Sequence[int], C: int, T: int, R: int, S: int,
+               L: int, n_sends: int, num_pro: int,
+               Cp: Optional[int] = None, G: int = 0, lines: int = 8):
+    """``random_chunk`` (same arguments and returns, C >= 3) whose last
+    core holds only NOPs (its SENDs gone, their values 0 at the exchange)
+    and whose core 1 holds no NOP (MOVs in its place); ``dcore``/``dreg``
+    have ``max(n_sends, 1)`` entries, as the bindings lay them out."""
+    out = list(random_chunk(rng, targets, C, T, R, S, L, n_sends, num_pro,
+                            Cp=Cp, G=G, lines=lines))
+    code, cap = out[0], out[1]
+    code[:, C - 1] = 0
+    cap[:, C - 1] = n_sends
+    code[code[:, 1, 0] == int(Op.NOP), 1, 0] = int(Op.MOV)
+    for i in (3, 4):
+        pad = np.zeros((max(n_sends, 1),), np.int32)
+        pad[:n_sends] = out[i]
+        out[i] = pad
+    return tuple(out)

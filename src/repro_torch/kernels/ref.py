@@ -394,8 +394,10 @@ def vcycle_seed_ref(code: torch.Tensor, luts: torch.Tensor,
     a program with GLD/GST also needs ``gmem [G]``, ``tags [LINES]``,
     ``counters [4]`` and the ``cache`` model. All int32 bit patterns.
     Returns (regs, spads, flags, trace [T, C]), followed by (gmem, tags,
-    counters) when ``gmem`` is given."""
+    counters) when ``gmem`` is given. ``code`` and ``luts`` may lie on
+    the host: they are read on ``regs``'s device."""
     C = regs.shape[0]
+    code, luts = code.to(regs.device), luts.to(regs.device)
     g = None
     if gmem is not None:
         g = to_glob(gmem[None], tags[None], counters[None], cache)

@@ -19,6 +19,13 @@ its direct-mapped cache and stall counters (``kernels/ref.py``).
 PyTorch versions. A wrapper runs them only when it is handed CPU tensors;
 on CUDA tensors it launches the kernel or raises.
 
+Both kernels execute 32-byte code rows laid out once at bind time
+(``kernels/rows.py``): the chunk kernel each core's live rows only
+(``chunk_rows``), the seed kernel every slot (``seed_rows``). A wrapper
+handed no such tables lays them out from the dense ones; handed them, it
+neither reads nor checks the dense tables, which may then lie on the
+host.
+
 Both kernels are built at first use with ``nvcc``, with every other kernel
 of the port, into one shared library with a plain C interface
 (``kernels/build.py``) and loaded through ``ctypes``.
@@ -34,6 +41,7 @@ same state without the leading ``[B]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -42,6 +50,7 @@ import torch
 from .build import check, load
 from .ref import (CacheModel, Glob, decode, exec_rows, from_glob, from_u32,
                   global_core, to_glob, to_u32, vcycle_seed_ref)
+from .rows import RowTables, chunk_rows, seed_rows
 
 # launches of each CUDA kernel since the last reset (the CPU path and the
 # plain versions never count)
@@ -68,8 +77,11 @@ def vcycle_chunk_ref(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
     ``[0, num_pro)``, committed iff the Vcycle raised no flag. Returns
     (regs, spads, flags, nexec [B]), int32, followed by (gmem, tags,
     counters) when ``gmem`` is given (``counters[:, 0]`` is left to the
-    caller)."""
+    caller). The code tables may lie on the host: they are read on
+    ``regs``'s device."""
     B, C, _ = regs.shape
+    code, cap, luts, dcore, dreg = (t.to(regs.device) for t in
+                                    (code, cap, luts, dcore, dreg))
     g = None
     if gmem is not None:
         g = to_glob(gmem, tags, counters, cache)
@@ -113,8 +125,10 @@ def vcycle_chunk_ref(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
 
 def prologue_ref(code, luts, regs, spads, *, num_pro: int) -> torch.Tensor:
     """Code rows ``[0, num_pro)`` once on every element (register writes
-    only: a prologue holds pure opcodes). Returns the new regs."""
+    only: a prologue holds pure opcodes). Returns the new regs. ``code``
+    and ``luts`` may lie on the host."""
     B, C, _ = regs.shape
+    code, luts = code.to(regs.device), luts.to(regs.device)
     r = to_u32(regs)
     exec_rows(decode(code[:num_pro, :C]), to_u32(luts[:C]), r,
               to_u32(spads), torch.zeros((B, C), dtype=torch.int64,
@@ -154,10 +168,46 @@ def reg_layout(code, dcore, dreg, C: int, n_sends: int,
                      int(rows.max()))
 
 
-def smem_bytes(reg_words: int, C: int, S: int, n_sends: int) -> int:
-    """Dynamic shared memory one block holds: the element's packed register
-    file and scratchpad for the whole launch, plus the SEND buffer."""
-    return 4 * (reg_words + C * max(S, 1) + n_sends + 1)
+# the distinct LUT truth tables are staged in a block's shared memory up to
+# this size; past it the kernels read them from global memory. Staged, a
+# LUT row's table read leaves device memory and L1 out of the row's chain:
+# on the card the chunk kernel ran 1-4% faster with them staged and the
+# seed kernel up to 19% (PERF.md). The nine circuits need 0.2-2.9 KB; the
+# limit keeps staging under a third of the ~56 KB a block may take while
+# four blocks share an SM (mc at 512 seeds in one wave).
+STAGE_LUT_BYTES = 16384
+# cores one block of the seed kernel runs (kCores in csrc/vcycle_seed.cu)
+SEED_CORES_PER_BLOCK = 4
+
+
+def stage_luts(n_tts: int) -> bool:
+    return 64 * n_tts <= STAGE_LUT_BYTES
+
+
+class SeedLayout(NamedTuple):
+    """The seed kernel's tables: every slot's row (``seed_rows``) of the
+    first C cores over T slots, and the packed registers each block
+    stages: core c's registers ``[0, rows[c])`` at word ``roff[c] -
+    roff[c0]`` of its block (first core c0), rows[c] being every register
+    its code names; ``block_words`` is the most words a block holds and
+    ``rmax`` the largest rows[c]."""
+    rows: RowTables
+    roff: torch.Tensor
+    block_words: int
+    T: int
+    rmax: int
+
+
+def seed_layout(code, luts, C: int, device="cuda") -> SeedLayout:
+    """``SeedLayout`` of the first C cores of ``code [T, Cp, 7]`` and
+    ``luts [Cp, L, 16]`` (host arrays or tensors)."""
+    none = np.zeros((0,), np.int32)
+    lay = reg_layout(code, none, none, C, 0, device)
+    firsts = np.r_[0:C:SEED_CORES_PER_BLOCK, C]
+    words = np.diff(lay.roff.cpu().numpy()[firsts])
+    return SeedLayout(seed_rows(code, luts, C, device), lay.roff,
+                      int(words.max(initial=0)), int(code.shape[0]),
+                      lay.rmax)
 
 
 _MAX_SMEM = {}
@@ -208,66 +258,117 @@ def _global_args(kernel: str, gmem, tags, counters, cache, gcore: int,
         cache.miss_stall, gcore)
 
 
+def _dense_shapes(kernel: str, code, luts, C: int, cap=None) -> int:
+    """Check the dense tables (``code [T, Cp, 7]``, ``luts [Cp, L, 16]``,
+    ``cap [T, Cp]``) that a wrapper lays out itself; returns T."""
+    T, Cp, _ = code.shape
+    L = luts.shape[1]
+    if (Cp < C or tuple(luts.shape) != (Cp, L, 16) or L < 1
+            or (cap is not None and tuple(cap.shape) != (T, Cp))):
+        raise ValueError(f"{kernel} shape mismatch: code "
+                         f"{tuple(code.shape)}, luts {tuple(luts.shape)}, "
+                         f"cap {None if cap is None else tuple(cap.shape)} "
+                         f"for C={C} cores")
+    return T
+
+
 def _launch(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
             budget: int, K: int, n_sends: int, num_pro: int,
             prologue_only: bool, layout: Optional[RegLayout],
             glob=(None, None, None), cache: Optional[CacheModel] = None,
-            gcore: Optional[int] = None):
-    if layout is None:
-        layout = reg_layout(code, dcore, dreg, regs.shape[1], n_sends,
-                            regs.device)
-    tensors = (code, cap, luts, dcore, dreg, layout.roff, regs, spads,
-               flags, cyc)
-    _cuda_int32("vcycle_chunk", tensors, regs.device)
-    T, Cp, _ = code.shape
+            gcore: Optional[int] = None, rows: Optional[RowTables] = None):
     B, C, R = regs.shape
+    if rows is None or layout is None or gcore is None:
+        T = _dense_shapes("vcycle_chunk", code, luts, C, cap)
+        if not 0 <= num_pro <= T:
+            raise ValueError(f"vcycle_chunk: num_pro={num_pro} outside "
+                             f"[0, {T}]")
+        if rows is None:
+            rows = chunk_rows(code, cap, luts, C, num_pro, n_sends,
+                              regs.device)
+        if layout is None:
+            layout = reg_layout(code, dcore, dreg, C, n_sends, regs.device)
+        if gcore is None:
+            gcore = global_core(code, C)
+    tensors = (*rows[:3], dcore, dreg, layout.roff, regs, spads, flags, cyc)
+    _cuda_int32("vcycle_chunk", tensors, regs.device)
     S = spads.shape[2]
-    L = luts.shape[1]
-    if (Cp < C or cap.shape != (T, Cp) or luts.shape != (Cp, L, 16)
-            or spads.shape[:2] != (B, C) or flags.shape != (B, C)
+    if (spads.shape[:2] != (B, C) or flags.shape != (B, C)
             or cyc.shape != (B,) or dcore.shape[0] < max(n_sends, 1)
-            or dreg.shape[0] < max(n_sends, 1) or S < 1 or L < 1
-            or not 0 <= num_pro <= T or layout.roff.shape != (C + 1,)
-            or layout.rmax > R):
-        raise ValueError("vcycle_chunk shape mismatch: code "
-                         f"{tuple(code.shape)}, cap {tuple(cap.shape)}, luts "
-                         f"{tuple(luts.shape)}, regs {tuple(regs.shape)}, "
-                         f"spads {tuple(spads.shape)}, flags "
-                         f"{tuple(flags.shape)}, cyc {tuple(cyc.shape)}, "
-                         f"register rows up to {layout.rmax}")
-    if C > 1024:
-        raise ValueError(f"vcycle_chunk runs one thread per core: C={C} "
-                         "exceeds 1024 threads per block")
-    if gcore is None:
-        gcore = global_core(code, C)
+            or dreg.shape[0] < max(n_sends, 1) or S < 1
+            or layout.roff.shape != (C + 1,) or layout.rmax > R
+            or rows.ctab.shape != (C, 4)):
+        raise ValueError(f"vcycle_chunk shape mismatch: regs "
+                         f"{tuple(regs.shape)}, spads {tuple(spads.shape)}, "
+                         f"flags {tuple(flags.shape)}, cyc "
+                         f"{tuple(cyc.shape)}, register rows up to "
+                         f"{layout.rmax}, row tables of "
+                         f"{rows.ctab.shape[0]} cores")
     bufs, gptrs, gints = _global_args("vcycle_chunk", *glob, cache, gcore,
                                       (B,), regs.device)
     with torch.cuda.device(regs.device):
         lib = load()
-        need = smem_bytes(layout.words, C, S, n_sends)
-        have = max_smem()
-        if need > have:
-            raise ValueError(
-                "vcycle_chunk state does not fit one block's shared memory: "
-                f"{layout.words} packed registers + C={C} cores x S={S} "
-                f"scratchpad words + {n_sends + 1} SEND words = {need} "
-                f"bytes > {have} bytes")
-        args = [t.contiguous() for t in tensors]
-        regs_o = torch.empty_like(args[6])
-        spads_o = torch.empty_like(args[7])
-        flags_o = torch.empty_like(args[8])
+        need, in_smem, staged = _chunk_plan(
+            torch.cuda.current_device(), C, rows.n_rows, layout.words, S,
+            n_sends, rows.n_tts)
+        args = [t.contiguous() for t in tensors[3:]]
+        regs_o = torch.empty_like(regs)
+        spads_o = torch.empty_like(spads)
+        flags_o = torch.empty_like(flags)
         nexec = torch.empty((B,), dtype=torch.int32, device=regs.device)
         stream = torch.cuda.current_stream(regs.device).cuda_stream
         err = lib.vcycle_chunk_launch(
-            *(t.data_ptr() for t in args), regs_o.data_ptr(),
-            spads_o.data_ptr(), flags_o.data_ptr(), nexec.data_ptr(), *gptrs,
-            B, C, Cp, T, R, S, L, n_sends, num_pro, K,
-            min(int(budget), 2**31 - 1), int(prologue_only), layout.words,
-            *gints, stream)
+            *(t.data_ptr() for t in rows[:3]), *(t.data_ptr() for t in args),
+            regs_o.data_ptr(), spads_o.data_ptr(), flags_o.data_ptr(),
+            nexec.data_ptr(), *gptrs, B, C, R, S, n_sends, rows.n_rows,
+            rows.n_tts, in_smem, staged, K, min(int(budget), 2**31 - 1),
+            int(prologue_only), layout.words, *gints, stream)
         check("vcycle_chunk", err)
     COUNTS["vcycle_chunk"] += 1
     out = (regs_o, spads_o, flags_o, nexec)
     return out if bufs[0] is None else out + bufs
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_plan(dev: int, C: int, n_rows: int, reg_words: int, S: int,
+                n_sends: int, n_tts: int) -> Tuple[int, int, int]:
+    """(shared memory bytes a block takes, stage_luts, stage_rows) for the
+    chunk kernel at this shape on device ``dev`` (the current one): the
+    rows are staged in shared memory when they fit a block, else
+    streamed. Raises when the thread count or the state does not fit."""
+    lib = load()
+    if C > lib.vcycle_chunk_max_threads():
+        raise ValueError(f"vcycle_chunk runs one thread per core: C={C} "
+                         f"exceeds {lib.vcycle_chunk_max_threads()} "
+                         "threads per block")
+    in_smem = int(stage_luts(n_tts))
+    shape = (C, n_rows, reg_words, S, n_sends, n_tts, in_smem)
+    have = max_smem()
+    need, staged = lib.vcycle_chunk_smem(*shape, 1), 1
+    if need > have:
+        need, staged = lib.vcycle_chunk_smem(*shape, 0), 0
+    if need > have:
+        raise ValueError(
+            "vcycle_chunk state does not fit one block's shared memory: "
+            f"{reg_words} packed registers + C={C} cores x S={S} scratchpad "
+            f"words + {n_sends + 1} SEND words = {need} bytes > {have} "
+            "bytes")
+    return need, in_smem, staged
+
+
+def chunk_occupancy(C: int, rows: RowTables, reg_words: int, S: int,
+                    n_sends: int, has_global: bool) -> Tuple[int, int, bool]:
+    """(dynamic shared memory bytes a block takes, blocks one SM of the
+    current device holds, whether the rows are staged) for the chunk
+    kernel at this shape, for a program with or without GLD/GST."""
+    lib, out = load(), ctypes.c_int(0)
+    smem, in_smem, staged = _chunk_plan(torch.cuda.current_device(), C,
+                                        rows.n_rows, reg_words, S, n_sends,
+                                        rows.n_tts)
+    check("vcycle_chunk", lib.vcycle_chunk_blocks_per_sm(
+        C, rows.n_rows, reg_words, S, n_sends, rows.n_tts, in_smem, staged,
+        int(has_global), ctypes.byref(out)))
+    return smem, out.value, bool(staged)
 
 
 def seed_check(code, C: int, R: int) -> int:
@@ -282,34 +383,68 @@ def seed_check(code, C: int, R: int) -> int:
     return global_core(code, C)
 
 
-def _launch_seed(code, luts, regs, spads, flags, glob, cache, gcore):
-    _cuda_int32("vcycle_seed", (code, luts, regs, spads, flags), regs.device)
-    T, Cp, _ = code.shape
+@functools.lru_cache(maxsize=None)
+def _seed_plan(dev: int, T: int, block_words: int, S: int,
+               n_tts: int) -> Tuple[int, int, int]:
+    """(shared memory bytes a block takes, stage_luts, stage_rows) for the
+    seed kernel at this shape on device ``dev`` (the current one). Raises
+    when the state does not fit."""
+    lib = load()
+    in_smem = int(stage_luts(n_tts))
+    shape = (T, block_words, S, n_tts, in_smem)
+    have = max_smem()
+    need, staged = lib.vcycle_seed_smem(*shape, 1), 1
+    if need > have:
+        need, staged = lib.vcycle_seed_smem(*shape, 0), 0
+    if need > have:
+        raise ValueError(
+            "vcycle_seed state does not fit one block's shared memory: "
+            f"{block_words} packed registers + {SEED_CORES_PER_BLOCK} cores "
+            f"x S={S} scratchpad words = {need} bytes > {have} bytes")
+    return need, in_smem, staged
+
+
+def _launch_seed(code, luts, regs, spads, flags, glob, cache, gcore,
+                 tables: Optional[SeedLayout]):
     C, R = regs.shape
+    if tables is None or gcore is None:
+        _dense_shapes("vcycle_seed", code, luts, C)
+        if gcore is None:
+            gcore = seed_check(code, C, R)
+        if tables is None:
+            tables = seed_layout(code, luts, C, regs.device)
+    rows = tables.rows
+    _cuda_int32("vcycle_seed", (regs, spads, flags), regs.device)
     S = spads.shape[1]
-    L = luts.shape[1]
-    if (Cp < C or luts.shape != (Cp, L, 16) or spads.shape != (C, S)
-            or flags.shape != (C,) or S < 1 or L < 1 or R < 1):
-        raise ValueError("vcycle_seed shape mismatch: code "
-                         f"{tuple(code.shape)}, luts {tuple(luts.shape)}, "
-                         f"regs {tuple(regs.shape)}, spads "
-                         f"{tuple(spads.shape)}, flags {tuple(flags.shape)}")
-    if gcore is None:
-        gcore = seed_check(code, C, R)
+    T = tables.T
+    if (spads.shape != (C, S) or flags.shape != (C,) or S < 1
+            or tables.roff.shape != (C + 1,) or tables.rmax > R
+            or rows.n_rows != C * T or rows.rows.device != regs.device):
+        raise ValueError(f"vcycle_seed shape mismatch: regs "
+                         f"{tuple(regs.shape)}, spads {tuple(spads.shape)}, "
+                         f"flags {tuple(flags.shape)}, tables of "
+                         f"{rows.n_rows} rows for C={C} cores x T={T} "
+                         f"slots on {rows.rows.device}, register rows up to "
+                         f"{tables.rmax}")
     bufs, gptrs, gints = _global_args("vcycle_seed", *glob, cache, gcore,
                                       (), regs.device)
     with torch.cuda.device(regs.device):
         lib = load()
-        args = [t.contiguous() for t in (code, luts, regs, spads, flags)]
-        regs_o = torch.empty_like(args[2])
-        spads_o = torch.empty_like(args[3])
-        flags_o = torch.empty_like(args[4])
+        need, in_smem, staged = _seed_plan(
+            torch.cuda.current_device(), T, tables.block_words, S,
+            rows.n_tts)
+        state = [t.contiguous() for t in (regs, spads, flags)]
+        regs_o = torch.empty_like(regs)
+        spads_o = torch.empty_like(spads)
+        flags_o = torch.empty_like(flags)
         trace = torch.empty((T, C), dtype=torch.int32, device=regs.device)
         stream = torch.cuda.current_stream(regs.device).cuda_stream
         err = lib.vcycle_seed_launch(
-            *(t.data_ptr() for t in args), regs_o.data_ptr(),
-            spads_o.data_ptr(), flags_o.data_ptr(), trace.data_ptr(), *gptrs,
-            C, Cp, T, R, S, L, *gints, stream)
+            rows.rows.data_ptr(), rows.tts.data_ptr(),
+            tables.roff.data_ptr(), *(t.data_ptr() for t in state),
+            regs_o.data_ptr(), spads_o.data_ptr(), flags_o.data_ptr(),
+            trace.data_ptr(), *gptrs, C, T, R, S, rows.n_tts, in_smem,
+            staged, tables.block_words, *gints, stream)
         check("vcycle_seed", err)
     COUNTS["vcycle_seed"] += 1
     out = (regs_o, spads_o, flags_o, trace)
@@ -321,13 +456,17 @@ def vcycle_chunk(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
                  budget: int, *, K: int, n_sends: int, num_pro: int = 0,
                  layout: Optional[RegLayout] = None, gmem=None, tags=None,
                  counters=None, cache: Optional[CacheModel] = None,
-                 gcore: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                 gcore: Optional[int] = None,
+                 rows: Optional[RowTables] = None
+                 ) -> Tuple[torch.Tensor, ...]:
     """Up to K Vcycles of B machines in one launch; see
     ``vcycle_chunk_ref`` for the semantics. Returns (regs, spads, flags,
     nexec [B]) as new tensors, followed by new (gmem, tags, counters) when
     ``gmem`` is given. ``layout`` is the program's packed register layout
-    (``reg_layout``) and ``gcore`` its privileged core (``global_core``),
-    computed here when not given."""
+    (``reg_layout``), ``gcore`` its privileged core (``global_core``) and
+    ``rows`` its compacted code rows (``rows.chunk_rows`` of the same
+    tables, ``n_sends`` and ``num_pro``), each computed here when not
+    given."""
     if regs.device.type == "cpu":
         return vcycle_chunk_ref(code, cap, luts, dcore, dreg, regs, spads,
                                 flags, cyc, budget, K=K, n_sends=n_sends,
@@ -335,12 +474,12 @@ def vcycle_chunk(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
                                 counters=counters, cache=cache)
     return _launch(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
                    budget, K, n_sends, num_pro, False, layout,
-                   (gmem, tags, counters), cache, gcore)
+                   (gmem, tags, counters), cache, gcore, rows)
 
 
 def vcycle_prologue(code, cap, luts, dcore, dreg, regs, spads, *,
-                    num_pro: int, layout: Optional[RegLayout] = None
-                    ) -> torch.Tensor:
+                    num_pro: int, layout: Optional[RegLayout] = None,
+                    rows: Optional[RowTables] = None) -> torch.Tensor:
     """Iteration 0's prologue (code rows ``[0, num_pro)``, register writes
     only) on every element, through the chunk kernel's prologue-only
     mode. Returns the new regs."""
@@ -350,19 +489,22 @@ def vcycle_prologue(code, cap, luts, dcore, dreg, regs, spads, *,
     flags = torch.zeros((B, C), dtype=torch.int32, device=regs.device)
     cyc = torch.zeros((B,), dtype=torch.int32, device=regs.device)
     return _launch(code, cap, luts, dcore, dreg, regs, spads, flags, cyc,
-                   0, 0, 0, num_pro, True, layout, gcore=-1)[0]
+                   0, 0, 0, num_pro, True, layout, gcore=-1, rows=rows)[0]
 
 
 def vcycle_seed(code, luts, regs, spads, flags, gmem=None, tags=None,
                 counters=None, *, cache: Optional[CacheModel] = None,
-                gcore: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                gcore: Optional[int] = None,
+                tables: Optional[SeedLayout] = None
+                ) -> Tuple[torch.Tensor, ...]:
     """One Vcycle of one machine in one launch; see ``vcycle_seed_ref`` for
     the semantics and the shapes. Returns (regs, spads, flags, trace
     [T, C]) as new tensors, followed by new (gmem, tags, counters) when
     ``gmem`` is given. ``gcore`` is the privileged core from
-    ``seed_check``, which runs here when it is not given."""
+    ``seed_check`` and ``tables`` the program's ``seed_layout``, each
+    computed here when not given."""
     if regs.device.type == "cpu":
         return vcycle_seed_ref(code, luts, regs, spads, flags, gmem, tags,
                                counters, cache)
     return _launch_seed(code, luts, regs, spads, flags,
-                        (gmem, tags, counters), cache, gcore)
+                        (gmem, tags, counters), cache, gcore, tables)

@@ -16,7 +16,9 @@ from repro_torch.core import bsp
 from repro_torch.core.compile import compile_circuit
 from repro_torch.core.isa import HardwareConfig
 from repro_torch.kernels import vcycle as kv
-from repro_torch.kernels.randprog import random_chunk, random_vcycle
+from repro_torch.kernels import rows as kr
+from repro_torch.kernels.randprog import (edge_chunk, random_chunk,
+                                          random_vcycle)
 from repro_torch.kernels.ref import CacheModel
 
 pytestmark = pytest.mark.gpu
@@ -163,11 +165,125 @@ def test_fig8_ram_512k_on_card_matches_cpu(cuda):
         assert ms[0].perf(states[0])["gmisses"] > 0
 
 
+@pytest.mark.parametrize("n_sends", [0, 9])
+@pytest.mark.parametrize("G", [0, 40])
+@pytest.mark.parametrize("num_pro", [0, 3])
+def test_chunk_kernel_edge_programs_match_plain(cuda, n_sends, G, num_pro):
+    """The compacted rows' edges on the card: a core with no live row, a
+    core live in every slot, prologue rows, GLD/GST on the privileged core
+    and no SEND at all; one element freezes mid-chunk."""
+    rng = np.random.default_rng(100 * n_sends + G + num_pro)
+    B, C = 3, 40
+    arrays = [torch.from_numpy(a) for a in edge_chunk(
+        rng, [3, 100, 6], C, 24, 20, 8, 4, n_sends, num_pro, Cp=64, G=G)]
+    args = arrays[:7] + [torch.zeros((B, C), dtype=torch.int32),
+                         torch.tensor([0, 2, 1], dtype=torch.int32)]
+    glob = {}
+    if G:
+        glob = dict(zip(("gmem", "tags", "counters"), arrays[7:]),
+                    cache=CACHE)
+    kw = dict(K=10, n_sends=n_sends, num_pro=num_pro)
+    tables = kr.chunk_rows(*arrays[:3], C, num_pro, n_sends, cuda)
+    assert int(tables.ctab[C - 1, 1:3].sum()) == 0
+    ref = kv.vcycle_chunk_ref(*args, 9, **kw, **glob)
+    dev = {k: v.to(cuda) if torch.is_tensor(v) else v
+           for k, v in glob.items()}
+    out = kv.vcycle_chunk(*[a.to(cuda) for a in args], 9, **kw, **dev,
+                          rows=tables)
+    torch.cuda.synchronize()
+    assert len(out) == len(ref)
+    for a, b in zip(ref, out):
+        assert torch.equal(a, b.cpu())
+    assert int(ref[3][0]) == 3
+    pro = kv.vcycle_prologue(*[a.to(cuda) for a in args[:7]],
+                             num_pro=num_pro, rows=tables)
+    assert torch.equal(kv.prologue_ref(args[0], args[2], args[5], args[6],
+                                       num_pro=num_pro), pro.cpu())
+
+
+@pytest.mark.parametrize("kernel", ["chunk", "seed"])
+def test_luts_past_the_staging_limit_match_plain(cuda, kernel):
+    """More distinct LUT tables than a block stages (random immediates
+    clamp to each core's last table, one per core): the kernels read them
+    from global memory, with the same results."""
+    rng = np.random.default_rng(9)
+    C, T = 300, 64
+    if kernel == "chunk":
+        args = random_args(rng, [100, 5], C, 320, T, 24, 4, 32, 12, 0)
+        tables = kr.chunk_rows(*args[:3], C, 0, 12, "cpu")
+        assert not kv.stage_luts(tables.n_tts)
+        ref = kv.vcycle_chunk_ref(*args, 1000, K=8, n_sends=12)
+        out = kv.vcycle_chunk(*[a.to(cuda) for a in args], 1000, K=8,
+                              n_sends=12)
+    else:
+        args = [torch.from_numpy(a) for a in random_vcycle(
+            rng, C, T, 24, 4, 32, Cp=320)]
+        assert not kv.stage_luts(kr.seed_rows(args[0], args[1], C,
+                                              "cpu").n_tts)
+        ref = kv.vcycle_seed_ref(*args)
+        out = kv.vcycle_seed(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    for a, b in zip(ref, out):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("kernel", ["chunk", "seed"])
+def test_rows_past_shared_memory_stream_and_match_plain(cuda, kernel):
+    """A program whose code rows do not fit a block's shared memory: the
+    kernels read them from global memory, with the same results."""
+    rng = np.random.default_rng(11)
+    C, T = 40, 1200
+    if kernel == "chunk":
+        args = random_args(rng, [2, 100], C, 64, T, 24, 4, 8, 12, 2)
+        assert 20 * kr.chunk_rows(*args[:3], C, 2, 12, "cpu").n_rows \
+            > kv.max_smem()
+        ref = kv.vcycle_chunk_ref(*args, 1000, K=3, n_sends=12, num_pro=2)
+        out = kv.vcycle_chunk(*[a.to(cuda) for a in args], 1000, K=3,
+                              n_sends=12, num_pro=2)
+    else:
+        C, T = 8, 4000
+        args = [torch.from_numpy(a) for a in random_vcycle(
+            rng, C, T, 24, 4, 8, Cp=32)]
+        assert 16 * T * kv.SEED_CORES_PER_BLOCK > kv.max_smem()
+        ref = kv.vcycle_seed_ref(*args)
+        out = kv.vcycle_seed(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    for a, b in zip(ref, out):
+        assert torch.equal(a, b.cpu())
+
+
 def test_oversized_state_raises(cuda):
     rng = np.random.default_rng(0)
     args = random_args(rng, [100], 32, 32, 4, 4096, 1, 4, 2, 0)
     with pytest.raises(ValueError, match="shared memory"):
         kv.vcycle_chunk(*[a.to(cuda) for a in args], 4, K=1, n_sends=2)
+
+
+def test_more_cores_than_threads_raises(cuda):
+    """The chunk kernel runs one thread per core, at most 896 a block (its
+    register budget): a program of 897 cores raises in the binding."""
+    rng = np.random.default_rng(3)
+    args = random_args(rng, [100], 897, 928, 4, 8, 1, 4, 2, 0)
+    with pytest.raises(ValueError, match="C=897 exceeds 896 threads"):
+        kv.vcycle_chunk(*[a.to(cuda) for a in args], 4, K=1, n_sends=2)
+
+
+def test_bound_tables_on_the_host_match_plain(cuda):
+    """A binding hands the kernels its row tables only: the dense tables
+    it keeps stay on the host, and its card run equals its CPU run."""
+    prog = compile_circuit(build("mc", "small").circuit, HW)
+    m_gpu = bsp.Machine(prog, device=cuda)
+    m_cpu = bsp.Machine(prog, device="cpu")
+    k = m_gpu._kernel
+    assert all(t.device.type == "cpu" for t in k.tables()[:3])
+    assert k.rows.rows.device.type == "cuda"
+    seed = bsp.Machine(prog, device=cuda, specialize=False)._seed
+    assert (seed.code.device.type, seed.luts.device.type) == ("cpu", "cpu")
+    assert seed.tables.rows.rows.device.type == "cuda"
+    a = m_gpu.run(m_gpu.init_state(), 40)
+    b = m_cpu.run(m_cpu.init_state(), 40)
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y)
 
 
 def test_launch_bumps_the_counter(cuda):
