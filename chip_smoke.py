@@ -49,14 +49,18 @@ the last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 such line, when any phase fails, when no CUDA device is present, or when
 run outside a checkout.
 """
+import asyncio
 import concurrent.futures as cf
+import contextlib
 import dataclasses
+import io
 import json
 import multiprocessing as mp
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -579,6 +583,265 @@ def phase_main(torch, kv, sim, IsaEngine):
           "vcycles_per_s": rates, "C": eng.m.C, "R": eng.m.R,
           "T": int(s.program.code.shape[1])})
     return eng, launches
+
+# the serving path (benchmarks/bench_serve.py's three modes, at full scale
+# on the default 15x15 grid): mixed mc+bc traffic, 64 requests a circuit
+SERVE_NAMES = ("mc", "bc")
+SERVE_SCALE = "full"
+SERVE_PER_CIRCUIT = 64
+SERVE_WAIT_S = 0.03
+SERVE_MODES = ("coalesced", "b1", "hardened")
+SERVE_ISA_SEEDS = 4
+CHAOS_N = 100
+# elastic migrations (examples/simulate_accelerator.py): (circuit, the
+# small grid's side), each moved half way to the default 15x15 grid; bc is
+# modulo-pipelined on both grids, so its prologue runs on the carried state
+ELASTIC_CASES = (("rv32r", 5), ("mc", 3), ("bc", 5))
+
+
+def _serve_reqs(serve, seed0: int):
+    """Interleaved mc, bc, mc, ... requests on seeds seed0, seed0 + 1, ..."""
+    return [serve.SimRequest(nm, scale=SERVE_SCALE, seed=seed0 + i)
+            for i in range(SERVE_PER_CIRCUIT) for nm in SERVE_NAMES]
+
+
+async def _serve_wave(server, reqs):
+    """Every request at once; per-request latency and the wave's wall."""
+    lat = {}
+
+    async def one(r):
+        t0 = time.perf_counter()
+        resp = await server.submit(r)
+        lat[r.rid] = time.perf_counter() - t0
+        return resp
+
+    t0 = time.perf_counter()
+    resps = await asyncio.gather(*(one(r) for r in reqs))
+    return resps, time.perf_counter() - t0, [lat[r.rid] for r in reqs]
+
+
+def _served_ok(resps, tag):
+    bad = [r for r in resps if not (r.ok and r.result.finished)]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} requests not OK/finished "
+                             f"(first: {bad[0].status} {bad[0].error})")
+
+
+def _stages(before, after) -> dict:
+    """Where a wave's launches spent their time, as the daemon timed them
+    (``SimServer.stats()["stages"]``): seconds per launch, and the engines
+    built for a new batch size instead of rebinding a hot one."""
+    n = after["launches"] - before["launches"]
+    out = {k: (after[k] - before[k]) / n for k in
+           ("images_s", "engine_s", "chunks_s", "snapshots_s")}
+    out["launches"] = n
+    out["engines_built"] = after["engines_built"] - before["engines_built"]
+    return out
+
+
+async def _serve_mode(torch, kv, serve, mode, cache_dir, device):
+    """One of bench_serve.py's modes: a warm-up wave, then the measured
+    wave of 128 requests on seeds 1..64, its chunk launches counted."""
+    faults = serve.FaultPlan(seed=0) if mode == "hardened" else None
+    policy = (serve.BatchPolicy(max_batch=1, max_wait_s=0.0, max_queue=4096)
+              if mode == "b1" else
+              serve.BatchPolicy(max_batch=64, max_wait_s=SERVE_WAIT_S,
+                                max_queue=4096))
+    server = serve.SimServer(
+        sessions=serve.SessionManager(cache=cache_dir, faults=faults,
+                                      device=device),
+        policy=policy, faults=faults,
+        retry=serve.RetryPolicy() if mode == "hardened" else None)
+    try:
+        warm, _, _ = await _serve_wave(server, _serve_reqs(serve, 10_000))
+        _served_ok(warm, f"serve {mode} warm-up")
+        stats0 = server.stats()
+        torch.cuda.synchronize()
+        kv.reset_counts()
+        resps, wall, lats = await _serve_wave(server, _serve_reqs(serve, 1))
+        torch.cuda.synchronize()
+        counts = dict(kv.COUNTS)
+        _served_ok(resps, f"serve {mode}")
+        if counts["vcycle_chunk"] <= 0 or counts["vcycle_seed"]:
+            raise AssertionError(f"serve {mode}: launched {counts}")
+        stats = server.stats()
+        launches = stats["batcher"]["launches"] - \
+            stats0["batcher"]["launches"]
+        launched = stats["batcher"]["launched_requests"] - \
+            stats0["batcher"]["launched_requests"]
+        row = {"mode": mode, "n_requests": len(resps), "wall_s": wall,
+               "rps": len(resps) / wall,
+               "p50_ms": float(np.percentile(lats, 50) * 1e3),
+               "p95_ms": float(np.percentile(lats, 95) * 1e3),
+               "launches": launches, "mean_batch": launched / launches,
+               "mean_run_s": float(np.mean([r.run_s for r in resps])),
+               "chunk_launches": counts["vcycle_chunk"],
+               "engine_kinds": sorted({r.engine_kind for r in resps}),
+               "stages_per_launch": _stages(stats0["stages"],
+                                            stats["stages"]),
+               "warm_up_stages_per_launch": _stages(
+                   dict.fromkeys(stats0["stages"], 0), stats0["stages"])}
+        return row, resps
+    finally:
+        await server.close()
+
+
+async def _serve_chaos(serve, chaos_drill, poison_seeds, cache_dir, device):
+    """``python -m repro_torch.serve --chaos-drill``'s server and plan
+    (p=0.2 at the four sites, poison seeds 666/667) on CHAOS_N requests
+    at full scale; the drill's own report is returned, not printed."""
+    plan = serve.FaultPlan.chaos(seed=0, p=0.2, poison_seeds=poison_seeds)
+    server = serve.SimServer(
+        sessions=serve.SessionManager(cache=cache_dir, faults=plan,
+                                      breaker_cooldown_s=0.2,
+                                      device=device),
+        policy=serve.BatchPolicy(max_batch=64, max_wait_s=0.02,
+                                 max_queue=256),
+        faults=plan, retry=serve.RetryPolicy(
+            max_attempts=8, backoff_base_s=0.01, max_extra_launches=32))
+    server.sessions.compile_retries = 6
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = await chaos_drill(server, list(SERVE_NAMES), SERVE_SCALE,
+                               CHAOS_N, plan)
+    await server.close(drain=True)
+    return rc, log.getvalue().splitlines(), server.stats()["launch"]
+
+
+def phase_serve(torch, kv, sim, serve, IsaEngine, device=None):
+    """The main path's last stage: ``repro_torch.serve.SimServer`` in this
+    process, in bench_serve.py's three modes; every served result equal
+    to a direct ``sim.compile(name, seeds=...).run()`` and, on four seeds
+    a circuit, to IsaSim; then the chaos drill and the CLI's self-test."""
+    from repro_torch.serve.__main__ import POISON_SEEDS, chaos_drill
+    t_phase = time.perf_counter()
+    seeds = list(range(1, 1 + SERVE_PER_CIRCUIT))
+    with tempfile.TemporaryDirectory(prefix="serve-cache-") as cache_dir:
+        modes, served = {}, {}
+        for mode in SERVE_MODES:
+            modes[mode], served[mode] = asyncio.run(
+                _serve_mode(torch, kv, serve, mode, cache_dir, device))
+        direct = {}
+        for name in SERVE_NAMES:
+            s = sim.compile(name, scale=SERVE_SCALE, seeds=seeds,
+                            cache=cache_dir, device=device)
+            results = s.run()
+            if not all(r.finished for r in results):
+                raise AssertionError(f"serve: direct {name} run unfinished")
+            stacked = s.images_stacked()
+            for i in range(SERVE_ISA_SEEDS):
+                ref = IsaEngine(s.program, images=tuple(a[i] for a in
+                                                        stacked)) \
+                    .run(s.default_cycles())
+                if _result_key(ref, False) != _result_key(results[i],
+                                                           False):
+                    raise AssertionError(f"serve: {name} seed {seeds[i]} "
+                                         "direct run != IsaSim")
+            direct[name] = dict(zip(seeds, results))
+        for mode, resps in served.items():
+            for req, resp in zip(_serve_reqs(serve, 1), resps):
+                if _result_key(resp.result) != \
+                        _result_key(direct[req.circuit][req.seed]):
+                    raise AssertionError(
+                        f"serve {mode}: {req.circuit} seed {req.seed} "
+                        "!= the direct run")
+        t0 = time.perf_counter()
+        rc, drill_log, drill_launch = asyncio.run(_serve_chaos(
+            serve, chaos_drill, POISON_SEEDS, cache_dir, device))
+        chaos_s = time.perf_counter() - t0
+        if rc:
+            raise AssertionError("serve: chaos drill failed: "
+                                 + " | ".join(drill_log))
+        cli = [sys.executable, "-m", "repro_torch.serve", "--self-test",
+               "--scale", SERVE_SCALE, "--cache-dir", cache_dir]
+        if device is not None:
+            cli += ["--device", str(device)]
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = subprocess.run(cli, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT, env=env)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0 or "self-test ok" not in out.stdout:
+            raise AssertionError(f"serve: CLI self-test failed "
+                                 f"({out.returncode}): {out.stdout[-2000:]}"
+                                 f"{out.stderr[-2000:]}")
+    chunk_launches = sum(m["chunk_launches"] for m in modes.values())
+    emit({"phase": "serve", "circuits": list(SERVE_NAMES),
+          "scale": SERVE_SCALE, "grid": "15x15",
+          "modes": modes, "all_ok": True, "equal_to": [
+              f"sim.compile(name, seeds=1..{SERVE_PER_CIRCUIT}).run()",
+              f"IsaSim ({SERVE_ISA_SEEDS} seeds a circuit)"],
+          "chaos_drill": {"n": CHAOS_N, "seconds": chaos_s,
+                          "launch": drill_launch,
+                          "report": drill_log[:1]},
+          "cli_self_test": {"cmd": " ".join(cli[1:]), "seconds": cli_s,
+                            "last_line": out.stdout.strip()
+                            .splitlines()[-1]},
+          "chunk_launches": chunk_launches,
+          "seconds": time.perf_counter() - t_phase})
+    return chunk_launches
+
+
+def phase_elastic(torch, kv, sim, elastic, HardwareConfig, FINISH,
+                  device=None):
+    """examples/simulate_accelerator.py on the port: each case compiled
+    for a small grid and for 15x15, run half way on the small one through
+    ``machine``, migrated by RTL name, run to its end on 15x15; it must
+    FINISH at exactly ``n_cycles`` with the registers of an uninterrupted
+    15x15 run."""
+    cases, launches = [], 0
+    with tempfile.TemporaryDirectory(prefix="elastic-cache-") as cache_dir:
+        for name, side in ELASTIC_CASES:
+            sa = sim.compile(name, HardwareConfig(grid_width=side,
+                                                  grid_height=side),
+                             scale="full", cache=cache_dir, device=device)
+            sb = sim.compile(name, HardwareConfig(), scale="full",
+                             cache=cache_dir, device=device)
+            n = sb.n_cycles
+            half = n // 2
+            ea, eb = sa.engine(), sb.engine()
+            torch.cuda.synchronize()
+            kv.reset_counts()
+            t0 = time.perf_counter()
+            ra = ea.run(half)
+            eb.state = elastic.migrate(sa.program, ea.state, sb.program,
+                                       eb.m)
+            rb = eb.run(n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kv.COUNTS)
+            if counts["vcycle_chunk"] <= 0 or counts["vcycle_seed"]:
+                raise AssertionError(f"elastic {name}: launched {counts}")
+            launches += counts["vcycle_chunk"]
+            ref = sb.run()
+            if ra.cycles != half or ra.exceptions:
+                raise AssertionError(f"elastic {name}: first half ran "
+                                     f"{ra.cycles} ({ra.exceptions})")
+            if set(rb.exceptions.values()) != {FINISH} \
+                    or ra.cycles + rb.cycles != n:
+                raise AssertionError(
+                    f"elastic {name}: ended at {ra.cycles + rb.cycles} "
+                    f"with {rb.exceptions}, not FINISH at {n}")
+            if ref.cycles != n or rb.registers != ref.registers \
+                    or rb.exceptions != ref.exceptions:
+                raise AssertionError(f"elastic {name}: migrated run != "
+                                     "an uninterrupted 15x15 run")
+            cases.append({"circuit": name, "from": f"{side}x{side}",
+                          "to": "15x15", "n_cycles": n, "half": half,
+                          "finished_at": ra.cycles + rb.cycles,
+                          "registers_checked": len(rb.registers),
+                          "vcpl": [sa.program.vcpl, sb.program.vcpl],
+                          "prologue_slots": [sa.program.pipe_prologue,
+                                             sb.program.pipe_prologue],
+                          "cores": [sa.program.used_cores,
+                                    sb.program.used_cores],
+                          "chunk_launches": counts["vcycle_chunk"],
+                          "wall_s": wall})
+    emit({"phase": "elastic", "cases": cases,
+          "equal_to": "an uninterrupted 15x15 run",
+          "chunk_launches": launches})
+    return launches
+
 
 # the flash kernel's shapes: (BH, BHkv, S, dh, dtype, causal)
 FLASH_CASES = (
@@ -1119,7 +1382,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
+        import repro_torch.serve as serve
         import repro_torch.sim as sim
+        from repro_torch.circuits import FINISH
         from repro_torch.circuits.fig8 import build_membench
         from repro_torch.configs import ARCHS
         from repro_torch.kernels import build as kbuild
@@ -1127,6 +1392,7 @@ def main() -> int:
         from repro_torch.kernels.ref import flash_ref
         from repro_torch.launch import steps
         from repro_torch.models import layers as L
+        from repro_torch.runtime import elastic
         from repro_torch.core import bsp
         from repro_torch.core.isa import HardwareConfig
         from repro_torch.core.isasim import IsaSim
@@ -1167,6 +1433,9 @@ def main() -> int:
     bat_fig8 = phase_fig8(torch, kv, sim, bsp, IsaEngine, build_membench,
                           fig8_hw, CacheModel)
     eng, launches = phase_main(torch, kv, sim, IsaEngine)
+    serve_launches = phase_serve(torch, kv, sim, serve, IsaEngine)
+    elastic_launches = phase_elastic(torch, kv, sim, elastic,
+                                     HardwareConfig, FINISH)
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
@@ -1177,7 +1446,9 @@ def main() -> int:
           "seed_launches_on_seed_path": seed_launches,
           "b1_chunk_launches_on_machine_path": b1_launches,
           "sm90_launches_on_bf16_serving_path": sm90_launches,
-          "simt_launches_on_fp32_serving_path": simt_launches})
+          "simt_launches_on_fp32_serving_path": simt_launches,
+          "chunk_launches_on_serve_path": serve_launches,
+          "chunk_launches_on_elastic_path": elastic_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     kernels = [
         kernel_line("vcycle_chunk",

@@ -11,6 +11,8 @@ index. ``MachineEngine`` and ``BatchedEngine`` run the CUDA chunk kernel,
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Dict, List, Optional, Protocol, Sequence, Tuple, \
     runtime_checkable
 
@@ -170,8 +172,12 @@ class BatchedEngine:
         return _snapshot(self, 0)
 
     def run_batch(self, num_cycles: int) -> List[RunResult]:
+        t0 = time.perf_counter()
         self.state = self.m.run(self.state, num_cycles)
         regs = from_words(self.state.regs)
+        # seconds of the chunks and of the registers' copy to the host,
+        # which waits for the device; the rest of the call is snapshots
+        self.chunks_s = time.perf_counter() - t0
         return [_snapshot(self, b, regs[b]) for b in range(self.batch)]
 
     def _regs_np(self, b: int) -> np.ndarray:
@@ -206,13 +212,18 @@ class IsaEngine:
         self.reset()
 
     def reset(self) -> None:
-        self.sim = IsaSim(self.program)
+        # the stimulus's images as the program's own init, so that IsaSim
+        # runs a pipelined Program's prologue (iteration 0's hoisted pure
+        # ops) on them, as the kernel engines do. The reference's adapter
+        # overwrites the state after the prologue ran on the base image
+        # (ROADMAP queue C).
+        prog = self.program
         if self._images is not None:
             ri, si, gi = self._images
-            C, R = self.sim.C, self.sim.R
-            self.sim.regs = np.asarray(ri)[:C, :R].astype(np.uint32).copy()
-            self.sim.spads = np.asarray(si)[:C].astype(np.uint32).copy()
-            self.sim.gmem = np.asarray(gi).astype(np.uint32).copy()
+            prog = dataclasses.replace(prog, reg_init=np.asarray(ri),
+                                       spad_init=np.asarray(si),
+                                       gmem_init=np.asarray(gi))
+        self.sim = IsaSim(prog)
 
     def run(self, num_cycles: int) -> RunResult:
         self.sim.run(num_cycles)

@@ -14,8 +14,11 @@ protocol-conforming engines on demand::
     results = s.run()                         # BatchedEngine on the card
     assert all(r.finished for r in results)
 
-Engine auto-selection: a batch (``seeds=``/``images=`` with more than one
-stimulus) gets ``BatchedEngine``, a single stimulus ``MachineEngine``;
+Engine auto-selection follows the reference: a ``mesh=`` requests the
+core-sharded ``grid`` engine; a batch (``seeds=``/``images=`` with more
+than one stimulus) picks the batch-sharded ``sharded`` engine when it is
+given ``devices=`` to shard over and B >= 2*D (or ``shard_batch=True``
+forces it) and ``BatchedEngine`` otherwise; a single stimulus gets ``MachineEngine``.
 ``engine="seed"`` runs the seed baseline arm.
 ``device=`` (at ``compile`` or per engine) is the torch device the kernel
 engines run on; the default is the card, and ``device="cpu"`` runs the
@@ -48,9 +51,24 @@ _ENGINE_KINDS = ("auto", "machine", "jnp", "pallas", "seed", "batched",
 
 # engine kinds of the reference that wait for a later slice of the port
 _NOT_PORTED = {
-    "sharded": "ShardedBatchedMachine (batch sharded over several cards)",
-    "grid": "GridMachine (cores sharded over several cards)",
+    "sharded": "A6, ShardedBatchedMachine (batch sharded over several "
+               "cards)",
+    "grid": "A7, GridMachine (cores sharded over several cards)",
 }
+
+
+def _auto_shard(shard_batch, B: int, devices) -> bool:
+    """Auto-selection rule for the batch-sharded engine: an explicit
+    ``shard_batch`` wins; otherwise shard when there is more than one
+    device to shard over and every device gets at least two elements
+    (B >= 2*D). ``devices=None`` stands for the devices a Simulation can
+    shard its batch over: one, on the CPU and on the card alike, until
+    the batch-sharded engine exists (ROADMAP A6), so that ``auto`` never
+    picks an engine the port does not have."""
+    if shard_batch is not None:
+        return bool(shard_batch)
+    D = len(devices) if devices is not None else 1
+    return D > 1 and B >= 2 * D
 
 
 @dataclass
@@ -92,13 +110,25 @@ class Simulation:
             self.meta["fingerprint"] = fp
         return fp
 
-    def select_engine_kind(self, batch: Optional[int] = None) -> str:
+    def select_engine_kind(self, batch: Optional[int] = None, *,
+                           mesh=None, devices=None,
+                           shard_batch: Optional[bool] = None) -> str:
         """The engine kind ``engine("auto")`` resolves to — without
         constructing it. ``batch`` defaults to this Simulation's own
         stimulus count; a serving layer passes the coalesced batch size it
-        is about to launch."""
+        is about to launch. ``devices`` stands for the devices to shard over
+        (default: one, see :func:`_auto_shard`); ``shard_batch`` defaults to the
+        value given at :func:`compile`."""
+        if mesh is not None:
+            return "grid"
         B = self.batch if batch is None else int(batch)
-        return "batched" if B > 1 else "machine"
+        if shard_batch is None:
+            shard_batch = self.meta.get("shard_batch")
+        if B > 1 and _auto_shard(shard_batch, B, devices):
+            return "sharded"
+        if B > 1:
+            return "batched"
+        return "machine"
 
     @property
     def engine_kind(self) -> str:
@@ -128,15 +158,18 @@ class Simulation:
         return self.bench.images_batch(self.program, workers=workers)
 
     # ------------------------------------------------------------------
-    def engine(self, kind: str = "auto", *,
+    def engine(self, kind: str = "auto", *, mesh=None,
                images: Optional[Sequence[Images]] = None,
                batch: Optional[int] = None, device=None,
-               specialize: bool = True, workers: Optional[int] = None,
+               specialize: bool = True, shard_batch: Optional[bool] = None,
+               devices=None, workers: Optional[int] = None,
                **opts) -> Engine:
         """Construct a protocol-conforming engine over this Program.
 
-        ``kind="auto"`` picks batched (several stimuli) or the
-        single-stimulus machine. Explicit kinds: ``machine``/``jnp``/
+        ``kind="auto"`` resolves through :meth:`select_engine_kind` (grid
+        for a ``mesh``, sharded for B >= 2*D over several ``devices`` or
+        ``shard_batch=True``, batched for several stimuli, else the
+        single-stimulus machine). Explicit kinds: ``machine``/``jnp``/
         ``pallas`` (the chunk kernel at B=1), ``seed`` (the unspecialized
         baseline arm, as is ``machine`` with ``specialize=False``),
         ``batched``, ``isa``, ``oracle``/``netlist``/``reference``.
@@ -155,11 +188,12 @@ class Simulation:
             B = self.batch
 
         if kind == "auto":
-            kind = self.select_engine_kind(B)
+            kind = self.select_engine_kind(B, mesh=mesh, devices=devices,
+                                           shard_batch=shard_batch)
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"engine kind {kind!r} is not ported yet: see ROADMAP.md, "
-                f"queue A, {_NOT_PORTED[kind]}")
+                f"queue {_NOT_PORTED[kind]}")
         if kind in ("oracle", "netlist", "reference"):
             if self.circuit is None:
                 raise ValueError(
@@ -251,6 +285,7 @@ def compile(source, hw: Optional[HardwareConfig] = None, *,
             strategy: str = "balanced", sched_strategy: str = "slack",
             placement: str = "anneal", pipeline: str = "modulo",
             cache: Union[bool, str, Path, CompileCache, None] = None,
+            shard_batch: Optional[bool] = None,
             device=None, **overrides) -> Simulation:
     """Compile ``source`` (benchmark name, Bench, or Circuit) into a
     :class:`Simulation` whose kernel engines run on ``device`` (default:
@@ -260,9 +295,10 @@ def compile(source, hw: Optional[HardwareConfig] = None, *,
     structural netlist, per-seed init planes, so every stimulus shares the
     compiled Program. ``cache=True`` (or a directory path) consults the
     on-disk compile cache first; on a miss the freshly compiled Program is
-    stored for next time. The compiler options are the reference's
-    (``repro.sim.facade.compile``); the compiled Program is byte-identical
-    to the one it builds.
+    stored for next time. ``shard_batch`` is kept for engine selection
+    (see :meth:`Simulation.select_engine_kind`). The compiler options are
+    the reference's (``repro.sim.facade.compile``); the compiled Program
+    is byte-identical to the one it builds.
     """
     bench, circuit = _resolve_source(source, scale, seeds, overrides)
     if bench is not None:
@@ -291,7 +327,8 @@ def compile(source, hw: Optional[HardwareConfig] = None, *,
     else:
         prog.stats["fingerprint"] = fp
     return Simulation(program=prog, bench=bench, circuit=circuit,
-                      meta={"cache_key": key, "fingerprint": fp},
+                      meta={"cache_key": key, "shard_batch": shard_batch,
+                            "fingerprint": fp},
                       device=device)
 
 

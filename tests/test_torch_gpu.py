@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.circuits import build
+from repro_torch.circuits import FINISH, build
 from repro_torch.circuits.fig8 import build_membench
 from repro_torch.core import bsp
 from repro_torch.core.compile import compile_circuit
@@ -423,3 +423,88 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
         "flash_attention_sm90"]
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(toks, tokc)
+
+
+def _serve(device, plan=None):
+    """Eight mixed mc+bc small requests at 5x5 through ``SimServer`` on
+    ``device``; seed 13 poisoned by ``plan`` bisects its batch into odd
+    sub-batches."""
+    import asyncio
+    from repro_torch import serve
+
+    async def go():
+        server = serve.SimServer(
+            sessions=serve.SessionManager(cache=False, faults=plan,
+                                          device=device),
+            policy=serve.BatchPolicy(max_batch=8, max_wait_s=0.3),
+            faults=plan, retry=serve.RetryPolicy(backoff_base_s=0.001))
+        try:
+            return await asyncio.gather(*(server.submit(serve.SimRequest(
+                name, scale="small", seed=s,
+                hw={"grid_width": 5, "grid_height": 5}))
+                for s in (11, 12, 13, 14) for name in ("mc", "bc")))
+        finally:
+            await server.close()
+
+    return asyncio.run(go())
+
+
+def test_serve_on_card_matches_cpu(cuda):
+    """The daemon's launch path on the card (worker threads, hot engines
+    rebound across batches, a poisoned batch bisected into sub-batches of
+    new sizes) answers what it answers on the CPU."""
+    from repro_torch.serve import FaultPlan, FaultSpec
+    for plan in (None, FaultPlan(0, launch=FaultSpec(
+            poison_seeds=frozenset({13})))):
+        kv.reset_counts()
+        card = _serve(None, plan)
+        assert kv.COUNTS["vcycle_chunk"] > 0
+        cpu = _serve("cpu", plan)
+        for a, b in zip(card, cpu):
+            assert (a.status, a.error_code, a.batch, a.engine_kind) == \
+                (b.status, b.error_code, b.batch, b.engine_kind)
+            if a.ok:
+                assert a.result == b.result
+        assert sum(r.ok for r in card) == (8 if plan is None else 6)
+
+
+def test_elastic_migration_on_card_matches_cpu(cuda):
+    from repro_torch.runtime import elastic
+    b = build("mc", "small")
+    prog_a = compile_circuit(b.circuit, HardwareConfig(grid_width=3,
+                                                       grid_height=3))
+    prog_b = compile_circuit(b.circuit, HW)
+    half = b.n_cycles // 2
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ma, mb = bsp.Machine(prog_a, device=dev), bsp.Machine(prog_b,
+                                                              device=dev)
+        st = elastic.migrate(prog_a, ma.run(ma.init_state(), half),
+                             prog_b, mb)
+        st = mb.run(st, b.n_cycles)
+        out[dev] = ({n: mb.read_reg(st, n) for n in prog_b.state_regs},
+                    mb.exceptions(st), mb.perf(st)["vcycles"])
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][2] + half == b.n_cycles
+
+
+def test_elastic_migration_of_a_pipelined_program_on_card(cuda):
+    """bc/full is modulo-pipelined on 5x5 and 15x15: migrated half way,
+    it runs the prologue on the carried state and finishes where an
+    uninterrupted 15x15 run does, with its registers, on the card."""
+    from repro_torch.runtime import elastic
+    b = build("bc", "full")
+    prog_a = compile_circuit(b.circuit, HardwareConfig(grid_width=5,
+                                                       grid_height=5))
+    prog_b = compile_circuit(b.circuit, HardwareConfig())
+    assert prog_a.pipe_prologue and prog_b.pipe_prologue
+    half = b.n_cycles // 2
+    ma, mb = bsp.Machine(prog_a, device="cuda"), bsp.Machine(prog_b,
+                                                             device="cuda")
+    st = elastic.migrate(prog_a, ma.run(ma.init_state(), half), prog_b, mb)
+    st = mb.run(st, b.n_cycles)
+    ref = mb.run(mb.init_state(), b.n_cycles + 10)
+    assert mb.perf(st)["vcycles"] + half == b.n_cycles
+    assert set(mb.exceptions(st).values()) == {FINISH}
+    assert {n: mb.read_reg(st, n) for n in prog_b.state_regs} == \
+        {n: mb.read_reg(ref, n) for n in prog_b.state_regs}

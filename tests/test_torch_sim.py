@@ -9,7 +9,7 @@ import repro.sim as jsim
 from repro.core.isa import HardwareConfig as JHW
 
 import repro_torch.sim as tsim
-from repro_torch.circuits import FINISH
+from repro_torch.circuits import FINISH, MISMATCH
 from repro_torch.core.isa import HardwareConfig as THW
 from repro_torch.core.netlist import Circuit
 from repro_torch.sim.engine import MachineEngine
@@ -144,3 +144,22 @@ def test_reference_engine_kinds_resolve(kind):
     assert isinstance(eng, MachineEngine)
     assert eng.m.specialize == (kind != "seed")
     same_results(ref, s.run(engine=kind))
+
+
+def test_isa_engine_applies_the_prologue_to_given_images():
+    """bc/full on 15x15 is modulo-pipelined (a 20-slot prologue). Given a
+    stimulus's images, the port's ISA engine runs the prologue on them, as
+    the kernel engines do, and equals the batched engine; the reference's
+    adapter keeps the prologue of the base image and raises MISMATCH
+    (ROADMAP queue C)."""
+    seeds = [1, 2]
+    s = tsim.compile("bc", THW(), scale="full", seeds=seeds, device="cpu")
+    assert s.program.pipe_prologue > 0
+    batched = s.run()
+    isa = s.run(engine="isa")
+    assert batched[0].finished and isa.finished
+    assert (isa.cycles, isa.exceptions, isa.registers, isa.outputs) == \
+        (batched[0].cycles, batched[0].exceptions, batched[0].registers,
+         batched[0].outputs)
+    ref = jsim.compile("bc", JHW(), scale="full", seeds=seeds)
+    assert ref.run(engine="isa").exception_ids == {MISMATCH}
