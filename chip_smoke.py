@@ -30,6 +30,11 @@ launch counts set to 0 just before and read just after:
   ``seed`` and ``batched`` (B=64 seeds), equal to the ISA simulator;
 * the main path ``repro_torch.sim.compile("mc", scale="full",
   seeds=range(512)).run()``;
+* the multi-device engines on one and on four shards of the card:
+  ``run(engine="sharded", devices=["cuda:0"] * 4)`` on the main path's
+  512 seeds, and ``ShardedBatchedMachine`` (mc/full at B=512 and 510,
+  bc/full at B=64) and ``GridMachine`` (mc/full and bc/full, one stimulus
+  and 64) each bit-equal to ``BatchedMachine`` or ``Machine``;
 * LM serving, ``repro_torch.launch.steps.make_serve_steps`` on qwen3-0.6b
   at full width (random weights from a seed): B=4 prompts of 2048 tokens,
   one prefill (28 ``flash_attention_sm90`` launches) and 32 greedy decode
@@ -582,7 +587,7 @@ def phase_main(torch, kv, sim, IsaEngine):
           "images_s": images_s, "run_batch_s": run_batch_s,
           "vcycles_per_s": rates, "C": eng.m.C, "R": eng.m.R,
           "T": int(s.program.code.shape[1])})
-    return eng, launches
+    return eng, launches, s, results
 
 # the serving path (benchmarks/bench_serve.py's three modes, at full scale
 # on the default 15x15 grid): mixed mc+bc traffic, 64 requests a circuit
@@ -841,6 +846,235 @@ def phase_elastic(torch, kv, sim, elastic, HardwareConfig, FINISH,
           "equal_to": "an uninterrupted 15x15 run",
           "chunk_launches": launches})
     return launches
+
+
+# the multi-device engines (ROADMAP A6, A7) on a one-card machine: D
+# shards of cuda:0 test the logic of the sharding and of the exchange, not
+# the speed of copies between cards
+MULTI_DEV = "cuda:0"
+MULTI_D = (1, 4)
+SHARDED_B = 510            # padded to 512 over 4 shards: 2 padding elements
+MULTI_SEEDS = 64           # bc's sharded batch, and each batched grid's
+MULTI_ISA = (0, 300, 509)  # elements on shards 0, 2 and 3, held to IsaSim
+STATE_LEAVES = ("regs", "spads", "gmem", "flags", "cache_tags", "counters")
+
+
+def one_card(D: int) -> list:
+    """D shards of one card, the devices of every multi-device case here
+    (``scripts/multi_card.py`` gives each shard its own card)."""
+    return [MULTI_DEV] * D
+
+
+def _shards_on(devices) -> str:
+    names = [str(d) for d in devices]
+    return (f"{len(names)} x {names[0]}" if len(set(names)) == 1
+            else ", ".join(names))
+
+
+def _label(devices) -> str:
+    if len({str(d) for d in devices}) == 1:
+        return ("D shards on one card: the logic of sharding and of the "
+                "exchange, not copies between cards")
+    return "one shard a card: the exchange crosses cards"
+
+
+def _synced(torch, fn):
+    """(fn(), seconds): host clock around work that ends in a sync of
+    every card."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def _equal_leaves(torch, got, want, tag):
+    """Two states leaf by leaf, bit for bit (int32 tensors or uint32/int32
+    arrays, on any device)."""
+    for name, a, b in zip(STATE_LEAVES, got, want):
+        a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+        b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(
+                a.view(np.uint32), b.view(np.uint32)):
+            raise AssertionError(f"{tag}: {name} differs")
+
+
+def phase_sharded(torch, kv, sim, bsp, IsaEngine, FINISH, s_mc, results,
+                  place=one_card):
+    """``ShardedBatchedMachine`` on D shards of the card, each element
+    bit-equal to ``BatchedMachine`` on the same images: mc/full at B=512
+    (D=1) and B=510 (D=4, two padding elements), bc/full (pipelined) at
+    B=64 over 4 shards; then the user's call
+    ``compile("mc", seeds=range(512)).run(engine="sharded", devices=...)``,
+    counted, equal to the main path's results and to IsaSim. ``place(D)``
+    gives the devices of D shards."""
+    t_phase = time.perf_counter()
+    dev0 = place(1)[0]
+    s_bc = sim.compile("bc", scale="full", seeds=range(MULTI_SEEDS))
+    cases = []
+    for s, name, B, D in ((s_mc, "mc", MAIN_SEEDS, 1),
+                          (s_mc, "mc", SHARDED_B, 4),
+                          (s_bc, "bc", MULTI_SEEDS, 4)):
+        tag = f"sharded {name} B={B} D={D}"
+        images = tuple(a[:B] for a in s.images_stacked())
+        n = s.default_cycles()
+        bm = bsp.BatchedMachine(s.program, images=images, device=dev0)
+        sm = bsp.ShardedBatchedMachine(s.program, images=images,
+                                       devices=place(D))
+        sb, t_b = _synced(torch, lambda: bm.run(bm.init_state(), n))
+        kv.reset_counts()
+        st, t_s = _synced(torch, lambda: sm.run(sm.init_state(), n))
+        launches = kv.COUNTS["vcycle_chunk"]
+        g = sm.gather(st)
+        _equal_leaves(torch, [x[:B] for x in g], sb, tag)
+        if g.flags[B:].any() or g.counters[B:].any():
+            raise AssertionError(f"{tag}: a padding element ran")
+        p = sm.perf(st)
+        vc = g.counters[:B, 0]
+        if (p["batch"] != B or len(sm.exceptions(st)) != B
+                or not bool((vc == s.n_cycles).all())
+                or not bool((g.flags[:B] == FINISH).any(1).all())):
+            raise AssertionError(f"{tag}: not every element FINISHed at "
+                                 f"{s.n_cycles} ({p})")
+        _, t_b2 = _synced(torch, lambda: bm.run(bm.init_state(), n))
+        _, t_s2 = _synced(torch, lambda: sm.run(sm.init_state(), n))
+        cases.append({"circuit": name, "B": B, "D": D, "Bp": sm.Bp,
+                      "shards_on": _shards_on(place(D)),
+                      "chunk_launches": launches,
+                      "vcycles": p["vcycles"], "pipe_prologue":
+                      s.program.pipe_prologue,
+                      "vcycles_per_s": [p["vcycles"] / t_s,
+                                        p["vcycles"] / t_s2],
+                      "batched_vcycles_per_s": [p["vcycles"] / t_b,
+                                                p["vcycles"] / t_b2],
+                      "equal_to": "BatchedMachine"})
+    # the user's call, counted
+    devices = place(4)
+    torch.cuda.synchronize()
+    kv.reset_counts()
+    out, run_s = _synced(torch, lambda: s_mc.run(engine="sharded",
+                                                 devices=devices))
+    launches = kv.COUNTS["vcycle_chunk"]
+    if launches <= 0 or kv.COUNTS["vcycle_seed"]:
+        raise AssertionError(f"sharded path launched {dict(kv.COUNTS)}")
+    if out != results:
+        raise AssertionError("run(engine='sharded') != the main path's "
+                             "results")
+    stacked = s_mc.images_stacked()
+    for i in MULTI_ISA:
+        ref = IsaEngine(s_mc.program, images=tuple(a[i] for a in stacked)) \
+            .run(s_mc.default_cycles())
+        if (ref.cycles, ref.exceptions, ref.registers) != \
+                (out[i].cycles, out[i].exceptions, out[i].registers):
+            raise AssertionError(f"sharded element {i} != IsaSim")
+    emit({"phase": "sharded", "cases": cases,
+          "call": "repro_torch.sim.compile('mc', scale='full', "
+                  f"seeds=range({MAIN_SEEDS})).run(engine='sharded', "
+                  f"devices=[{_shards_on(devices)}])",
+          "label": _label(devices),
+          "launches": launches, "run_s": run_s,
+          "equal_to": ["main path results", "BatchedMachine", "IsaSim"],
+          "isasim_checked": list(MULTI_ISA),
+          "seconds": time.perf_counter() - t_phase})
+    return launches, s_bc
+
+
+def _device_busy_ms(torch, fn) -> tuple:
+    """(device ms, launches of ``vcycle_chunk_kernel``) in a
+    ``torch.profiler`` trace of one call of ``fn``: every kernel and copy
+    it ran on the card."""
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us, seen = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            us += float(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)))
+            if "vcycle_chunk_kernel" in e.key:
+                seen += e.count
+    return us / 1e3, seen
+
+
+def phase_grid(torch, kv, bsp, GridMachine, FINISH, sims, place=one_card):
+    """``GridMachine`` on D shards of the card (the cores sharded, SENDs
+    crossing shards every Vcycle), unbatched against ``Machine`` and on
+    64 seeds against ``BatchedMachine``, bit for bit, on mc/full and
+    bc/full (modulo-pipelined; the grid runs it unrotated) at D=1 and
+    D=4; each FINISHes at its bench's cycle. Each mc case reports its
+    device time in a trace of one run over the host time of an untraced
+    one (``device_busy_share``). ``place(D)`` gives the devices of D
+    shards."""
+    t_phase = time.perf_counter()
+    cases, total = [], 0
+    dev0 = place(1)[0]
+    for name, s in sims:
+        prog, n = s.program, s.default_cycles()
+        C = prog.used_cores
+        images = tuple(a[:MULTI_SEEDS] for a in s.images_stacked())
+        m = bsp.Machine(prog, device=dev0)
+        s1 = m.run(m.init_state(), n)
+        bm = bsp.BatchedMachine(prog, images=images, device=dev0)
+        sB = bm.run(bm.init_state(), n)
+        for D in MULTI_D:
+            for batched in (False, True):
+                tag = f"grid {name} D={D} {'B=64' if batched else 'B=1'}"
+                gm = GridMachine(prog, place(D),
+                                 images=images if batched else None)
+                if D > 1 and not gm.cross_words:
+                    raise AssertionError(f"{tag}: no SEND crosses shards")
+                kv.reset_counts()
+                st, t1 = _synced(torch, lambda: gm.run(gm.init_state(), n))
+                launches = kv.COUNTS["vcycle_chunk"]
+                total += launches
+                h = gm.gather(st)
+                ref, B = (sB, MULTI_SEEDS) if batched else (s1, 1)
+                lead = (slice(None),) if batched else ()
+                gs = (*lead, gm.gshard)
+                _equal_leaves(torch, [h.regs[(*lead, slice(0, C))],
+                                      h.spads[(*lead, slice(0, C))],
+                                      h.gmem[gs],
+                                      h.flags[(*lead, slice(0, C))],
+                                      h.cache_tags[gs], h.counters[gs]],
+                              ref, tag)
+                vc = h.counters[(*lead, slice(None), 0)]
+                exc = gm.exceptions(st)
+                exc = exc if batched else [exc]
+                if not (vc == s.n_cycles).all() or \
+                        any(set(e.values()) != {FINISH} for e in exc):
+                    raise AssertionError(f"{tag}: not FINISHed at "
+                                         f"{s.n_cycles} on every shard")
+                if launches % D or launches // D % gm.chunk:
+                    raise AssertionError(f"{tag}: {launches} launches, "
+                                         f"not D per Vcycle of a chunk")
+                _, t2 = _synced(torch, lambda: gm.run(gm.init_state(), n))
+                busy_ms = traced = None
+                if name == "mc":        # a trace costs seconds: one circuit
+                    busy_ms, traced = _device_busy_ms(
+                        torch, lambda: gm.run(gm.init_state(), n))
+                vcycles = B * s.n_cycles
+                cases.append({
+                    "circuit": name, "D": D, "B": B, "C": C, "cl": gm.cl,
+                    "outbox_cores": gm.n_box, "n_sends": prog.n_sends,
+                    "crossing_sends": gm.cross_words,
+                    "exchange_bytes_per_vcycle": 4 * B * gm.cross_words,
+                    "pipe_prologue": prog.pipe_prologue,
+                    "shards_on": _shards_on(place(D)),
+                    "finished_at": s.n_cycles, "chunk_launches": launches,
+                    "vcycles_dispatched": launches // D,
+                    "vcycles_per_s": [vcycles / t1, vcycles / t2],
+                    "device_ms": busy_ms, "traced_launches": traced,
+                    "device_busy_share": busy_ms and busy_ms / (1e3 * t2),
+                    "equal_to": "BatchedMachine" if batched else "Machine"})
+    emit({"phase": "grid", "cases": cases, "label": _label(place(4)),
+          "chunk_launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total
 
 
 # the flash kernel's shapes: (BH, BHkv, S, dh, dtype, causal)
@@ -1365,12 +1599,17 @@ def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8):
     return chunk, seed
 
 
-def kernel_line(name, source, replaces, launches, t):
-    return {"name": name, "route": "cuda", "source": source,
+def kernel_line(name, source, replaces, launches, t, by_path=None):
+    """One kernel's entry of the ``kernels`` line; ``launches`` counts the
+    main path, ``by_path`` (where given) every path that launches it."""
+    line = {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+    if by_path is not None:
+        line["launches_by_path"] = by_path
+    return line
 
 
 def main() -> int:
@@ -1394,6 +1633,7 @@ def main() -> int:
         from repro_torch.models import layers as L
         from repro_torch.runtime import elastic
         from repro_torch.core import bsp
+        from repro_torch.core.grid import GridMachine
         from repro_torch.core.isa import HardwareConfig
         from repro_torch.core.isasim import IsaSim
         from repro_torch.kernels import vcycle as kv
@@ -1432,10 +1672,14 @@ def main() -> int:
                              imem_slots=1 << 16)
     bat_fig8 = phase_fig8(torch, kv, sim, bsp, IsaEngine, build_membench,
                           fig8_hw, CacheModel)
-    eng, launches = phase_main(torch, kv, sim, IsaEngine)
+    eng, launches, s_main, results = phase_main(torch, kv, sim, IsaEngine)
     serve_launches = phase_serve(torch, kv, sim, serve, IsaEngine)
     elastic_launches = phase_elastic(torch, kv, sim, elastic,
                                      HardwareConfig, FINISH)
+    sharded_launches, s_bc = phase_sharded(torch, kv, sim, bsp, IsaEngine,
+                                           FINISH, s_main, results)
+    grid_launches = phase_grid(torch, kv, bsp, GridMachine, FINISH,
+                               (("mc", s_main), ("bc", s_bc)))
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
@@ -1448,14 +1692,19 @@ def main() -> int:
           "sm90_launches_on_bf16_serving_path": sm90_launches,
           "simt_launches_on_fp32_serving_path": simt_launches,
           "chunk_launches_on_serve_path": serve_launches,
-          "chunk_launches_on_elastic_path": elastic_launches})
+          "chunk_launches_on_elastic_path": elastic_launches,
+          "chunk_launches_on_sharded_path": sharded_launches,
+          "chunk_launches_on_grid_path": grid_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     kernels = [
         kernel_line("vcycle_chunk",
                     "src/repro_torch/kernels/csrc/vcycle_chunk.cu",
                     "src/repro/kernels/vcycle.py:199 _chunk_kernel; "
                     "src/repro/kernels/vcycle.py:262 _chunk_kernel_batched",
-                    launches, chunk["main"]),
+                    launches, chunk["main"],
+                    {"main": launches, "machine": b1_launches,
+                     "serve": serve_launches, "elastic": elastic_launches,
+                     "sharded": sharded_launches, "grid": grid_launches}),
         kernel_line("vcycle_seed",
                     "src/repro_torch/kernels/csrc/vcycle_seed.cu",
                     "src/repro/kernels/vcycle.py:45 _vcycle_kernel",

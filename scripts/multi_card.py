@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""``chip_smoke.py``'s ``sharded`` and ``grid`` phases, one shard a card.
+
+    python3 scripts/multi_card.py [--trace DIR]   # on 4 or more cards
+
+``chip_smoke.py`` runs the multi-device engines on one and on four shards
+of one card, which tests their logic on a one-card machine. This script
+runs the same cases with shard s on card s (D=1 on card 0, D=4 on cards
+0-3): each card runs its own launches, and the grid's exchange copies
+SEND values from card to card every Vcycle. Every case is held bit for bit
+against ``BatchedMachine`` or ``Machine`` on card 0, as in
+``chip_smoke.py``. Prints the card's name and power limit, one JSON line
+a phase, and ``{"ok": true, ...}`` last; exits non-zero, with no such
+line, when a phase fails or fewer than four cards are present. With
+``--trace DIR`` it also writes a ``torch.profiler`` trace (Chrome format)
+of one ``sharded`` run (mc/full, B=510 over four cards, and over four
+shards of card 0) and one ``grid`` run (mc/full, B=64 over four cards) to
+``DIR``.
+"""
+import argparse
+import json
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+CARDS = 4
+
+
+def trace(torch, path: Path, fn) -> None:
+    """A ``torch.profiler`` trace of one call of ``fn``, host and cards."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    prof.export_chrome_trace(str(path))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", type=Path, default=None,
+                    help="directory for the two runs' traces")
+    args = ap.parse_args()
+    import torch
+    if torch.cuda.device_count() < CARDS:
+        print(f"multi_card: needs {CARDS} CUDA devices, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    import repro_torch.sim as sim
+    from repro_torch.circuits import FINISH
+    from repro_torch.core import bsp
+    from repro_torch.core.grid import GridMachine
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import vcycle as kv
+    from repro_torch.sim.engine import IsaEngine
+
+    def place(D: int) -> list:
+        return [f"cuda:{i}" for i in range(D)]
+
+    t0 = time.perf_counter()
+    smi = cs.phase_device(torch)
+    kbuild.load()
+    s = sim.compile("mc", scale="full", seeds=range(cs.MAIN_SEEDS),
+                    device="cuda:0")
+    results = s.run()
+    launches, s_bc = cs.phase_sharded(torch, kv, sim, bsp, IsaEngine, FINISH,
+                                      s, results, place)
+    grid = cs.phase_grid(torch, kv, bsp, GridMachine, FINISH,
+                         (("mc", s), ("bc", s_bc)), place)
+    if args.trace is not None:
+        args.trace.mkdir(parents=True, exist_ok=True)
+        n = s.default_cycles()
+        images = tuple(a[:cs.SHARDED_B] for a in s.images_stacked())
+        for tag, devices in (("d4", place(4)), ("1card", ["cuda:0"] * 4)):
+            sm = bsp.ShardedBatchedMachine(s.program, images=images,
+                                           devices=devices)
+            sm.run(sm.init_state(), n)
+            trace(torch, args.trace / f"sharded_mc_b510_{tag}.json",
+                  lambda: sm.run(sm.init_state(), n))
+        gm = GridMachine(s.program, place(4),
+                         images=tuple(a[:cs.MULTI_SEEDS] for a in images))
+        gm.run(gm.init_state(), n)
+        trace(torch, args.trace / "grid_mc_b64_d4.json",
+              lambda: gm.run(gm.init_state(), n))
+    cs.emit({"phase": "done", "chunk_launches_on_sharded_path": launches,
+             "chunk_launches_on_grid_path": grid,
+             "seconds": time.perf_counter() - t0})
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        sys.exit(1)

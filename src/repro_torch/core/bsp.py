@@ -1,6 +1,6 @@
 """Static BSP executor on the card: a compiled Program run in K-Vcycle chunks.
 
-Port of ``repro.core.bsp`` (single device). Core *c* of the Manticore grid
+Port of ``repro.core.bsp``. Core *c* of the Manticore grid
 is thread *c* of a CUDA block, and one block holds a whole machine (one
 stimulus): ``kernels/csrc/vcycle_chunk.cu`` runs up to K Vcycles per
 launch, each one the slot loop on every core, then the BSP exchange of SEND
@@ -15,6 +15,10 @@ simulation results, so the engines only count them (§7.7 / Fig. 8).
 engine benchmarks: one launch of ``kernels/csrc/vcycle_seed.cu`` per
 Vcycle (the whole stream, full ISA select, ``[T, C]`` result trace), the
 exchange routed from the trace, and one host read of the flags per Vcycle.
+
+``ShardedBatchedMachine`` shards the stimulus batch over a list of
+devices, one batched chunk binding each, driven by one controller; the
+core-sharded grid is ``core/grid.py``.
 
 The reference's XLA-specific machinery (the unrolled window graphs and the
 segmented-scan fallback) has no counterpart: on the card the kernel is the
@@ -32,7 +36,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..kernels.ops import make_vcycle, make_vcycle_chunk
 from .compile import Program
 from .isa import Op
@@ -40,6 +44,11 @@ from .isa import Op
 # Vcycles per chunked dispatch: one launch simulates up to K RTL cycles;
 # the host looks at the exception flags once per chunk.
 DEFAULT_CHUNK = 32
+
+# per-element cycle counter value that marks a batch-padding element: it is
+# >= any real budget, so the element's freeze predicate is never active —
+# padding executes nothing, raises nothing and counts nothing
+PAD_FROZEN_CYC = 1 << 30
 
 
 def to_words(a, device) -> torch.Tensor:
@@ -72,6 +81,17 @@ class MachineState(NamedTuple):
     flags: torch.Tensor       # [C] int32 — first exception id per core
     cache_tags: torch.Tensor  # [LINES] int32 (-1 = invalid)
     counters: torch.Tensor    # [4] int32: vcycles, ghits, gmisses, stalls
+
+
+def shard_of(state: MachineState, s: int) -> MachineState:
+    """Shard ``s`` of a multi-device state, whose every leaf is a tuple of
+    per-shard tensors (each on its own device)."""
+    return MachineState(*(leaf[s] for leaf in state))
+
+
+def join_shards(shards) -> MachineState:
+    """The multi-device state of per-shard states (see :func:`shard_of`)."""
+    return MachineState(*(tuple(leaf) for leaf in zip(*shards)))
 
 
 def dispatch_chunks(run_chunk, cyc, carry, chunk: int, num_cycles: int,
@@ -363,3 +383,116 @@ class BatchedMachine(Machine):
             "stall_cycles": stalls,
             "machine_cycles": vcycles * self.p.vcpl + stalls,
         }
+
+
+class ShardedBatchedMachine(BatchedMachine):
+    """B stimuli of one Program sharded ``[D, B/D]`` over a list of devices.
+
+    Port of ``repro.core.bsp.ShardedBatchedMachine``. ``BatchedMachine``
+    runs B stimuli on one card; this engine gives each of D devices its
+    own ``B/D``-element shard of every state leaf and its own batched
+    chunk binding, on that device. One controller drives them all: each
+    chunk launches every shard in turn, then the host syncs once, on the
+    assembled ``[Bp]`` frozen mask (a flag set, or the budget spent).
+    Stimuli are independent, so no word crosses shards. ``devices`` is a
+    sequence of devices, which may repeat (``["cuda:0"] * 4`` runs four
+    shards on one card, ``["cpu"] * 8`` eight on the CPU); None means
+    every card.
+
+    **Padding.** B is padded up to ``Bp = ceil(B/D)*D`` with replicas of
+    stimulus 0's images (its prologue applied, as every element's is),
+    whose cycle counters start at ``PAD_FROZEN_CYC``: they execute nothing,
+    raise nothing, keep zero flags and counters, and appear in no result.
+
+    The state's leaves are tuples of per-shard tensors (``shard_of``,
+    ``gather``); shard s holds elements ``[s*Bp/D, (s+1)*Bp/D)``. The
+    per-element accessors read element b from its shard; ``perf()`` and
+    ``exceptions()`` cover the logical B only.
+    """
+
+    def __init__(self, program: Program, images=None,
+                 batch: Optional[int] = None, *, devices=None,
+                 compact: bool = True, chunk: int = DEFAULT_CHUNK):
+        self.devices = resolve_devices(devices)
+        self.D = len(self.devices)
+        super().__init__(program, images=images, batch=batch,
+                         device=self.devices[0], compact=compact,
+                         chunk=chunk)
+        # a binding holds no state: the shards on the first device share it
+        self._kernels = [
+            self._kernel if d == self.device else make_vcycle_chunk(
+                program, self.C, self.chunk, batch=self.Bl, device=d)
+            for d in self.devices]
+
+    def _set_images(self, images, batch: Optional[int]) -> None:
+        """``BatchedMachine``'s images, padded to ``Bp`` and split into
+        per-device shards (``sreg0``/``sspad0``/``sgmem0``, ``_cyc0``)."""
+        super()._set_images(images, batch)
+        B, D = self.B, self.D
+        self.Bp = Bp = -(-B // D) * D
+        self.Bl = Bl = Bp // D
+
+        def split(a):
+            a = torch.cat([a, a[:1].expand((Bp - B,) + a.shape[1:])])
+            return tuple(a[s * Bl:(s + 1) * Bl].to(dev)
+                         for s, dev in enumerate(self.devices))
+
+        self.sreg0 = split(self.breg0)
+        self.sspad0 = split(self.bspad0)
+        self.sgmem0 = split(self.bgmem0)
+        cyc = np.where(np.arange(Bp) < B, 0, PAD_FROZEN_CYC)
+        self._cyc0 = split(torch.from_numpy(cyc.astype(np.int32)))
+
+    def init_state(self) -> MachineState:
+        shards = []
+        for s, dev in enumerate(self.devices):
+            shards.append(MachineState(
+                regs=self.sreg0[s], spads=self.sspad0[s],
+                gmem=self.sgmem0[s],
+                flags=torch.zeros((self.Bl, self.C), dtype=torch.int32,
+                                  device=dev),
+                cache_tags=torch.full((self.Bl, self.cache_lines), -1,
+                                      dtype=torch.int32, device=dev),
+                counters=torch.zeros((self.Bl, 4), dtype=torch.int32,
+                                     device=dev)))
+        return join_shards(shards)
+
+    def run(self, state: MachineState, num_cycles: int) -> MachineState:
+        """Up to ``num_cycles`` Vcycles of every element: each chunk
+        launches every shard, then one host sync on the frozen mask."""
+        n = int(num_cycles)
+        shards = [shard_of(state, s) for s in range(self.D)]
+        cyc = list(self._cyc0)
+        for _ in range(-(-n // self.chunk) if n > 0 else 0):
+            for s, kernel in enumerate(self._kernels):
+                cyc[s], carry = kernel(cyc[s], n, tuple(shards[s]))
+                shards[s] = MachineState(*carry)
+            # the mask is assembled on the host, once every shard is
+            # launched: each shard's copy waits for that shard alone, and
+            # no copy goes from card to card
+            frozen = [(sh.flags.ne(0).any(1) | (c >= n)).cpu()
+                      for sh, c in zip(shards, cyc)]
+            if bool(torch.cat(frozen).all()):
+                break
+        return join_shards(shards)
+
+    def gather(self, state: MachineState) -> MachineState:
+        """The whole ``[Bp, ...]`` state on the host, as int32 tensors."""
+        return MachineState(*(torch.cat([t.cpu() for t in leaf])
+                              for leaf in state))
+
+    # ---------------------------------------------- per-element access ----
+    def element(self, state: MachineState, b: int) -> MachineState:
+        if not 0 <= b < self.B:
+            raise IndexError(f"element {b} outside the batch of {self.B}")
+        s, i = divmod(b, self.Bl)
+        return MachineState(*(leaf[s][i] for leaf in state))
+
+    def perf(self, state: MachineState, b: Optional[int] = None):
+        if b is not None:
+            return super().perf(state, b)
+        # the logical batch only (padding counts nothing, but stays out
+        # of the contract regardless)
+        host = self.gather(state)
+        return BatchedMachine.perf(
+            self, MachineState(*(leaf[:self.B] for leaf in host)))

@@ -5,8 +5,10 @@ tables out once for the chunked K-Vcycle kernel (each core's live code
 rows, ``rows.chunk_rows``; the exchange tables; the packed register
 layout; the global memory's cache model and privileged core), and the
 returned binding advances a ``MachineState`` carry by up to K Vcycles per
-call. ``make_vcycle`` lays every slot's row out for the per-Vcycle seed
-kernel, whose call returns the carry and the ``[T, C]`` result trace.
+call; ``make_vcycle_shard`` binds one shard of the multi-device grid
+(``core/grid.py``) to the same kernel. ``make_vcycle`` lays every slot's
+row out for the per-Vcycle seed kernel, whose call returns the carry and
+the ``[T, C]`` result trace.
 The dense tables (core axis padded to a warp multiple with all-NOP
 lanes) stay on the host: the plain versions read them, and the kernels
 are handed only the row tables. Unlike the reference's Pallas path, both
@@ -40,50 +42,51 @@ def _dev(a, device="cpu") -> torch.Tensor:
 def _padded_tables(program, C: int):
     """``code [T, Cp, 7]`` and ``luts [Cp, L, 16]`` of the first C cores,
     padded with all-NOP lanes to ``Cp``, a warp multiple."""
+    return _pad_cores(program.code[:C], program.luts[:C], C)
+
+
+def _pad_cores(code, luts, C: int):
+    """``code [n, T, 7]`` and ``luts [n, L, 16]`` of n <= C cores laid out
+    as ``code [T, Cp, 7]`` and ``luts [Cp, L, 16]`` for C cores, the lanes
+    past n all-NOP, ``Cp`` a warp multiple."""
     Cp = ((C + WARP - 1) // WARP) * WARP
-    T = program.code.shape[1]
-    code = np.zeros((T, Cp, 7), dtype=np.int32)
-    code[:, :C] = program.code[:C].transpose(1, 0, 2)
-    luts = np.zeros((Cp, program.luts.shape[1], 16), dtype=np.uint32)
-    luts[:C] = program.luts[:C]
-    return code, luts
+    n, T = code.shape[:2]
+    dense = np.zeros((T, Cp, 7), dtype=np.int32)
+    dense[:, :n] = code.transpose(1, 0, 2)
+    tabs = np.zeros((Cp, luts.shape[1], 16), dtype=np.uint32)
+    tabs[:n] = luts
+    return dense, tabs
 
 
 class VcycleChunk:
-    """``program`` laid out for ``vcycle_chunk``, with its packed register
-    layout (``reg_layout``), privileged core (``global_core``) and each
-    core's compacted code rows (``rows.chunk_rows``) computed once. The
-    dense ``code``, ``cap`` and ``luts`` stay on the host, for the plain
-    version.
+    """A program's tables laid out for ``vcycle_chunk``, with its packed
+    register layout (``reg_layout``), privileged core (``global_core``) and
+    each core's compacted code rows (``rows.chunk_rows``) computed once.
+    The dense ``code``, ``cap`` and ``luts`` stay on the host, for the plain
+    version. ``make_vcycle_chunk`` binds a whole program,
+    ``make_vcycle_shard`` one shard of the grid.
 
     ``chunk(cyc, budget, carry) -> (cyc, carry)``, the contract of
     ``Machine._run_chunk``: one call advances the machine by up to K
     Vcycles, bounded by ``budget`` and frozen by exceptions, with the BSP
     exchange and global memory in-kernel and ``counters[..., 0] += nexec``.
     ``batch=None`` binds one stimulus (carry leaves ``[C, ...]``, ``cyc``
-    ``[1]``), run as the kernel at B=1; ``batch=B`` binds B stimuli (leaves
-    ``[B, C, ...]``, ``cyc`` ``[B]``) with per-element freezing."""
+    ``[1]``), run as the kernel at B=1; otherwise the carry holds any
+    number B of stimuli (leaves ``[B, C, ...]``, ``cyc`` ``[B]``) with
+    per-element freezing."""
 
-    def __init__(self, program, C: int, K: int, batch: Optional[int] = None,
-                 device="cuda"):
+    def __init__(self, code, cap, luts, C: int, dcore, dreg, n_sends: int,
+                 num_pro: int, cache: CacheModel, K: int,
+                 batch: Optional[int] = None, device="cuda"):
         self.C, self.K, self.batch = C, int(K), batch
-        code, luts = _padded_tables(program, C)
-        n = program.n_sends
-        dcore = np.zeros((max(n, 1),), np.int32)
-        dreg = np.zeros((max(n, 1),), np.int32)
-        dcore[:n] = program.xchg_dst_core
-        dreg[:n] = program.xchg_dst_reg
-        self.code = _dev(code)
-        self.cap = _dev(program.send_capture(code.shape[1]))
-        self.luts = _dev(luts)
+        self.code, self.cap, self.luts = _dev(code), _dev(cap), _dev(luts)
         self.dcore, self.dreg = _dev(dcore, device), _dev(dreg, device)
-        self.n_sends = n
-        self.num_pro = int(getattr(program, "pipe_prologue", 0))
-        self.layout = reg_layout(code, dcore, dreg, C, n, device)
-        self.rows = chunk_rows(code, self.cap, luts, C, self.num_pro, n,
-                               device)
+        self.n_sends = n_sends
+        self.num_pro = num_pro
+        self.layout = reg_layout(code, dcore, dreg, C, n_sends, device)
+        self.rows = chunk_rows(code, cap, luts, C, num_pro, n_sends, device)
         self.gcore = global_core(code, C)
-        self.cache = CacheModel.of(program.hw)
+        self.cache = cache
 
     def tables(self):
         """(code, cap, luts) on the host, (dcore, dreg) on the device."""
@@ -129,9 +132,46 @@ class VcycleChunk:
 
 def make_vcycle_chunk(program, C: int, K: int, batch: Optional[int] = None,
                       device="cuda") -> VcycleChunk:
-    """Bind ``program`` (its first C cores) to the chunk kernel; see
-    :class:`VcycleChunk`."""
-    return VcycleChunk(program, C, K, batch=batch, device=device)
+    """Bind ``program`` (its first C cores) to the chunk kernel, its
+    modulo-pipelined prologue rotated (``pipe_prologue`` rows run after
+    the exchange); see :class:`VcycleChunk`."""
+    code, luts = _padded_tables(program, C)
+    n = program.n_sends
+    dcore = np.zeros((max(n, 1),), np.int32)
+    dreg = np.zeros((max(n, 1),), np.int32)
+    dcore[:n] = program.xchg_dst_core
+    dreg[:n] = program.xchg_dst_reg
+    return VcycleChunk(code, program.send_capture(code.shape[1]), luts, C,
+                       dcore, dreg, n, int(getattr(program, "pipe_prologue",
+                                                   0)),
+                       CacheModel.of(program.hw), K, batch=batch,
+                       device=device)
+
+
+def make_vcycle_shard(program, lo: int, cl: int, n_box: int, cap, dcore,
+                      dreg, K: int, batch: Optional[int] = None,
+                      device="cuda") -> VcycleChunk:
+    """Bind one shard of the grid to the chunk kernel: the program's cores
+    ``[lo, lo + cl)`` (those past ``used_cores`` run no code) as local
+    cores ``[0, cl)``, then ``n_box`` outbox cores that run no code and
+    only receive. ``cap [T, cl]`` is the shard's capture table into its
+    compact SEND buffer (``core.grid._build_exchange``; an index outside
+    ``[0, len(dcore))`` captures nothing) and ``dcore``/``dreg`` route
+    each local send: to a local core's register, or to an outbox register
+    that the caller copies to the receiving shard after the launch. The
+    program runs unrotated, all T rows in order (no prologue of its own),
+    as the reference's grid runs it."""
+    hi = min(lo + cl, program.used_cores)
+    C = cl + n_box
+    code, luts = _pad_cores(program.code[lo:hi], program.luts[lo:hi], C)
+    n = len(dcore)
+    caps = np.full((code.shape[0], code.shape[1]), n, np.int32)
+    caps[:, :cl] = np.where((cap >= 0) & (cap < n), cap, n)
+    pad = lambda a: np.concatenate(
+        [np.asarray(a, np.int32), np.zeros((max(n, 1) - n,), np.int32)])
+    return VcycleChunk(code, caps, luts, C, pad(dcore), pad(dreg), n, 0,
+                       CacheModel.of(program.hw), K, batch=batch,
+                       device=device)
 
 
 class SeedVcycle:

@@ -25,8 +25,8 @@ A coalesced launch builds the per-seed init planes (host-side netlist
 rebuild anchored on the canonical seed, memoized per seed), stacks them
 host-parallel (``Program.init_images_batch``), picks the engine through
 the facade's auto-selection (``Simulation.select_engine_kind``: the
-batched engine, as long as the port has no sharded one),
-runs it on a worker thread under the device lock, and demuxes the
+sharded engine for B >= 2*D on a host with D > 1 cards, the batched one
+otherwise), runs it on a worker thread under the device lock, and demuxes the
 per-element :class:`~repro_torch.sim.result.RunResult`\\ s back to their
 riders.
 

@@ -6,8 +6,10 @@ Port of ``repro.sim.engine``. Every adapter owns its simulation state,
 full per-stimulus list, and the probe methods take a uniform optional batch
 index. ``MachineEngine`` and ``BatchedEngine`` run the CUDA chunk kernel,
 ``MachineEngine(specialize=False)`` the seed arm's per-Vcycle kernel
-(``device="cpu"`` selects their plain versions); ``IsaEngine`` and
-``OracleEngine`` are the numpy oracles.
+(``device="cpu"`` selects their plain versions); ``ShardedBatchedEngine``
+and ``GridEngine`` run the chunk kernel on each of a list of devices
+(``devices=``/``mesh=``); ``IsaEngine`` and ``OracleEngine`` are the numpy
+oracles.
 """
 from __future__ import annotations
 
@@ -17,8 +19,11 @@ from typing import Dict, List, Optional, Protocol, Sequence, Tuple, \
     runtime_checkable
 
 import numpy as np
+import torch
 
-from ..core.bsp import DEFAULT_CHUNK, BatchedMachine, Machine, from_words
+from ..core.bsp import (DEFAULT_CHUNK, BatchedMachine, Machine,
+                        ShardedBatchedMachine, from_words)
+from ..core.grid import GridMachine
 from ..core.compile import Program
 from ..core.interpreter import NetlistSim
 from ..core.isasim import IsaSim
@@ -194,6 +199,96 @@ class BatchedEngine:
 
     def perf(self, b: Optional[int] = None) -> Dict[str, float]:
         return self.m.perf(self.state, b)
+
+
+class ShardedBatchedEngine(BatchedEngine):
+    """B stimuli data-parallel over a list of devices
+    (``core.bsp.ShardedBatchedMachine``): each of D devices runs B/D
+    elements of the same compiled Program; per-element exceptions are
+    shard-local and results (``RunResult`` per stimulus) are reassembled
+    across shards by the inherited accessors — padding elements (B not a
+    multiple of D) never appear in them."""
+
+    kind = "sharded"
+
+    def __init__(self, program: Program, *,
+                 images: Optional[Sequence[Images]] = None,
+                 batch: Optional[int] = None, devices=None,
+                 compact: bool = True, chunk: int = DEFAULT_CHUNK):
+        self.program = program
+        self.m = ShardedBatchedMachine(program, images=images, batch=batch,
+                                       devices=devices, compact=compact,
+                                       chunk=chunk)
+        self.batch = self.m.B
+        self.reset()
+
+    def run_batch(self, num_cycles: int) -> List[RunResult]:
+        t0 = time.perf_counter()
+        self.state = self.m.run(self.state, num_cycles)
+        regs = from_words(torch.cat([r.cpu() for r in self.state.regs]))
+        self.chunks_s = time.perf_counter() - t0
+        return [_snapshot(self, b, regs[b]) for b in range(self.batch)]
+
+    def _regs_np(self, b: int) -> np.ndarray:
+        return from_words(self.m.element(self.state, b).regs)
+
+
+class GridEngine:
+    """Core-sharded multi-device engine (``core.grid.GridMachine``).
+
+    ``images=None`` runs the program's base stimulus; a list of image
+    tuples selects batched mode (each state leaf gains a ``[B]`` axis,
+    still sharded over the devices of ``mesh``). The state is copied to
+    the host once after each run, and the probes read that copy.
+    """
+
+    kind = "grid"
+
+    def __init__(self, program: Program, mesh, *,
+                 images: Optional[Sequence[Images]] = None,
+                 chunk: int = DEFAULT_CHUNK):
+        self.program = program
+        self.m = GridMachine(program, mesh, images=images, chunk=chunk)
+        self.batch = self.m.B or 1
+        self._batched = self.m.B is not None
+        self.reset()
+
+    def reset(self) -> None:
+        self.state = self.m.init_state()
+        self._host = None
+
+    def _h(self):
+        if self._host is None:
+            self._host = self.m.gather(self.state)
+        return self._host
+
+    def run(self, num_cycles: int) -> RunResult:
+        self.state = self.m.run(self.state, num_cycles)
+        self._host = None
+        return _snapshot(self, 0)
+
+    def run_batch(self, num_cycles: int) -> List[RunResult]:
+        self.state = self.m.run(self.state, num_cycles)
+        self._host = None
+        return [_snapshot(self, b) for b in range(self.batch)]
+
+    def _b(self, b: int):
+        return b if self._batched else None
+
+    def _regs_np(self, b: int) -> np.ndarray:
+        return self.m._elem(self._h().regs, self._b(b))
+
+    def read_reg(self, name: str, b: int = 0) -> int:
+        return self.m.read_reg(self._h(), name, self._b(b))
+
+    def read_output(self, name: str, b: int = 0) -> int:
+        return self.m.read_output(self._h(), name, self._b(b))
+
+    def exceptions(self, b: int = 0) -> Dict[int, int]:
+        return self.m.exceptions(self._h(), self._b(b))
+
+    def perf(self, b: Optional[int] = None) -> Dict[str, float]:
+        return self.m.perf(self._h(), b if self._batched else None)
 
 
 class IsaEngine:

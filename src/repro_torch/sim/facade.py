@@ -14,16 +14,19 @@ protocol-conforming engines on demand::
     results = s.run()                         # BatchedEngine on the card
     assert all(r.finished for r in results)
 
-Engine auto-selection follows the reference: a ``mesh=`` requests the
-core-sharded ``grid`` engine; a batch (``seeds=``/``images=`` with more
-than one stimulus) picks the batch-sharded ``sharded`` engine when it is
-given ``devices=`` to shard over and B >= 2*D (or ``shard_batch=True``
-forces it) and ``BatchedEngine`` otherwise; a single stimulus gets ``MachineEngine``.
+Engine auto-selection follows the reference: a ``mesh=`` (a sequence of
+devices) requests the core-sharded ``grid`` engine; a batch
+(``seeds=``/``images=`` with more than one stimulus) picks the
+batch-sharded ``sharded`` engine when there are D > 1 devices to shard
+over and B >= 2*D (or ``shard_batch=True`` forces it) and
+``BatchedEngine`` otherwise; a single stimulus gets ``MachineEngine``.
+``devices=`` names the devices to shard over; without it a Simulation on
+the card counts every card, and one on the CPU one device.
 ``engine="seed"`` runs the seed baseline arm.
 ``device=`` (at ``compile`` or per engine) is the torch device the kernel
 engines run on; the default is the card, and ``device="cpu"`` runs the
-kernel's plain PyTorch version. Engine kinds of the reference that the port
-does not have yet raise ``NotImplementedError`` naming their ROADMAP item.
+kernel's plain PyTorch version. A device may repeat in ``mesh``/``devices``
+(``["cpu"] * 8``, or ``["cuda:0"] * 4`` on one card).
 """
 from __future__ import annotations
 
@@ -34,10 +37,11 @@ from typing import Dict, List, Optional, Sequence, Union
 from ..core.compile import Program, compile_circuit
 from ..core.isa import HardwareConfig
 from ..core.netlist import Circuit
+from ..device import default_device_count, resolve_devices
 from .artifact import load_program
 from .cache import CompileCache, cache_key, resolve_cache
-from .engine import (BatchedEngine, Engine, Images, IsaEngine, MachineEngine,
-                     OracleEngine)
+from .engine import (BatchedEngine, Engine, GridEngine, Images, IsaEngine,
+                     MachineEngine, OracleEngine, ShardedBatchedEngine)
 from .result import RunResult
 
 # Extra Vcycles past a bench's FINISH cycle: the budget must overshoot so a
@@ -49,25 +53,17 @@ CYCLE_SLACK = 10
 _ENGINE_KINDS = ("auto", "machine", "jnp", "pallas", "seed", "batched",
                  "sharded", "grid", "isa", "oracle", "netlist", "reference")
 
-# engine kinds of the reference that wait for a later slice of the port
-_NOT_PORTED = {
-    "sharded": "A6, ShardedBatchedMachine (batch sharded over several "
-               "cards)",
-    "grid": "A7, GridMachine (cores sharded over several cards)",
-}
 
-
-def _auto_shard(shard_batch, B: int, devices) -> bool:
+def _auto_shard(shard_batch, B: int, devices, device) -> bool:
     """Auto-selection rule for the batch-sharded engine: an explicit
     ``shard_batch`` wins; otherwise shard when there is more than one
     device to shard over and every device gets at least two elements
-    (B >= 2*D). ``devices=None`` stands for the devices a Simulation can
-    shard its batch over: one, on the CPU and on the card alike, until
-    the batch-sharded engine exists (ROADMAP A6), so that ``auto`` never
-    picks an engine the port does not have."""
+    (B >= 2*D). ``devices=None`` counts the devices a Simulation on
+    ``device`` shards over by default: every card
+    (``torch.cuda.device_count()``) on the card, one on the CPU."""
     if shard_batch is not None:
         return bool(shard_batch)
-    D = len(devices) if devices is not None else 1
+    D = len(devices) if devices is not None else default_device_count(device)
     return D > 1 and B >= 2 * D
 
 
@@ -117,14 +113,15 @@ class Simulation:
         constructing it. ``batch`` defaults to this Simulation's own
         stimulus count; a serving layer passes the coalesced batch size it
         is about to launch. ``devices`` stands for the devices to shard over
-        (default: one, see :func:`_auto_shard`); ``shard_batch`` defaults to the
-        value given at :func:`compile`."""
+        (default: every card, or one device on the CPU, see
+        :func:`_auto_shard`); ``shard_batch`` defaults to the value given
+        at :func:`compile`."""
         if mesh is not None:
             return "grid"
         B = self.batch if batch is None else int(batch)
         if shard_batch is None:
             shard_batch = self.meta.get("shard_batch")
-        if B > 1 and _auto_shard(shard_batch, B, devices):
+        if B > 1 and _auto_shard(shard_batch, B, devices, self.device):
             return "sharded"
         if B > 1:
             return "batched"
@@ -167,14 +164,16 @@ class Simulation:
         """Construct a protocol-conforming engine over this Program.
 
         ``kind="auto"`` resolves through :meth:`select_engine_kind` (grid
-        for a ``mesh``, sharded for B >= 2*D over several ``devices`` or
+        for a ``mesh``, sharded for B >= 2*D over several devices or
         ``shard_batch=True``, batched for several stimuli, else the
         single-stimulus machine). Explicit kinds: ``machine``/``jnp``/
         ``pallas`` (the chunk kernel at B=1), ``seed`` (the unspecialized
         baseline arm, as is ``machine`` with ``specialize=False``),
-        ``batched``, ``isa``, ``oracle``/``netlist``/``reference``.
-        ``device`` overrides the Simulation's device for the kernel
-        engines."""
+        ``batched``, ``sharded`` (over ``devices``, by default those of
+        ``device``: every card, or one CPU device), ``grid`` (over the
+        devices of ``mesh``, which it needs), ``isa``,
+        ``oracle``/``netlist``/``reference``. ``device`` overrides the
+        Simulation's device for the single-device kernel engines."""
         if kind not in _ENGINE_KINDS:
             raise ValueError(
                 f"unknown engine kind {kind!r}; choose from "
@@ -190,10 +189,6 @@ class Simulation:
         if kind == "auto":
             kind = self.select_engine_kind(B, mesh=mesh, devices=devices,
                                            shard_batch=shard_batch)
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine kind {kind!r} is not ported yet: see ROADMAP.md, "
-                f"queue {_NOT_PORTED[kind]}")
         if kind in ("oracle", "netlist", "reference"):
             if self.circuit is None:
                 raise ValueError(
@@ -201,6 +196,20 @@ class Simulation:
                     "Simulation was loaded from an artifact")
             return OracleEngine(self.circuit, self.program)
         device = self.device if device is None else device
+        if kind == "grid":
+            if mesh is None:
+                raise ValueError("grid engine needs a mesh= (a sequence of "
+                                 "devices)")
+            if images is None:
+                images = self.images()
+            return GridEngine(self.program, mesh, images=images, **opts)
+        if kind == "sharded":
+            if images is None:
+                images = self.images_stacked(workers=workers)
+            return ShardedBatchedEngine(
+                self.program, images=images,
+                batch=None if images is not None else B,
+                devices=resolve_devices(devices, device), **opts)
         if kind == "batched":
             if images is None:
                 images = self.images_stacked(workers=workers)

@@ -1,8 +1,8 @@
 """The port's facade takes the reference's sharding keywords
 (``shard_batch``, ``devices``, ``mesh``) and resolves them as
-``repro.sim.facade`` does; the kinds they may select that the port does
-not have yet (``sharded``, ``grid``) raise ``NotImplementedError`` naming
-their ROADMAP item. Mirrors
+``repro.sim.facade`` does; the kinds they select (``sharded`` over a list
+of devices, ``grid`` over a ``mesh`` of devices) run, here on lists of CPU
+devices. Mirrors
 ``tests/test_serve.py::test_fingerprint_and_engine_kind_public``."""
 import pytest
 
@@ -84,24 +84,29 @@ def test_compile_keeps_shard_batch_out_of_the_builder():
         [r.registers for r in ref.run()]
 
 
-def test_sharded_and_grid_raise_naming_their_roadmap_item():
+@pytest.mark.parametrize("keywords,kind", [
+    (dict(shard_batch=True), "sharded"),
+    (dict(batch=64, devices=["cpu"] * 8), "sharded"),
+    (dict(mesh=["cpu"] * 2), "grid"),
+    (dict(kind="sharded", shard_batch=False), "sharded"),
+    (dict(kind="grid", mesh=["cpu"] * 4), "grid")])
+def test_sharded_and_grid_run_from_the_keyword_cases(keywords, kind):
+    """The keyword cases that select ``sharded`` or ``grid`` build that
+    engine on the CPU, and its results equal ``batched``'s."""
     s = tsim.compile("mc", THW(**HW), scale="small", seeds=[1, 2],
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
-        s.engine("auto", shard_batch=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
-        s.engine("auto", batch=64, devices=FAKE8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
-        s.engine("auto", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
-        s.engine("sharded", shard_batch=False)
+    keywords = dict(keywords)
+    eng = s.engine(keywords.pop("kind", "auto"), **keywords)
+    assert eng.kind == kind
+    want = s.engine("batched").run_batch(s.default_cycles())
+    assert eng.run_batch(s.default_cycles()) == want
 
 
 def test_several_cards_still_pick_batched(monkeypatch, tmp_path):
-    """With no ``devices=``, the port counts one device to shard over, on
-    the CPU and on the card alike, until the sharded engine exists
-    (ROADMAP A6): a host with four cards still runs a batch as ``batched``
-    through ``run()`` and through the daemon."""
+    """With no ``devices=``, a Simulation on the CPU counts one device to
+    shard over, however many cards the host has: a batch runs as
+    ``batched`` through ``run()`` and through the daemon. A Simulation on
+    the card counts every card (``torch.cuda.device_count()``)."""
     import asyncio
 
     import torch
@@ -116,6 +121,9 @@ def test_several_cards_still_pick_batched(monkeypatch, tmp_path):
     assert s.select_engine_kind(64, devices=[object()] * 4) == "sharded"
     out = s.run()
     assert len(out) == 8 and all(r.finished for r in out)
+    on_card = tsim.compile("mc", THW(**HW), scale="small", seeds=range(8))
+    assert on_card.select_engine_kind(64) == "sharded"
+    assert on_card.select_engine_kind(7) == "batched"       # B < 2*D
 
     async def go():
         server = SimServer(cache=str(tmp_path), device="cpu",

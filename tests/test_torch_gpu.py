@@ -508,3 +508,48 @@ def test_elastic_migration_of_a_pipelined_program_on_card(cuda):
     assert set(mb.exceptions(st).values()) == {FINISH}
     assert {n: mb.read_reg(st, n) for n in prog_b.state_regs} == \
         {n: mb.read_reg(ref, n) for n in prog_b.state_regs}
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_sharded_on_card_matches_cpu(cuda, D):
+    """bc/full on 5x5 (pipelined), B=7 over D shards of one card (padded
+    to 8 at D=4): every leaf equals the same shards on the CPU, and every
+    chunk of every shard launched the kernel."""
+    b = build("bc", "full", seeds=range(7))
+    prog = compile_circuit(b.circuit, HW)
+    images = b.images_batch(prog)
+    states = []
+    for dev in (cuda, "cpu"):
+        m = bsp.ShardedBatchedMachine(prog, images=images, devices=[dev] * D,
+                                      chunk=8)
+        kv.reset_counts()
+        states.append(m.gather(m.run(m.init_state(), b.n_cycles + 10)))
+        if dev is cuda:
+            assert kv.COUNTS["vcycle_chunk"] == D * -(-b.n_cycles // 8)
+    for x, y in zip(*states):
+        assert torch.equal(x, y)
+    assert not states[0].counters[7:].any()
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("batched", [False, True])
+def test_grid_on_card_matches_cpu(cuda, D, batched):
+    """bc/full on 5x5 unrotated over D shards of one card, unbatched and
+    on three seeds: the state equals the CPU's, and each Vcycle of a chunk
+    launched the kernel once a shard."""
+    from repro_torch.core.grid import GridMachine
+    b = build("bc", "full", seeds=[3, 11, 42] if batched else None)
+    prog = compile_circuit(b.circuit, HW)
+    images = b.images(prog) if batched else None
+    states = []
+    for dev in (cuda, "cpu"):
+        gm = GridMachine(prog, [dev] * D, images=images, chunk=8)
+        kv.reset_counts()
+        st = gm.run(gm.init_state(), b.n_cycles + 10)
+        states.append(gm.gather(st))
+        if dev is cuda:
+            assert kv.COUNTS["vcycle_chunk"] == D * 8 * -(-b.n_cycles // 8)
+            assert gm.perf(st, 0 if batched else None)["vcycles"] == \
+                b.n_cycles
+    for x, y in zip(*states):
+        np.testing.assert_array_equal(x, y)

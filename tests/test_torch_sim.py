@@ -57,9 +57,15 @@ def test_oracle_kinds_match_reference(kind):
 
 @pytest.mark.parametrize("kind", ["sharded", "grid"])
 def test_unported_engine_kinds_raise(kind):
+    """The multi-device kinds, the last of the reference's to be ported,
+    refuse a call without the devices they need (``ValueError``), never
+    as not ported; an unknown kind still raises."""
     s = tsim.compile("mc", THW(**HW), scale="small", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.engine(kind)
+    with pytest.raises(ValueError, match="device"):
+        if kind == "grid":
+            s.engine(kind)
+        else:
+            s.engine(kind, devices=[])
     with pytest.raises(ValueError, match="unknown engine kind"):
         s.engine("verilator")
 
@@ -100,8 +106,9 @@ def test_engine_adapter_parity(name):
     """The same compiled Program through every ported engine kind via the
     protocol: identical finish cycle, exceptions, registers and outputs
     (``tests/test_sim_api.py::test_engine_adapter_parity``, with ``pallas``
-    also for a global-memory program: the port's kernel runs those), and
-    the netlist oracle agrees on every probe it shares."""
+    also for a global-memory program: the port's kernel runs those, and
+    the grid on one and on four CPU shards), and the netlist oracle agrees
+    on every probe it shares."""
     if name == "global":
         s = tsim.compile(_global_circuit(), THW(**HW), device="cpu")
         assert s.program.has_global
@@ -113,6 +120,9 @@ def test_engine_adapter_parity(name):
                ("machine", "seed", "pallas", "jnp", "isa")}
     engines["machine_seed"] = s.engine("machine", specialize=False)
     engines["batched"] = s.engine("batched", batch=2)
+    engines["sharded"] = s.engine("sharded", batch=3, devices=["cpu"] * 2)
+    engines["grid"] = s.engine("grid", mesh=["cpu"])
+    engines["grid4"] = s.engine("grid", mesh=["cpu"] * 4)
     results = {}
     for kind, eng in engines.items():
         assert isinstance(eng, tsim.Engine)
@@ -122,7 +132,7 @@ def test_engine_adapter_parity(name):
     for kind, r in results.items():
         assert (r.cycles, r.exceptions, r.registers, r.outputs) == \
             (ref.cycles, ref.exceptions, ref.registers, ref.outputs), kind
-    for kind in ("seed", "pallas", "jnp", "machine_seed"):
+    for kind in ("seed", "pallas", "jnp", "machine_seed", "grid", "grid4"):
         assert results[kind].perf == ref.perf, kind
     oracle = s.engine("oracle").run(n)
     assert oracle.cycles == ref.cycles
