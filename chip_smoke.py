@@ -18,7 +18,10 @@ against its plain PyTorch version on the card:
   non-causal shape and the qwen3-0.6b prefill's, each on the kernel that
   ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the tensor-core
   kernel ``flash_attention_sm90.cu``, float32 on the CUDA-core kernel
-  ``flash_attention.cu``.
+  ``flash_attention.cu``;
+* the backward flash kernel ``flash_attention_bwd.cu`` against
+  ``flash_bwd_ref`` (each of dq, dk, dv within 1e-4 of its max in fp32,
+  2e-2 in bf16) at the same cases, launched twice for the same bits.
 
 Then it drives the paths, each through the calls a user makes, with the
 launch counts set to 0 just before and read just after:
@@ -41,10 +44,20 @@ launch counts set to 0 just before and read just after:
   steps in bf16; in float32 the prefill (28 ``flash_attention_simt``
   launches) equals the same model on ``flash_ref`` and the first decode
   step equals a full forward over the 2049 tokens;
+* LM training, ``repro_torch.launch.steps.make_train_step`` on qwen3-0.6b
+  at full width in bf16 over ``TokenPipeline`` batches of 4 x 2048
+  tokens: a warm-up step and three timed ones, each 56
+  ``flash_attention_sm90`` launches (the forward and its recompute) and
+  28 ``flash_attention_bwd``, every leaf with a gradient; in float32 at
+  two layers the step's gradients equal the same step on ``flash_ref``
+  under autograd, and 2 steps, a checkpoint, a restore and 1 step equal 3
+  steps bit for bit;
 
 and times each kernel against its bound (both flash kernels, the plain
-version and SDPA in turns at the prefill's shape in bf16, and the CUDA-core
-kernel, the plain version and SDPA in turns in float32). Each Vcycle case
+version and SDPA in turns at the prefill's shape in bf16, the CUDA-core
+kernel, the plain version and SDPA in turns in float32, and the backward
+kernel, its plain version and SDPA's backward in turns in bf16 and
+float32). Each Vcycle case
 of the timing also reports what bounds the kernel: the busiest core's rows
 a Vcycle (``busy_rows``), the kernel's ns per such row
 (``ns_per_busy_row``), the bytes of code rows it reads a launch
@@ -138,7 +151,10 @@ def timed_build(kbuild):
 PTXAS_KERNELS = {"vcycle_chunk_kernel": "vcycle_chunk",
                  "vcycle_seed_kernel": "vcycle_seed",
                  "flash_attention_sm90_kernel": "flash_attention_sm90",
-                 "flash_attention_kernel": "flash_attention_simt"}
+                 "flash_attention_kernel": "flash_attention_simt",
+                 "flash_attention_bwd_prep_kernel": "flash_attention_bwd",
+                 "flash_attention_bwd_dkdv_kernel": "flash_attention_bwd",
+                 "flash_attention_bwd_dq_kernel": "flash_attention_bwd"}
 
 
 def phase_build(kbuild, build_future):
@@ -146,7 +162,8 @@ def phase_build(kbuild, build_future):
     registers a thread, static shared memory and spills from the
     compiler's -Xptxas -v report (the most over a kernel's template
     instances), and the tensor-core flash kernel's dynamic shared memory.
-    That kernel and the two Vcycle kernels must not spill."""
+    That kernel, the backward flash kernel (its three entry functions
+    counted as one) and the two Vcycle kernels must not spill."""
     t0 = time.perf_counter()
     path, log, build_s = build_future.result()
     ptxas, kernel = {}, None
@@ -179,7 +196,8 @@ def phase_build(kbuild, build_future):
           "ptxas": ptxas, "ptxas_warnings": [
               ln.strip() for ln in log.splitlines() if "arning" in ln],
           "build_s": build_s, "waited_s": time.perf_counter() - t0})
-    for name in ("flash_attention_sm90", "vcycle_chunk", "vcycle_seed"):
+    for name in ("flash_attention_sm90", "flash_attention_bwd",
+                 "vcycle_chunk", "vcycle_seed"):
         info = ptxas.get(name)
         if info is None or info["spill_bytes"]:
             raise AssertionError(f"{name}: not built or spills ({info})")
@@ -1129,6 +1147,46 @@ def phase_flash(torch, fa, flash_ref):
     return max(c["max_abs_err"] for c in cases)
 
 
+def phase_flash_bwd(torch, fa, flash_bwd_ref):
+    """``flash_attention_bwd`` at each of ``flash_vs_plain``'s cases, on
+    the gradient ``dO`` of that case's forward output (the forward kernel
+    ``route`` picks), against ``flash_bwd_ref`` on the same CUDA tensors:
+    each of dq, dk, dv within 1e-4 (fp32) or 2e-2 (bf16) of its max; one
+    launch each, and the same bits when launched again (no atomics)."""
+    cases = []
+    for i, (BH, BHkv, S, dh, dtype, causal) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, 50 + i)
+        do = flash_inputs(torch, BH, BHkv, S, dh, dtype, 80 + i)[0]
+        o = fa.flash_attention(q, k, v, causal)
+        fa.reset_counts()
+        got = fa.flash_attention_bwd(q, k, v, o, do, causal)
+        launches = dict(fa.COUNTS)
+        again = fa.flash_attention_bwd(q, k, v, o, do, causal)
+        want = flash_bwd_ref(q, k, v, o, do, causal)
+        torch.cuda.synchronize()
+        tag = (f"flash bwd BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} "
+               f"causal={causal}")
+        if launches != {"flash_attention_sm90": 0, "flash_attention_simt": 0,
+                        "flash_attention_bwd": 1}:
+            raise AssertionError(f"{tag}: launched {launches}")
+        tol = FLASH_TOL[dtype]
+        err, rel = {}, {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err[name] = float((a.float() - b.float()).abs().max())
+            rel[name] = err[name] / float(b.float().abs().max())
+            if a.dtype != b.dtype or not rel[name] <= tol:
+                raise AssertionError(f"{tag}: {name} != plain ({err[name]}, "
+                                     f"{rel[name]} of its max)")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: a second launch gave other bits")
+        cases.append({"BH": BH, "BHkv": BHkv, "S": S, "dh": dh,
+                      "dtype": dtype, "causal": causal,
+                      "max_abs_err": err, "err_over_max": rel, "tol": tol})
+        del q, k, v, o, do, got, again, want
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_bwd_vs_plain", "cases": cases})
+
+
 def _full_forward_last(torch, model, L, params, tokens):
     """Last-position logits of a full forward over ``tokens``."""
     x, pos = model._embed_inputs(params, {"tokens": tokens})
@@ -1267,6 +1325,212 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
     return launches, launches32
 
 
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 3
+CHECK_LAYERS, CHECK_B, CHECK_S = 2, 2, 512   # the float32 checks
+
+
+def _batch(torch, pipe, i):
+    return {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(i).items()}
+
+
+def _spied_step(torch, steps, adamw, step, params, opt, batch):
+    """One ``train_step``, with the gradients it hands ``adamw.apply``."""
+    from unittest import mock
+    seen, apply = [], adamw.apply
+
+    def spy(p, g, o, **kw):
+        seen.append(g)
+        return apply(p, g, o, **kw)
+
+    with mock.patch.object(steps.adamw, "apply", spy):
+        out = step(params, opt, batch)
+    return out, seen[0]
+
+
+def _check_grads(torch, adamw, grads, tag):
+    """Every leaf has a finite gradient that is not all zero."""
+    for i, g in enumerate(adamw.leaves(grads)):
+        if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            raise AssertionError(f"{tag}: leaf {i} {tuple(g.shape)} has a "
+                                 "zero or non-finite gradient")
+
+
+def _named(tree, prefix=""):
+    """(path, leaf) over nested dicts."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def _unmoved(torch, before, after):
+    """The paths of the leaves in which no element changed."""
+    return [p for (p, a), (_, b) in zip(_named(before), _named(after))
+            if torch.equal(a, b)]
+
+
+def _counted(fa, kv, fn, want, tag):
+    """``fn()``, which must launch the flash kernels ``want`` times each
+    and no Vcycle kernel."""
+    fa.reset_counts()
+    kv.reset_counts()
+    out = fn()
+    if dict(fa.COUNTS) != want or any(kv.COUNTS.values()):
+        raise AssertionError(f"{tag}: launched {dict(fa.COUNTS)} (not "
+                             f"{want}), Vcycle kernels {kv.COUNTS}")
+    return out
+
+
+def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
+                   TokenPipeline, PipelineConfig, CheckpointManager):
+    """qwen3-0.6b at full width trained through ``make_train_step`` in the
+    config's bf16 on ``TokenPipeline(PipelineConfig(vocab, TRAIN_S,
+    TRAIN_B)).batch_at(i)``: one warm-up step, then TRAIN_TIMED steps
+    timed to a synchronize. Every step must launch 2 x 28
+    ``flash_attention_sm90`` (the forward and its recompute under
+    ``torch.utils.checkpoint``) and 28 ``flash_attention_bwd``, and no
+    Vcycle kernel. Checks: loss and gnorm finite, gnorm > 0, every leaf's
+    gradient finite and nonzero at step 1 (a leaf the loss cannot reach
+    raises in the step), and each weight matrix moved. Then at full width
+    with CHECK_LAYERS layers in float32 (CHECK_B x CHECK_S tokens): one
+    step's gradients on the kernels (``flash_attention_simt`` and
+    ``flash_attention_bwd``) against the same step on ``flash_ref`` under
+    autograd, within 1e-4 of each leaf's max, every leaf moved; and 2
+    steps, a ``CheckpointManager`` save and restore into fresh tensors,
+    then 1 step, bit-equal to 3 uninterrupted steps. Returns the bf16
+    run's launches of each flash kernel."""
+    from unittest import mock
+    cfg = ARCHS[LM_ARCH]
+    model, step, p_shapes, opt_shapes = steps.make_train_step(cfg)
+    n_params = sum(t.numel() for t in adamw.leaves(p_shapes))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw.init(params)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
+    want = {"flash_attention_sm90": 2 * cfg.n_layers,
+            "flash_attention_simt": 0, "flash_attention_bwd": cfg.n_layers}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # step 1: the warm-up, with its gradients
+    batch = _batch(torch, pipe, 0)
+    t0 = time.perf_counter()
+    (new, opt, metrics), grads = _counted(fa, kv, lambda: _spied_step(
+        torch, steps, adamw, step, params, opt, batch), want, "train step 1")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _check_grads(torch, adamw, grads, "bf16 step 1")
+    # step 1's lr is 3e-6 (cosine_lr's warm-up): a norm scale of 1.0 cannot
+    # move in bf16 (its spacing there is 2^-8), a weight matrix must
+    unmoved = _unmoved(torch, params, new)
+    if any(not p.endswith("/scale") for p in unmoved):
+        raise AssertionError(f"bf16 step 1: leaves did not move: {unmoved}")
+    n_leaves = len(list(adamw.leaves(params)))
+    del grads, params
+    params = new
+    losses, gnorms = [float(metrics["loss"])], [float(metrics["gnorm"])]
+    step_s = []
+    for i in range(1, 1 + TRAIN_TIMED):
+        batch = _batch(torch, pipe, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = _counted(
+            fa, kv, lambda: step(params, opt, batch), want,
+            f"train step {i + 1}")
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"train: loss {losses}, gnorm {gnorms}")
+    launches = {k: v * (1 + TRAIN_TIMED) for k, v in want.items()}
+    del params, opt, metrics, batch
+    torch.cuda.empty_cache()
+
+    # float32 at full width, CHECK_LAYERS layers
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    m32, step32, _, _ = steps.make_train_step(cfg32)
+    p0 = m32.init(torch.Generator(device="cuda").manual_seed(1))
+    o0 = adamw.init(p0)
+    pipe32 = TokenPipeline(PipelineConfig(cfg.vocab, CHECK_S, CHECK_B))
+    b0 = _batch(torch, pipe32, 0)
+    want32 = {"flash_attention_sm90": 0,
+              "flash_attention_simt": 2 * CHECK_LAYERS,
+              "flash_attention_bwd": CHECK_LAYERS}
+    (pk, _, mk), gk = _counted(fa, kv, lambda: _spied_step(
+        torch, steps, adamw, step32, p0, o0, b0), want32, "float32 step")
+    with mock.patch.object(L, "flash_attention", flash_ref):
+        (pp, _, mp), gp = _spied_step(torch, steps, adamw, step32, p0, o0,
+                                      b0)
+    grad_err = 0.0
+    for a, b in zip(adamw.leaves(gk), adamw.leaves(gp)):
+        grad_err = max(grad_err, float((a - b).abs().max())
+                       / float(b.abs().max()))
+    if not grad_err <= 1e-4:
+        raise AssertionError(f"float32 step: kernel gradients != flash_ref "
+                             f"under autograd ({grad_err} of a leaf's max)")
+    _check_grads(torch, adamw, gk, "float32 step")
+    if _unmoved(torch, p0, pk):
+        raise AssertionError(f"float32 step: leaves did not move: "
+                             f"{_unmoved(torch, p0, pk)}")
+    loss_err = abs(float(mk["loss"]) - float(mp["loss"]))
+    del pk, pp, gk, gp
+    # resume: 3 steps against 2, a checkpoint, a restore and 1
+    p, o = p0, o0
+    for i in range(3):
+        p, o, _ = step32(p, o, _batch(torch, pipe32, i))
+    straight = {"params": p, "opt": o}
+    p, o = p0, o0
+    for i in range(2):
+        p, o, _ = step32(p, o, _batch(torch, pipe32, i))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(2, {"params": p, "opt": o}, blocking=True)
+        fresh = {"params": adamw.tree_map(torch.zeros_like, p),
+                 "opt": adamw.init(p)}
+        at, restored = mgr.restore_tree(fresh)
+    p, o, _ = step32(restored["params"], restored["opt"],
+                     _batch(torch, pipe32, 2))
+    pairs = [(a, b) for x, y in ((p, straight["params"]),
+                                 (o.m, straight["opt"].m),
+                                 (o.v, straight["opt"].v))
+             for a, b in zip(adamw.leaves(x), adamw.leaves(y))]
+    pairs.append((o.step, straight["opt"].step))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    n_pairs = len(pairs)
+    if at != 2 or differ:
+        raise AssertionError(f"resume: {differ} of {len(pairs)} leaves "
+                             "differ from 3 uninterrupted steps (restored "
+                             f"step {at})")
+    del p, o, p0, o0, straight, restored, pairs
+    torch.cuda.empty_cache()
+    ntok = TRAIN_B * TRAIN_S
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in adamw.leaves(p_shapes))
+    # what the step holds at once, from the shapes, against the peak
+    reckoning = {"params": param_bytes, "grads": param_bytes,
+                 "adam_m_and_v": 8 * n_params,
+                 "fp32_logits": 4 * ntok * cfg.vocab,
+                 "fp32_logits_grad": 4 * ntok * cfg.vocab}
+    emit({"phase": "lm_train", "arch": LM_ARCH,
+          "call": f"repro_torch.launch.steps.make_train_step(ARCHS"
+                  f"['{LM_ARCH}'])",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+          "B": TRAIN_B, "S": TRAIN_S, "tokens_per_step": ntok,
+          "launches_per_step": want, "first_step_s": first_s,
+          "step_s": step_s, "tokens_per_s": [ntok / t for t in step_s],
+          "loss": losses, "gnorm": gnorms, "peak_memory_bytes": peak,
+          "memory_reckoning_bytes": reckoning,
+          "leaves": n_leaves, "leaves_not_moved_at_step_1": unmoved,
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "launches": want32,
+                         "grad_err_over_leaf_max": grad_err,
+                         "loss_abs_err": loss_err,
+                         "resume_bit_equal_leaves": n_pairs}})
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1386,6 +1650,73 @@ def time_flash_fp32(torch, fa, flash_ref):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
             "tflops_per_s": flops / ms["flash_attention_simt"] * 1e-9}
+
+
+def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
+    """``flash_attention_bwd`` at the qwen3-0.6b training shape (causal,
+    GQA G=2) in ``dtype``, timed in one call in turns with the plain
+    version and the backward of SDPA on the same inputs (kernel, plain,
+    SDPA, then the same in reverse). Bound: the gradient's five products,
+    2.5x the forward's causal products, at the card's rate for ``dtype``
+    (tensor cores for bf16), against each input read and each output
+    written once."""
+    import torch.nn.functional as F
+    BH, BHkv, S, dh = TRAIN_B * 16, TRAIN_B * 8, TRAIN_S, 128
+    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, 97)
+    do = flash_inputs(torch, BH, BHkv, S, dh, dtype, 96)[0]
+    o = fa.flash_attention(q, k, v)
+    B = TRAIN_B
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh).detach()
+                  .requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        enable_gqa=True)
+    do4 = do.view(B, BH // B, S, dh)
+    out = {}
+
+    def kernel():
+        out["kernel"] = fa.flash_attention_bwd(q, k, v, o, do)
+
+    def plain():
+        out["plain"] = flash_bwd_ref(q, k, v, o, do)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    fns = {"kernel": (kernel, 5, 1), "plain": (plain, 3, 1),
+           "library": (sdpa_bwd, 10, 2)}
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, n, warm = fns[name]
+            turns[name].append(cuda_ms(torch, fn, n, warm))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    elt = 2 if dtype == "bfloat16" else 4
+    # reads of q, o, dO and k, v; writes of dq and dk, dv
+    nbytes = elt * (4 * BH + 4 * BHkv) * S * dh
+    flops = 5 * BH * S * S * dh      # 2.5 x the forward's 2 BH S^2 dh
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    errs = [(float((a.float() - b.float()).abs().max()),
+             float(b.float().abs().max()))
+            for a, b in zip(out["kernel"], out["plain"])]
+    err = max(e for e, _ in errs)
+    rel = max(e / m for e, m in errs)
+    if rel > FLASH_TOL[dtype]:
+        raise AssertionError(f"timed flash_attention_bwd ({dtype}) != plain "
+                             f"({rel} of an output's max)")
+    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} causal",
+            "ms": ms["kernel"], "ms_turns": turns["kernel"],
+            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+            "library_ms": ms["library"],
+            "library_ms_turns": turns["library"],
+            "library": "backward of scaled_dot_product_attention(is_causal, "
+                       f"enable_gqa) in {dtype}",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "err_over_max": rel,
+            "tflops_per_s": flops / ms["kernel"] * 1e-9}
 
 
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
@@ -1628,8 +1959,11 @@ def main() -> int:
         from repro_torch.configs import ARCHS
         from repro_torch.kernels import build as kbuild
         from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels.ref import flash_ref
+        from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+        from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
         from repro_torch.launch import steps
+        from repro_torch.optim import adamw
+        from repro_torch.runtime.checkpoint import CheckpointManager
         from repro_torch.models import layers as L
         from repro_torch.runtime import elastic
         from repro_torch.core import bsp
@@ -1653,6 +1987,7 @@ def main() -> int:
         smi = phase_device(torch)
         phase_build(kbuild, build_future)
         phase_flash(torch, fa, flash_ref)
+        phase_flash_bwd(torch, fa, flash_bwd_ref)
         phase_random(torch, kv, random_chunk, CacheModel)
         phase_seed_random(torch, kv, random_vcycle, CacheModel)
         for fut in cf.as_completed(compiles):
@@ -1682,11 +2017,19 @@ def main() -> int:
                                (("mc", s_main), ("bc", s_bc)))
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
+    train_launches = phase_lm_train(torch, fa, kv, flash_ref, steps, L,
+                                    ARCHS, adamw, TokenPipeline,
+                                    PipelineConfig, CheckpointManager)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
+    bwd = {dt: time_flash_bwd(torch, fa, flash_bwd_ref, dt)
+           for dt in ("bfloat16", "float32")}
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
+          "flash_attention_bwd": bwd["bfloat16"],
+          "flash_attention_bwd_fp32": bwd["float32"],
+          "launches_on_bf16_train_path": train_launches,
           "seed_launches_on_seed_path": seed_launches,
           "b1_chunk_launches_on_machine_path": b1_launches,
           "sm90_launches_on_bf16_serving_path": sm90_launches,
@@ -1713,12 +2056,21 @@ def main() -> int:
                     "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
                     "(bf16, dh 64 or 128)",
-                    sm90_launches, flash["flash_attention_sm90"]),
+                    sm90_launches, flash["flash_attention_sm90"],
+                    {"lm_serve": sm90_launches,
+                     "lm_train": train_launches["flash_attention_sm90"]}),
         kernel_line("flash_attention_simt",
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
                     "(float32, other head dims)",
-                    simt_launches, flash32)]
+                    simt_launches, flash32),
+        kernel_line("flash_attention_bwd",
+                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "none: no TPU kernel is replaced; the gradient of "
+                    "src/repro/kernels/flash_attention.py:33 _flash_kernel, "
+                    "which the reference takes by XLA's autodiff of "
+                    "src/repro/models/layers.py:116 _sdpa",
+                    train_launches["flash_attention_bwd"], bwd["bfloat16"])]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

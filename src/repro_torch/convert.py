@@ -20,6 +20,7 @@ from .core.bsp import MachineState, from_words, to_words
 from .core.compile import Program
 from .core.isa import HardwareConfig
 from .device import resolve_device
+from .optim.adamw import AdamWState
 
 
 def program_to_arrays(program) -> Dict[str, Any]:
@@ -96,11 +97,34 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of ``params_from_jax``: numpy leaves, bf16 as
-    ``ml_dtypes.bfloat16`` (imported only when a bf16 leaf is met)."""
+    numpy's ``bfloat16``, the type that ``ml_dtypes`` registers when the
+    reference package (JAX) is loaded; this module imports neither, so
+    without it a bf16 leaf raises ``TypeError``."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
     return t.numpy()
+
+
+def opt_state_from_jax(state, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the reference's with numpy leaves
+    (``jax.tree.map(np.asarray, opt)``): ``step`` an int32 scalar, ``m``,
+    ``v`` (and ``ef`` when set) nested dicts like the parameters, on
+    ``device`` (None: the card, see ``device.resolve_device``)."""
+    device = resolve_device(device)
+    ef = None if state.ef is None else params_from_jax(state.ef, device)
+    return AdamWState(
+        step=_leaf_from_numpy(np.asarray(state.step, np.int32), device),
+        m=params_from_jax(state.m, device),
+        v=params_from_jax(state.v, device), ef=ef)
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The inverse of ``opt_state_from_jax``: the same four fields with
+    numpy leaves, which the reference's ``AdamWState(*...)`` takes."""
+    return AdamWState(
+        step=state.step.detach().cpu().numpy(),
+        m=params_to_numpy(state.m), v=params_to_numpy(state.v),
+        ef=None if state.ef is None else params_to_numpy(state.ef))

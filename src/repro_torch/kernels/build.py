@@ -105,6 +105,9 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_sm90_launch.argtypes = [p] * 4 + [i] * 5 + [
                 ctypes.c_float, p]
             lib.flash_attention_sm90_launch.restype = i
+            lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [i] * 6 + [
+                ctypes.c_float, p]
+            lib.flash_attention_bwd_launch.restype = i
             lib.flash_attention_sm90_smem_bytes.argtypes = [i]
             lib.flash_attention_sm90_smem_bytes.restype = i
             lib.vcycle_error_string.argtypes = [i]

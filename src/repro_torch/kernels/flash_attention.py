@@ -1,7 +1,7 @@
-"""Fused (flash) softmax attention: two CUDA kernels for Hopper and their
-wrappers.
+"""Fused (flash) softmax attention: three CUDA kernels for Hopper and their
+wrappers, with the gradient.
 
-Both kernels replace the TPU kernel
+The two forward kernels replace the TPU kernel
 ``repro/kernels/flash_attention.py:33 _flash_kernel`` (wrapper
 ``flash_attention`` :74), each for its own part of the inputs:
 
@@ -14,9 +14,14 @@ Both kernels replace the TPU kernel
   float32 stays there because the bf16 tensor cores cannot hold 1e-4.
 
 ``flash_attention`` picks one of them by ``route(dtype, dh)``; what no
-kernel takes raises. The prefill of every dense decoder runs its
-self-attention through it (``models/layers.py``). On CPU tensors every
-wrapper runs the plain version ``kernels/ref.py::flash_ref`` instead; on
+kernel takes raises. Under grad (grad mode on and an input that requires
+grad) it goes through ``FlashAttention``, whose backward is
+``flash_attention_bwd`` on ``csrc/flash_attention_bwd.cu``: float32 or
+bfloat16, any ``dh <= 128``. That kernel replaces no TPU kernel: the
+reference takes the gradient of its jnp attention by XLA and ships none.
+The self-attention of every dense decoder runs through ``flash_attention``
+(``models/layers.py``). On CPU tensors every wrapper runs its plain
+version instead (``kernels/ref.py``: ``flash_ref``, ``flash_bwd_ref``); on
 CUDA tensors it launches its kernel or raises.
 
 The kernels are built at first use with the port's other kernels
@@ -25,15 +30,17 @@ The kernels are built at first use with the port's other kernels
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
 from .build import check, load
-from .ref import flash_ref
+from .ref import flash_bwd_ref, flash_ref
 
 # launches of each CUDA kernel since the last reset (the CPU path and the
 # plain version never count)
-COUNTS = {"flash_attention_sm90": 0, "flash_attention_simt": 0}
+COUNTS = {"flash_attention_sm90": 0, "flash_attention_simt": 0,
+          "flash_attention_bwd": 0}
 MAX_HEAD_DIM = 128
 SM90_HEAD_DIMS = (64, 128)
 
@@ -86,9 +93,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``[BH, S, dh]`` in q's dtype, for any S. The kernel is
     ``route(q.dtype, dh)``'s: bfloat16 with dh 64 or 128 on
     ``flash_attention_sm90``, float32 and bfloat16 with any other
-    ``dh <= 128`` on ``flash_attention_simt``; anything else raises."""
+    ``dh <= 128`` on ``flash_attention_simt``; anything else raises.
+    With grad mode on and an input that requires grad, it runs through
+    ``FlashAttention``, whose backward is ``flash_attention_bwd``."""
     _validate(q, k, v)
-    return _KERNELS[route(q.dtype, q.shape[-1])](q, k, v, causal)
+    kernel = _KERNELS[route(q.dtype, q.shape[-1])]
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return kernel(q, k, v, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward on the kernel
+    ``route`` picks, saving q, k, v and the output; the backward on
+    ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = _KERNELS[route(q.dtype, q.shape[-1])](q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, do, ctx.causal), None)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -151,6 +182,49 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check("flash_attention_simt", err)
     COUNTS["flash_attention_simt"] += 1
     return o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention`` on ``csrc/flash_attention_bwd.cu``:
+    q, o, do ``[BH, S, dh]`` and k, v ``[BHkv, S, dh]`` (o the forward's
+    output, do its incoming gradient), float32 or bfloat16, ``dh <= 128``,
+    any S. Returns (dq, dk, dv) in the inputs' dtype; dk and dv sum the
+    G = BH / BHkv query row-sets that read each key/value row-set. The
+    kernel uses no atomics, so the result does not change from run to
+    run."""
+    _validate(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or not (
+            o.dtype == do.dtype == q.dtype):
+        raise ValueError("flash_attention_bwd takes o and do shaped and "
+                         f"typed as q {tuple(q.shape)} {q.dtype}; got o "
+                         f"{tuple(o.shape)} {o.dtype}, do {tuple(do.shape)} "
+                         f"{do.dtype}")
+    if not o.device == do.device == q.device:
+        raise ValueError("flash_attention_bwd tensors on different devices")
+    route(q.dtype, q.shape[-1])     # raises for what no kernel takes
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, o, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    BH, S, dh = q.shape
+    if BH > 65535:
+        raise ValueError(f"flash_attention_bwd takes BH <= 65535, got "
+                         f"BH={BH}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty((2, BH, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = load().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), BH, k.shape[0], S, dh, int(causal),
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), _stream(q))
+        check("flash_attention_bwd", err)
+    COUNTS["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 _KERNELS = {"flash_attention_sm90": flash_attention_sm90,

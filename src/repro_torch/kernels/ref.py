@@ -442,3 +442,36 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask[None], s, -1e30)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, causal: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_ref``, with the backward kernel's own math
+    (``csrc/flash_attention_bwd.cu``), all in fp32: per query row the
+    log-sum-exp ``lse`` of its scores (recomputed from q and k) and
+    ``D = rowsum(dO * O)``; ``P = exp(S - lse)``, ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P (dP - D) / sqrt(dh)``, ``dQ = dS K``,
+    ``dK = dS^T Q``. q, o, do ``[BH, S, dh]``; k, v ``[BHkv, S, dh]``:
+    dk and dv sum the G = BH / BHkv query row-sets that read each
+    key/value row-set (``flash_ref``'s grouping, i // G). Returns
+    (dq, dk, dv) in the inputs' dtype."""
+    BH, S, dh = q.shape
+    G = BH // k.shape[0]
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(G, dim=0)
+    vf = v.float().repeat_interleave(G, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) / math.sqrt(dh)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask[None], s, -1e30)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    D = (dof * of).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = p * (dp - D) / math.sqrt(dh)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dk = dk.view(-1, G, S, dh).sum(dim=1)
+    dv = dv.view(-1, G, S, dh).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -9,6 +9,9 @@ What differs from the reference:
 * Full self-attention without a window (``attention_fwd``) runs the
   flash-attention kernel (``kernels/flash_attention.py``), the port of the
   TPU kernel the reference names as the target form of that attention.
+  Under grad it runs through ``FlashAttention``, whose backward is the
+  hand-written backward kernel (the reference differentiates ``_sdpa``
+  by XLA instead).
   Its float32 kernel keeps the softmax weights in fp32 for ``P @ V``; the
   bf16 tensor-core kernel rounds them to bf16 as ``_sdpa`` casts them to
   v's dtype, but after the running max, not after the whole softmax, so
@@ -18,7 +21,8 @@ What differs from the reference:
 * ``attention_decode`` writes the new K/V into the cache in place.
 * There is no mesh, so ``shard_act`` has no counterpart.
 * Initializers draw from an explicit ``torch.Generator`` on its own device
-  and move the result to ``device``.
+  and move the result to ``device``; on the ``meta`` device they draw
+  nothing and give shapes only (``Model.abstract_params``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).to(device)
 
@@ -165,8 +171,10 @@ def causal_mask(S: int, T: int, window: Optional[int], offset: int = 0,
 
 def flash_sdpa(q, k, v, causal: bool = True) -> torch.Tensor:
     """``_sdpa`` without a mask or with the causal one, through the flash
-    kernel. q: [B,S,H,dh]; k,v: [B,S,Hkv,dh] -> [B,S,H*dh]. Heads move to
-    the front for the kernel's ``[B*H, S, dh]`` and back after it."""
+    kernel, differentiable (``flash_attention`` takes ``FlashAttention``
+    under grad). q: [B,S,H,dh]; k,v: [B,S,Hkv,dh] -> [B,S,H*dh]. Heads
+    move to the front for the kernel's ``[B*H, S, dh]`` and back after
+    it."""
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     out = flash_attention(q.transpose(1, 2).reshape(B * H, S, dh),

@@ -1,5 +1,5 @@
-"""Unified serving API: build(cfg) -> Model with init / make_cache / prefill /
-decode_step.
+"""Unified model API: build(cfg) -> Model with init / loss / prefill /
+decode_step / make_cache / abstract_params / input_specs.
 
 Port of ``repro.models.model`` for dense decoder-only configs. Parameters
 are nested dicts of tensors, name for name the reference's pytree, with the
@@ -11,8 +11,12 @@ the card unless given ``device="cpu"``; the rest follow their inputs.
 and return it: a cache that went through either holds the new state, so a
 caller that wants the old one keeps a clone. ``prefill`` fills the whole
 cache ``make_cache`` gave (see ``transformer.decoder_prefill`` for where
-that departs from the reference). ``loss``, ``abstract_params`` and
-``input_specs`` belong to the training slice (ROADMAP A7).
+that departs from the reference). ``loss`` is the reference's, and
+differentiable: its attention runs ``FlashAttention`` under grad.
+``abstract_params`` gives meta-device tensors (the reference's
+``ShapeDtypeStruct``s) and ``input_specs`` ``(shape, dtype)`` pairs for
+the text inputs; the VLM patch prefix and the audio frames are not ported
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -62,6 +66,11 @@ class Model:
         placed on ``device``: the model's, else the card."""
         return T.decoder_init(generator, self.cfg, self._device(device))
 
+    def abstract_params(self) -> Params:
+        """The parameters' shapes and dtypes as meta-device tensors (no
+        storage, nothing drawn)."""
+        return T.decoder_init(None, self.cfg, torch.device("meta"))
+
     # ---------------------------------------------------------- forward ----
     def _trunk(self, params: Params, x, pos, state=None) -> torch.Tensor:
         """The normed hidden states; ``state`` is a decode step's
@@ -74,12 +83,31 @@ class Model:
         if (cfg.family == "vlm" and "patches" in batch) or cfg.enc_dec:
             raise NotImplementedError(
                 f"{cfg.name}: patch and audio-frame inputs are not ported "
-                "(ROADMAP A7)")
+                "(ROADMAP A8)")
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = L.embed(params["embed"], tokens)
         pos = _positions(B, x.shape[1], m_rope=cfg.m_rope, device=x.device)
         return x, pos
+
+    # ------------------------------------------------------------- loss ----
+    def loss(self, params: Params, batch: Dict
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy from fp32 logits, plus the
+        z-loss ``1e-4 * mean(logsumexp^2)`` and ``1e-2 * aux`` (0 for a
+        dense stack). Returns (total, {"nll", "aux", "zloss"})."""
+        cfg = self.cfg
+        x, pos = self._embed_inputs(params, batch)
+        h = self._trunk(params, x, pos)
+        logits = L.unembed(params["embed"], cfg, h).float()
+        labels = batch["labels"].to(logits.device, torch.long)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = (logz - gold).mean()
+        zloss = 1e-4 * logz.square().mean()
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        total = nll + zloss + 1e-2 * aux
+        return total, {"nll": nll, "aux": aux, "zloss": zloss}
 
     # ---------------------------------------------------------- serving ----
     def make_cache(self, B: int, ctx: int, device=None) -> Any:
@@ -112,6 +140,25 @@ class Model:
         pos = _decode_pos(B, pos_scalar, cfg.m_rope, device=x.device)
         h = self._trunk(params, x, pos, state=(cache["k"], cache["v"]))
         return L.unembed(params["embed"], cfg, h).float(), cache
+
+    # ------------------------------------------------------ input specs ----
+    def input_specs(self, seq_len: int, global_batch: int,
+                    mode: str = "train") -> Dict[str, Tuple]:
+        """``(shape, dtype)`` stand-ins for the model's text inputs in
+        ``mode`` ("train", "prefill" or "decode"). The reference's VLM
+        ``patches`` and audio ``frames`` are not ported: an
+        encoder-decoder config raises, and a VLM config gets its text
+        inputs only."""
+        T._dense_only(self.cfg)
+        B, S = global_batch, seq_len
+        if mode == "train":
+            return {"tokens": ((B, S), torch.int32),
+                    "labels": ((B, S), torch.int32)}
+        if mode == "prefill":
+            return {"tokens": ((B, S), torch.int32)}
+        if mode == "decode":
+            return {"tokens": ((B, 1), torch.int32)}
+        raise ValueError(f"input_specs: unknown mode {mode!r}")
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

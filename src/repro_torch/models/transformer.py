@@ -3,8 +3,11 @@
 Port of the dense branch of ``repro.models.transformer`` (lines 60-160):
 ``dense_block_init/fwd``, ``decoder_init/fwd``, ``_ring`` and
 ``decoder_prefill``. ``scan_layers`` becomes a Python loop over the layer
-axis of the stacked leaves; ``_remat`` has no counterpart, since serving
-takes no gradient.
+axis of the stacked leaves. ``_remat``'s counterpart: with grad enabled,
+``decoder_fwd`` runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), which saves the layer's input and recomputes the rest in
+the backward pass (the reference's ``REPRO_REMAT=min``; its default policy
+also saves the matrix products, and ``REPRO_REMAT`` has no counterpart).
 
 One departure from the reference: ``decoder_prefill`` fills caches of the
 length ``Tw`` the caller allocated, with prompt token t in slot ``t % Tw``
@@ -14,13 +17,14 @@ for the last ``min(S, Tw)`` tokens. The reference's ``_ring`` returns only
 ``S >= Tw`` both give the same cache.
 
 MoE blocks, zamba2 (mamba2), xLSTM and the encoder-decoder stack are not
-ported yet (ROADMAP A7) and raise ``NotImplementedError``.
+ported yet (ROADMAP A8) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -32,7 +36,7 @@ def _dense_only(cfg: ModelConfig) -> None:
     if cfg.is_moe or cfg.block != "attn" or cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense decoder-only stacks; MoE, "
-            "zamba2, xLSTM and encoder-decoder wait for ROADMAP A7")
+            "zamba2, xLSTM and encoder-decoder wait for ROADMAP A8")
 
 
 def _stack(trees):
@@ -44,13 +48,6 @@ def _stack(trees):
 
 def _stack_init(gen: torch.Generator, n: int, init_fn) -> Params:
     return _stack([init_fn(gen) for _ in range(n)])
-
-
-def _layer(params: Params, i: int) -> Params:
-    """Layer i's parameters: index the leading axis of every stacked leaf."""
-    if isinstance(params, dict):
-        return {k: _layer(v, i) for k, v in params.items()}
-    return params[i]
 
 
 # ------------------------------------------------------- decoder-only ------
@@ -97,14 +94,30 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def _unstack(params: Params, n: int) -> List[Params]:
+    """The n layers' parameters from the stacked leaves, by one ``unbind``
+    a leaf, so that the backward pass stacks each leaf's gradient once."""
+    if isinstance(params, dict):
+        per_key = {k: _unstack(v, n) for k, v in params.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(params))
+
+
 def decoder_fwd(cfg: ModelConfig, params: Params, x, pos,
                 caches: Optional[Tuple] = None):
     """Loop over stacked layers. caches: (k [L,B,T,Hk,dh], v) or None;
-    a decode step updates them in place. Returns the normed hidden
-    states."""
-    for i in range(cfg.n_layers):
-        cache = None if caches is None else (caches[0][i], caches[1][i])
-        x = dense_block_fwd(cfg, _layer(params["layers"], i), x, pos, cache)
+    a decode step updates them in place. With grad enabled and no caches,
+    each layer runs under ``torch.utils.checkpoint``: its input is all it
+    saves. Returns the normed hidden states."""
+    remat = caches is None and torch.is_grad_enabled()
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i, p in enumerate(layers):
+        if remat:
+            x = checkpoint(dense_block_fwd, cfg, p, x, pos,
+                           use_reentrant=False)
+        else:
+            cache = None if caches is None else (caches[0][i], caches[1][i])
+            x = dense_block_fwd(cfg, p, x, pos, cache)
     return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
 
 
@@ -127,8 +140,7 @@ def decoder_prefill(cfg: ModelConfig, params: Params, x, pos,
     _dense_only(cfg)
     S = x.shape[1]
     Tw = caches[0].shape[2]
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = L._qkv(p["attn"], cfg, hn, pos)
         if cfg.swa_window is None:

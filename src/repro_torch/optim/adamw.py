@@ -1,0 +1,122 @@
+"""AdamW with fp32 master state over bf16 params, gradient clipping, cosine
+schedule, and optional int8-compressed gradients with error feedback.
+
+Port of ``repro.optim.adamw`` over nested dicts of tensors: the same
+names, the same fp32 arithmetic in the same order. Params of a lower
+precision are read as fp32 and written back rounded to their dtype, as the
+reference's ``upd`` does. ``torch.round`` rounds half to even, as
+``jnp.round`` does. Every function is functional: it returns new tensors
+and leaves its inputs as they are.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class AdamWState(NamedTuple):
+    step: Any                  # int32 scalar tensor
+    m: Any
+    v: Any
+    ef: Optional[Any] = None   # error-feedback residual (compression)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, leaf for leaf with ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def leaves(tree):
+    """The leaves of nested dicts, in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def init(params, compress: bool = False) -> AdamWState:
+    """Zero fp32 moments (and residuals with ``compress``) shaped like
+    ``params``, on each leaf's device (meta leaves give meta state)."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    device = next(leaves(params)).device
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        m=tree_map(zeros, params), v=tree_map(zeros, params),
+        ef=tree_map(zeros, params) if compress else None)
+
+
+def cosine_lr(step, base_lr=3e-4, warmup=200, total=10000):
+    """Linear warm-up to ``base_lr``, then a cosine to 0 at ``total``;
+    ``step`` an int tensor (or int), the result fp32."""
+    step = torch.as_tensor(step, dtype=torch.int32)
+    warm = base_lr * (step + 1) / warmup
+    prog = torch.clip((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = 0.5 * base_lr * (1 + torch.cos(math.pi * prog))
+    return torch.where(step < warmup, warm, cos)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+
+
+def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization."""
+    scale = torch.clamp_min(g.abs().max(), 1e-8) / 127.0
+    q = torch.clip(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_grads(grads, ef):
+    """int8 + error feedback: returns (quantized tree, scales, new
+    residuals). The residuals carry the rounding error into the next
+    step."""
+    def one(g, e):
+        gf = g.float() + e
+        q, s = quantize_int8(gf)
+        return q, s, gf - dequantize_int8(q, s)
+
+    return _unzip(tree_map(one, grads, ef), 3)
+
+
+def _unzip(tree, n: int):
+    """n trees from one whose leaves are n-tuples."""
+    return tuple(tree_map(lambda t: t[i], tree) for i in range(n))
+
+
+def apply(params, grads, state: AdamWState, *, lr=None, b1=0.9, b2=0.95,
+          eps=1e-8, weight_decay=0.1, clip=1.0):
+    """One AdamW update. Grads may be lower precision; math is fp32.
+    Returns (new params, new state, the grads' global norm)."""
+    step = state.step + 1
+    if lr is None:
+        lr = cosine_lr(step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(clip / (gnorm + 1e-9), 1.0)
+    c1 = 1 - b1 ** step
+    c2 = 1 - b2 ** step
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g.square()
+        mh = m / c1
+        vh = v / c2
+        pf = p.float()
+        new_p = pf - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * pf)
+        return new_p.to(p.dtype), m, v
+
+    new_p, new_m, new_v = _unzip(
+        tree_map(upd, params, grads, state.m, state.v), 3)
+    return new_p, AdamWState(step, new_m, new_v, state.ef), gnorm

@@ -1,2 +1,3 @@
-"""Runtime services over the engines: ``elastic`` moves a running RTL
-simulation's state between two compilations of one circuit."""
+"""Runtime services: ``elastic`` moves a running RTL simulation's state
+between two compilations of one circuit; ``checkpoint`` saves and restores
+the LM's training state; ``health`` watches hosts' heartbeats."""

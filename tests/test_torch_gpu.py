@@ -425,6 +425,95 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
     assert torch.equal(toks, tokc)
 
 
+# (BH, BHkv, S, dh, dtype, causal): GQA, tail tiles, dh off 64 and 128,
+# non-causal, and the qwen3-0.6b training shape (B=4, H=16, Hkv=8)
+FLASH_BWD_SHAPES = [
+    (2, 2, 256, 64, torch.float32, True),
+    (8, 4, 77, 16, torch.float32, False),
+    (4, 1, 129, 128, torch.float32, True),
+    (16, 8, 300, 100, torch.float32, True),
+    (6, 3, 1000, 64, torch.bfloat16, True),
+    (8, 4, 512, 128, torch.bfloat16, False),
+    (64, 32, 2048, 128, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("BH,BHkv,S,dh,dtype,causal", FLASH_BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(cuda, BH, BHkv, S, dh, dtype,
+                                        causal):
+    """``flash_attention_bwd`` against ``flash_bwd_ref`` on the same CUDA
+    tensors, each output within 1e-4 (fp32) or 2e-2 (bf16) of its max;
+    one launch, and the same bits when launched again (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref
+    g = torch.Generator(device=cuda).manual_seed(BH * S + dh)
+    q, do = (torch.randn((BH, S, dh), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((BHkv, S, dh), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    o = fa.flash_attention(q, k, v, causal)
+    fa.reset_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["flash_attention_bwd"] == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(got, flash_bwd_ref(q, k, v, o, do, causal)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(
+            b.float().abs().max())
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_lm_train_step_on_card_gives_every_leaf_a_gradient(cuda):
+    """qwen3-0.6b's SMOKE config in float32, one ``make_train_step`` step
+    on the card: two flash forwards a layer (the step and its recompute)
+    and one backward, every leaf's gradient finite and nonzero, the loss
+    and norm within 1e-4 of the same step on the CPU, and every gradient
+    leaf within 1e-4 of that leaf's max on the CPU."""
+    from unittest import mock
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKE["qwen3-0.6b"].scaled(dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100)))
+             for k in ("tokens", "labels")}
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, step, _, _ = steps.make_train_step(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        grads, apply = [], adamw.apply
+
+        def spy(p, g, o, **kw):
+            grads.append(g)
+            return apply(p, g, o, **kw)
+
+        fa.reset_counts()
+        with mock.patch.object(steps.adamw, "apply", spy):
+            _, _, metrics = step(params, adamw.init(params),
+                                 {k: t.to(dev) for k, t in batch.items()})
+        if dev is cuda:
+            assert fa.COUNTS == {"flash_attention_sm90": 0,
+                                 "flash_attention_simt": 2 * cfg.n_layers,
+                                 "flash_attention_bwd": cfg.n_layers}
+        for g in adamw.leaves(grads[0]):
+            assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+        outs.append((metrics, grads[0]))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = outs
+    for key in ("loss", "gnorm"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    pairs = list(zip(adamw.leaves(g_gpu), adamw.leaves(g_cpu)))
+    assert len(pairs) == len(list(adamw.leaves(g_cpu)))
+    for a, b in pairs:
+        assert a.shape == b.shape
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
 def _serve(device, plan=None):
     """Eight mixed mc+bc small requests at 5x5 through ``SimServer`` on
     ``device``; seed 13 poisoned by ``plan`` bisects its batch into odd

@@ -269,5 +269,5 @@ def test_params_from_jax_go_to_the_card_unless_asked():
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "zamba2-7b", "xlstm-125m",
                                   "whisper-medium"])
 def test_unported_stacks_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         build(SMOKE[name], "cpu").init(torch.Generator())
