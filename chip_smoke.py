@@ -21,7 +21,11 @@ against its plain PyTorch version on the card:
   ``flash_attention.cu``;
 * the backward flash kernel ``flash_attention_bwd.cu`` against
   ``flash_bwd_ref`` (each of dq, dk, dv within 1e-4 of its max in fp32,
-  2e-2 in bf16) at the same cases, launched twice for the same bits.
+  2e-2 in bf16) at the same cases, launched twice for the same bits, and
+  at the bf16 cases with dh 64 or 128 the tensor-core backward kernel
+  ``flash_attention_bwd_sm90.cu`` against ``flash_bwd_ref(lse=)`` with lse
+  from the forward kernel (within 2e-2 of each output's max, the same bits
+  on a relaunch).
 
 Then it drives the paths, each through the calls a user makes, with the
 launch counts set to 0 just before and read just after:
@@ -47,19 +51,20 @@ launch counts set to 0 just before and read just after:
 * LM training, ``repro_torch.launch.steps.make_train_step`` on qwen3-0.6b
   at full width in bf16 over ``TokenPipeline`` batches of 4 x 2048
   tokens: a warm-up step and three timed ones, each 56
-  ``flash_attention_sm90`` launches (the forward and its recompute) and
-  28 ``flash_attention_bwd``, every leaf with a gradient; in float32 at
-  two layers the step's gradients equal the same step on ``flash_ref``
-  under autograd, and 2 steps, a checkpoint, a restore and 1 step equal 3
-  steps bit for bit;
+  ``flash_attention_sm90`` launches (the forward, saving lse, and its
+  recompute) and 28 ``flash_attention_bwd_sm90``, every leaf with a
+  gradient; in float32 at two layers (on ``flash_attention_simt`` and
+  ``flash_attention_bwd``) the step's gradients equal the same step on
+  ``flash_ref`` under autograd, and 2 steps, a checkpoint, a restore and
+  1 step equal 3 steps bit for bit;
 
-and times each kernel against its bound (both flash kernels, the plain
-version and SDPA in turns at the prefill's shape in bf16, the CUDA-core
-kernel, the plain version and SDPA in turns in float32, and the backward
-kernel, its plain version and SDPA's backward in turns in bf16 and
-float32). Each Vcycle case
-of the timing also reports what bounds the kernel: the busiest core's rows
-a Vcycle (``busy_rows``), the kernel's ns per such row
+and times each kernel against its bound (both flash kernels, the
+tensor-core one also saving lse, the plain version and SDPA in turns at
+the prefill's shape in bf16, the CUDA-core kernel, the plain version and
+SDPA in turns in float32, and in bf16 both backward kernels, the plain
+version and SDPA's backward in turns, in float32 the SIMT one). Each
+Vcycle case of the timing also reports what bounds the kernel: the
+busiest core's rows a Vcycle (``busy_rows``), the kernel's ns per such row
 (``ns_per_busy_row``), the bytes of code rows it reads a launch
 (``code_bytes``) and, for the chunk kernel, its shared memory a block,
 blocks an SM and waves. Each phase prints one JSON line;
@@ -148,7 +153,13 @@ def timed_build(kbuild):
 
 # each kernel's name in the compiler's report: the first key that its
 # mangled entry function holds
-PTXAS_KERNELS = {"vcycle_chunk_kernel": "vcycle_chunk",
+PTXAS_KERNELS = {"flash_attention_bwd_sm90_delta_kernel":
+                 "flash_attention_bwd_sm90",
+                 "flash_attention_bwd_sm90_dkdv_kernel":
+                 "flash_attention_bwd_sm90",
+                 "flash_attention_bwd_sm90_dq_kernel":
+                 "flash_attention_bwd_sm90",
+                 "vcycle_chunk_kernel": "vcycle_chunk",
                  "vcycle_seed_kernel": "vcycle_seed",
                  "flash_attention_sm90_kernel": "flash_attention_sm90",
                  "flash_attention_kernel": "flash_attention_simt",
@@ -161,9 +172,10 @@ def phase_build(kbuild, build_future):
     """The library every kernel is built into, with each kernel's
     registers a thread, static shared memory and spills from the
     compiler's -Xptxas -v report (the most over a kernel's template
-    instances), and the tensor-core flash kernel's dynamic shared memory.
-    That kernel, the backward flash kernel (its three entry functions
-    counted as one) and the two Vcycle kernels must not spill."""
+    instances), and the tensor-core flash kernels' dynamic shared memory.
+    Those kernels, the SIMT backward flash kernel (each backward kernel's
+    three entry functions counted as one) and the two Vcycle kernels must
+    not spill."""
     t0 = time.perf_counter()
     path, log, build_s = build_future.result()
     ptxas, kernel = {}, None
@@ -190,6 +202,11 @@ def phase_build(kbuild, build_future):
     if "flash_attention_sm90" in ptxas:
         ptxas["flash_attention_sm90"]["dynamic_smem_bytes"] = {
             dh: lib.flash_attention_sm90_smem_bytes(dh) for dh in (64, 128)}
+    if "flash_attention_bwd_sm90" in ptxas:
+        ptxas["flash_attention_bwd_sm90"]["dynamic_smem_bytes"] = {
+            dh: {"dkdv": lib.flash_attention_bwd_sm90_smem_bytes(dh, 0),
+                 "dq": lib.flash_attention_bwd_sm90_smem_bytes(dh, 1)}
+            for dh in (64, 128)}
     emit({"phase": "build", "library": str(path.relative_to(ROOT)),
           "registers_per_thread": {k: v["registers"]
                                    for k, v in ptxas.items()},
@@ -197,7 +214,7 @@ def phase_build(kbuild, build_future):
               ln.strip() for ln in log.splitlines() if "arning" in ln],
           "build_s": build_s, "waited_s": time.perf_counter() - t0})
     for name in ("flash_attention_sm90", "flash_attention_bwd",
-                 "vcycle_chunk", "vcycle_seed"):
+                 "flash_attention_bwd_sm90", "vcycle_chunk", "vcycle_seed"):
         info = ptxas.get(name)
         if info is None or info["spill_bytes"]:
             raise AssertionError(f"{name}: not built or spills ({info})")
@@ -1147,13 +1164,35 @@ def phase_flash(torch, fa, flash_ref):
     return max(c["max_abs_err"] for c in cases)
 
 
-def phase_flash_bwd(torch, fa, flash_bwd_ref):
+def _grad_errs(torch, got, want, again, tol, tag):
+    """Each of (dq, dk, dv) against the plain version within ``tol`` of its
+    max, and bit-equal to a second launch: ({name: max abs err},
+    {name: err over max})."""
+    err, rel = {}, {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err[name] = float((a.float() - b.float()).abs().max())
+        rel[name] = err[name] / float(b.float().abs().max())
+        if a.dtype != b.dtype or not rel[name] <= tol:
+            raise AssertionError(f"{tag}: {name} != plain ({err[name]}, "
+                                 f"{rel[name]} of its max)")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: a second launch gave other bits")
+    return err, rel
+
+
+def phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref):
     """``flash_attention_bwd`` at each of ``flash_vs_plain``'s cases, on
     the gradient ``dO`` of that case's forward output (the forward kernel
     ``route`` picks), against ``flash_bwd_ref`` on the same CUDA tensors:
     each of dq, dk, dv within 1e-4 (fp32) or 2e-2 (bf16) of its max; one
-    launch each, and the same bits when launched again (no atomics)."""
+    launch each, and the same bits when launched again (no atomics). At
+    the bf16 cases with dh 64 or 128 also ``flash_attention_bwd_sm90``
+    with the lse that ``flash_attention_sm90`` saves, against
+    ``flash_bwd_ref(..., lse=)``: within 2e-2 of each output's max, one
+    launch, the same bits again; and that lse within 1e-3 of
+    ``flash_ref``'s."""
     cases = []
+    zero = {name: 0 for name in fa.COUNTS}
     for i, (BH, BHkv, S, dh, dtype, causal) in enumerate(FLASH_CASES):
         q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, 50 + i)
         do = flash_inputs(torch, BH, BHkv, S, dh, dtype, 80 + i)[0]
@@ -1166,23 +1205,39 @@ def phase_flash_bwd(torch, fa, flash_bwd_ref):
         torch.cuda.synchronize()
         tag = (f"flash bwd BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} "
                f"causal={causal}")
-        if launches != {"flash_attention_sm90": 0, "flash_attention_simt": 0,
-                        "flash_attention_bwd": 1}:
+        if launches != {**zero, "flash_attention_bwd": 1}:
             raise AssertionError(f"{tag}: launched {launches}")
         tol = FLASH_TOL[dtype]
-        err, rel = {}, {}
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            err[name] = float((a.float() - b.float()).abs().max())
-            rel[name] = err[name] / float(b.float().abs().max())
-            if a.dtype != b.dtype or not rel[name] <= tol:
-                raise AssertionError(f"{tag}: {name} != plain ({err[name]}, "
-                                     f"{rel[name]} of its max)")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{tag}: a second launch gave other bits")
-        cases.append({"BH": BH, "BHkv": BHkv, "S": S, "dh": dh,
-                      "dtype": dtype, "causal": causal,
-                      "max_abs_err": err, "err_over_max": rel, "tol": tol})
-        del q, k, v, o, do, got, again, want
+        err, rel = _grad_errs(torch, got, want, again, tol, tag)
+        case = {"BH": BH, "BHkv": BHkv, "S": S, "dh": dh, "dtype": dtype,
+                "causal": causal, "max_abs_err": err, "err_over_max": rel,
+                "tol": tol}
+        del got, again, want
+        if dtype == "bfloat16" and dh in fa.SM90_HEAD_DIMS:
+            o, lse = fa.flash_attention_sm90(q, k, v, causal,
+                                             return_lse=True)
+            lse_err = float((lse - flash_ref(q, k, v, causal,
+                                             return_lse=True)[1])
+                            .abs().max())
+            if not lse_err <= 1e-3:
+                raise AssertionError(f"{tag}: the forward's lse is "
+                                     f"{lse_err} off flash_ref's")
+            fa.reset_counts()
+            got = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, causal)
+            launches = dict(fa.COUNTS)
+            again = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, causal)
+            want = flash_bwd_ref(q, k, v, o, do, causal, lse=lse)
+            torch.cuda.synchronize()
+            if launches != {**zero, "flash_attention_bwd_sm90": 1}:
+                raise AssertionError(f"{tag} sm90: launched {launches}")
+            err, rel = _grad_errs(torch, got, want, again, tol,
+                                  f"{tag} sm90")
+            case["flash_attention_bwd_sm90"] = {
+                "max_abs_err": err, "err_over_max": rel, "tol": tol,
+                "lse_max_abs_err": lse_err}
+            del got, again, want, lse
+        cases.append(case)
+        del q, k, v, o, do
     torch.cuda.empty_cache()
     emit({"phase": "flash_bwd_vs_plain", "cases": cases})
 
@@ -1389,7 +1444,8 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     TRAIN_B)).batch_at(i)``: one warm-up step, then TRAIN_TIMED steps
     timed to a synchronize. Every step must launch 2 x 28
     ``flash_attention_sm90`` (the forward and its recompute under
-    ``torch.utils.checkpoint``) and 28 ``flash_attention_bwd``, and no
+    ``torch.utils.checkpoint``, which saves lse) and 28
+    ``flash_attention_bwd_sm90``, no ``flash_attention_bwd`` and no
     Vcycle kernel. Checks: loss and gnorm finite, gnorm > 0, every leaf's
     gradient finite and nonzero at step 1 (a leaf the loss cannot reach
     raises in the step), and each weight matrix moved. Then at full width
@@ -1399,7 +1455,7 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     autograd, within 1e-4 of each leaf's max, every leaf moved; and 2
     steps, a ``CheckpointManager`` save and restore into fresh tensors,
     then 1 step, bit-equal to 3 uninterrupted steps. Returns the bf16
-    run's launches of each flash kernel."""
+    run's launches of each flash kernel, and the counted float32 step's."""
     from unittest import mock
     cfg = ARCHS[LM_ARCH]
     model, step, p_shapes, opt_shapes = steps.make_train_step(cfg)
@@ -1408,7 +1464,8 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     opt = adamw.init(params)
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
     want = {"flash_attention_sm90": 2 * cfg.n_layers,
-            "flash_attention_simt": 0, "flash_attention_bwd": cfg.n_layers}
+            "flash_attention_simt": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_sm90": cfg.n_layers}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # step 1: the warm-up, with its gradients
@@ -1456,7 +1513,8 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     b0 = _batch(torch, pipe32, 0)
     want32 = {"flash_attention_sm90": 0,
               "flash_attention_simt": 2 * CHECK_LAYERS,
-              "flash_attention_bwd": CHECK_LAYERS}
+              "flash_attention_bwd": CHECK_LAYERS,
+              "flash_attention_bwd_sm90": 0}
     (pk, _, mk), gk = _counted(fa, kv, lambda: _spied_step(
         torch, steps, adamw, step32, p0, o0, b0), want32, "float32 step")
     with mock.patch.object(L, "flash_attention", flash_ref):
@@ -1528,7 +1586,7 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
                          "grad_err_over_leaf_max": grad_err,
                          "loss_abs_err": loss_err,
                          "resume_bit_equal_leaves": n_pairs}})
-    return launches
+    return launches, want32
 
 
 def _leaves(tree):
@@ -1541,10 +1599,11 @@ def _leaves(tree):
 
 def time_flash(torch, fa, flash_ref):
     """Both flash kernels at the qwen3-0.6b prefill's shape (bf16, causal,
-    GQA G=2), timed in one call in turns (tensor-core kernel, CUDA-core
-    kernel, plain version, SDPA, then the same in reverse): CUDA-event ms,
-    the bound they share, and one PyTorch call computing the same function
-    (SDPA, the yardstick; the port never calls it)."""
+    GQA G=2), timed in one call in turns (tensor-core kernel, the same
+    saving lse as training runs it, CUDA-core kernel, plain version, SDPA,
+    then the same in reverse): CUDA-event ms, the bound they share, and
+    one PyTorch call computing the same function (SDPA, the yardstick; the
+    port never calls it)."""
     import torch.nn.functional as F
     BH, BHkv, S, dh = LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", 99)
@@ -1562,8 +1621,12 @@ def time_flash(torch, fa, flash_ref):
             out[name] = fn(q, k, v)
         return launch
 
+    def sm90_lse(q, k, v):
+        return fa.flash_attention_sm90(q, k, v, return_lse=True)[0]
+
     fns = {"flash_attention_sm90": (run("flash_attention_sm90",
                                         fa.flash_attention_sm90), 20, 3),
+           "sm90_lse": (run("sm90_lse", sm90_lse), 20, 3),
            "flash_attention_simt": (run("flash_attention_simt",
                                         fa.flash_attention_simt), 5, 1),
            "plain": (run("plain", flash_ref), 3, 1),
@@ -1595,6 +1658,11 @@ def time_flash(torch, fa, flash_ref):
         res[name] = {**common, "ms": ms[name], "ms_turns": turns[name],
                      "max_abs_err": err,
                      "tflops_per_s": flops / ms[name] * 1e-9}
+    if not torch.equal(out["sm90_lse"], out["flash_attention_sm90"]):
+        raise AssertionError("flash_attention_sm90 saving lse gave another "
+                             "output")
+    res["flash_attention_sm90"].update(ms_with_lse=ms["sm90_lse"],
+                                       ms_with_lse_turns=turns["sm90_lse"])
     return res
 
 
@@ -1653,18 +1721,25 @@ def time_flash_fp32(torch, fa, flash_ref):
 
 
 def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
-    """``flash_attention_bwd`` at the qwen3-0.6b training shape (causal,
+    """The backward flash kernels at the qwen3-0.6b training shape (causal,
     GQA G=2) in ``dtype``, timed in one call in turns with the plain
-    version and the backward of SDPA on the same inputs (kernel, plain,
-    SDPA, then the same in reverse). Bound: the gradient's five products,
-    2.5x the forward's causal products, at the card's rate for ``dtype``
-    (tensor cores for bf16), against each input read and each output
-    written once."""
+    version and the backward of SDPA on the same inputs (kernels, plain,
+    SDPA, then the same in reverse): ``flash_attention_bwd`` in either
+    type, and in bf16 also ``flash_attention_bwd_sm90`` with the lse the
+    forward saves (its plain version ``flash_bwd_ref(lse=)``). Bound: the
+    gradient's five products, 2.5x the forward's causal products, at the
+    card's rate for ``dtype`` (tensor cores for bf16), against each input
+    read and each output written once (lse's bytes too, for the kernel
+    that reads it). Returns {kernel name: its row}."""
     import torch.nn.functional as F
     BH, BHkv, S, dh = TRAIN_B * 16, TRAIN_B * 8, TRAIN_S, 128
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, 97)
     do = flash_inputs(torch, BH, BHkv, S, dh, dtype, 96)[0]
-    o = fa.flash_attention(q, k, v)
+    sm90 = dtype == "bfloat16"
+    if sm90:
+        o, lse = fa.flash_attention_sm90(q, k, v, return_lse=True)
+    else:
+        o = fa.flash_attention(q, k, v)
     B = TRAIN_B
     q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh).detach()
                   .requires_grad_() for t in (q, k, v))
@@ -1673,8 +1748,8 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     do4 = do.view(B, BH // B, S, dh)
     out = {}
 
-    def kernel():
-        out["kernel"] = fa.flash_attention_bwd(q, k, v, o, do)
+    def simt():
+        out["flash_attention_bwd"] = fa.flash_attention_bwd(q, k, v, o, do)
 
     def plain():
         out["plain"] = flash_bwd_ref(q, k, v, o, do)
@@ -1682,8 +1757,18 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     def sdpa_bwd():
         torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
 
-    fns = {"kernel": (kernel, 5, 1), "plain": (plain, 3, 1),
+    fns = {"flash_attention_bwd": (simt, 5, 1), "plain": (plain, 3, 1),
            "library": (sdpa_bwd, 10, 2)}
+    if sm90:
+        def kernel_sm90():
+            out["flash_attention_bwd_sm90"] = fa.flash_attention_bwd_sm90(
+                q, k, v, o, do, lse)
+
+        def plain_lse():
+            out["plain_lse"] = flash_bwd_ref(q, k, v, o, do, lse=lse)
+
+        fns = {"flash_attention_bwd_sm90": (kernel_sm90, 20, 3), **fns,
+               "plain_lse": (plain_lse, 3, 1)}
     turns = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
@@ -1695,28 +1780,36 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     nbytes = elt * (4 * BH + 4 * BHkv) * S * dh
     flops = 5 * BH * S * S * dh      # 2.5 x the forward's 2 BH S^2 dh
     rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
-    errs = [(float((a.float() - b.float()).abs().max()),
-             float(b.float().abs().max()))
-            for a, b in zip(out["kernel"], out["plain"])]
-    err = max(e for e, _ in errs)
-    rel = max(e / m for e, m in errs)
-    if rel > FLASH_TOL[dtype]:
-        raise AssertionError(f"timed flash_attention_bwd ({dtype}) != plain "
-                             f"({rel} of an output's max)")
-    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} causal",
-            "ms": ms["kernel"], "ms_turns": turns["kernel"],
-            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+    res = {}
+    for name, plain_name, extra in (
+            ("flash_attention_bwd", "plain", 0),
+            ("flash_attention_bwd_sm90", "plain_lse", 4 * BH * S)):
+        if name not in out:
+            continue
+        errs = [(float((a.float() - b.float()).abs().max()),
+                 float(b.float().abs().max()))
+                for a, b in zip(out[name], out[plain_name])]
+        err = max(e for e, _ in errs)
+        rel = max(e / m for e, m in errs)
+        if rel > FLASH_TOL[dtype]:
+            raise AssertionError(f"timed {name} ({dtype}) != plain ({rel} "
+                                 "of an output's max)")
+        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
+        res[name] = {
+            "case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} causal",
+            "ms": ms[name], "ms_turns": turns[name],
+            "plain_ms": ms[plain_name], "plain_ms_turns": turns[plain_name],
             "library_ms": ms["library"],
             "library_ms_turns": turns["library"],
             "library": "backward of scaled_dot_product_attention(is_causal, "
                        f"enable_gqa) in {dtype}",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "bytes": nbytes + extra, "flops": flops, "max_abs_err": err,
             "err_over_max": rel,
-            "tflops_per_s": flops / ms["kernel"] * 1e-9}
+            "tflops_per_s": flops / ms[name] * 1e-9}
+    return res
 
 
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
@@ -1987,7 +2080,7 @@ def main() -> int:
         smi = phase_device(torch)
         phase_build(kbuild, build_future)
         phase_flash(torch, fa, flash_ref)
-        phase_flash_bwd(torch, fa, flash_bwd_ref)
+        phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref)
         phase_random(torch, kv, random_chunk, CacheModel)
         phase_seed_random(torch, kv, random_vcycle, CacheModel)
         for fut in cf.as_completed(compiles):
@@ -2017,9 +2110,9 @@ def main() -> int:
                                (("mc", s_main), ("bc", s_bc)))
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
-    train_launches = phase_lm_train(torch, fa, kv, flash_ref, steps, L,
-                                    ARCHS, adamw, TokenPipeline,
-                                    PipelineConfig, CheckpointManager)
+    train_launches, fp32_train_launches = phase_lm_train(
+        torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
+        PipelineConfig, CheckpointManager)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
@@ -2027,8 +2120,11 @@ def main() -> int:
            for dt in ("bfloat16", "float32")}
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
-          "flash_attention_bwd": bwd["bfloat16"],
-          "flash_attention_bwd_fp32": bwd["float32"],
+          "flash_attention_bwd_sm90": bwd["bfloat16"][
+              "flash_attention_bwd_sm90"],
+          "flash_attention_bwd": bwd["bfloat16"]["flash_attention_bwd"],
+          "flash_attention_bwd_fp32": bwd["float32"]["flash_attention_bwd"],
+          "launches_on_fp32_train_check": fp32_train_launches,
           "launches_on_bf16_train_path": train_launches,
           "seed_launches_on_seed_path": seed_launches,
           "b1_chunk_launches_on_machine_path": b1_launches,
@@ -2064,13 +2160,27 @@ def main() -> int:
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
                     "(float32, other head dims)",
                     simt_launches, flash32),
+        kernel_line("flash_attention_bwd_sm90",
+                    "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+                    "none: no TPU kernel is replaced; the gradient of "
+                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
+                    "(bf16, dh 64 or 128), which the reference takes by "
+                    "XLA's autodiff of src/repro/models/layers.py:116 _sdpa",
+                    train_launches["flash_attention_bwd_sm90"],
+                    bwd["bfloat16"]["flash_attention_bwd_sm90"],
+                    {"lm_train": train_launches["flash_attention_bwd_sm90"]}),
         kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "none: no TPU kernel is replaced; the gradient of "
-                    "src/repro/kernels/flash_attention.py:33 _flash_kernel, "
-                    "which the reference takes by XLA's autodiff of "
-                    "src/repro/models/layers.py:116 _sdpa",
-                    train_launches["flash_attention_bwd"], bwd["bfloat16"])]
+                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
+                    "(float32, other head dims), which the reference takes "
+                    "by XLA's autodiff of src/repro/models/layers.py:116 "
+                    "_sdpa",
+                    fp32_train_launches["flash_attention_bwd"],
+                    bwd["float32"]["flash_attention_bwd"],
+                    {"lm_train_fp32_check":
+                     fp32_train_launches["flash_attention_bwd"],
+                     "lm_train_bf16": train_launches["flash_attention_bwd"]})]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -102,12 +102,17 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [
                 ctypes.c_float, p]
             lib.flash_attention_launch.restype = i
-            lib.flash_attention_sm90_launch.argtypes = [p] * 4 + [i] * 5 + [
+            lib.flash_attention_sm90_launch.argtypes = [p] * 5 + [i] * 5 + [
                 ctypes.c_float, p]
             lib.flash_attention_sm90_launch.restype = i
             lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [i] * 6 + [
                 ctypes.c_float, p]
             lib.flash_attention_bwd_launch.restype = i
+            lib.flash_attention_bwd_sm90_launch.argtypes = [p] * 10 + [
+                i] * 5 + [ctypes.c_float, p]
+            lib.flash_attention_bwd_sm90_launch.restype = i
+            lib.flash_attention_bwd_sm90_smem_bytes.argtypes = [i, i]
+            lib.flash_attention_bwd_sm90_smem_bytes.restype = i
             lib.flash_attention_sm90_smem_bytes.argtypes = [i]
             lib.flash_attention_sm90_smem_bytes.restype = i
             lib.vcycle_error_string.argtypes = [i]

@@ -30,8 +30,12 @@
 //   max over the 4 lanes that share a row; masks only on the diagonal tile
 //   and the tail tile; blocks with the longest causal rows are launched
 //   first (query blocks on grid y, heads on grid x).
+// * Optionally the log-sum-exp of each query row, for the backward kernel
+//   (flash_attention_bwd_sm90.cu): lse [BH, S] fp32, in natural-log units
+//   of the scores q k^T / sqrt(dh) (the kernel's log2-domain max and sum
+//   times ln 2), so that P = exp(q k^T / sqrt(dh) - lse). Serving passes
+//   no lse and stores nothing more.
 // No producer warp, no ping-pong between the warpgroups, no persistent grid.
-#include <cuda.h>  // CUtensorMap (the driver API only through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,6 +55,7 @@ constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kStages = 2;              // K/V ring in shared memory
 constexpr uint32_t kBox = kRows * 128;  // a 128-row x 64-column bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // One [128, DH] bf16 tile: DH / 64 boxes, each 128 rows of 128 bytes.
 template <int DH>
@@ -72,11 +77,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
     wgmma_rs_m64n128k16_tb(o, a, db);
   else
     wgmma_rs_m64n64k16_tb(o, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -110,7 +110,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                                 __grid_constant__ const CUtensorMap tk,
                                 __grid_constant__ const CUtensorMap tv,
-                                __nv_bfloat16* __restrict__ o, int S, int G,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int S, int G,
                                 int causal, float scale_log2) {
   constexpr uint32_t kTile = tile_bytes<DH>();
   extern __shared__ uint8_t smem[];
@@ -266,8 +267,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(smem_u32(&bars[1 + kStages + s]));
   }
 
-  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-20f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-20f);
+  const float sum0 = fmaxf(quad_sum(l0), 1e-20f);
+  const float sum1 = fmaxf(quad_sum(l1), 1e-20f);
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+  if (lse != nullptr && lane % 4 == 0) {
+    // natural log-sum-exp of the row's scaled scores (m is log2-domain)
+    float* row = lse + static_cast<size_t>(bh) * S;
+    if (r0 < S) row[r0] = (m0 + log2f(sum0)) * kLn2;
+    if (r0 + 8 < S) row[r0 + 8] = (m1 + log2f(sum1)) * kLn2;
+  }
   __nv_bfloat16* out = o + static_cast<size_t>(bh) * S * DH;
 #pragma unroll
   for (int i = 0; i < DH / 8; ++i) {
@@ -285,54 +293,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------------------ host ----
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, fetched through the
-// runtime, so that the library links against nothing but the runtime.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A [n, S, dh] bf16 tensor as a 3-D map of 128-row x 64-column boxes with
-// 128-byte swizzle; rows outside [0, S) of a row-set read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int n, int S, int dh) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
-                                 static_cast<cuuint64_t>(S) * dh * 2};
-  const cuuint32_t box[3] = {64, kRows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int BHkv, int S, int causal, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int BH, int BHkv, int S, int causal,
+                   float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;  // encoded per call: the pointers change
-  if (!make_map(&tq, q, BH, S, DH) || !make_map(&tk, k, BHkv, S, DH) ||
-      !make_map(&tv, v, BHkv, S, DH))
+  if (!make_map(&tq, q, BH, S, DH, kRows) ||
+      !make_map(&tk, k, BHkv, S, DH, kRows) ||
+      !make_map(&tv, v, BHkv, S, DH, kRows))
     return cudaErrorInvalidValue;
   auto kernel = flash_attention_sm90_kernel<DH>;
   const size_t smem = smem_bytes<DH>();
@@ -342,13 +310,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (S + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv,
-                                           static_cast<__nv_bfloat16*>(o), S,
-                                           BH / BHkv, causal, scale * kLog2e);
+                                           static_cast<__nv_bfloat16*>(o),
+                                           lse, S, BH / BHkv, causal,
+                                           scale * kLog2e);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -357,18 +322,21 @@ extern "C" {
 
 // o [BH, S, dh] = attention of q [BH, S, dh] over k, v [BHkv, S, dh] on
 // `stream`; every tensor contiguous bf16 on 16-byte boundaries, dh = 64 or
-// 128. Returns the cudaError_t of the launch.
+// 128. Where `lse` is not null it receives each row's natural log-sum-exp
+// of q k^T * scale, fp32 [BH, S]. Returns the cudaError_t of the launch.
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
-                                void* o, int BH, int BHkv, int S, int dh,
-                                int causal, float scale, void* stream) {
+                                void* o, void* lse, int BH, int BHkv, int S,
+                                int dh, int causal, float scale,
+                                void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv || S <= 0 ||
       (S + kRows - 1) / kRows > 65535 || (dh != 64 && dh != 128) ||
       !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   const cudaError_t err =
-      dh == 128 ? launch<128>(q, k, v, o, BH, BHkv, S, causal, scale, s)
-                : launch<64>(q, k, v, o, BH, BHkv, S, causal, scale, s);
+      dh == 128 ? launch<128>(q, k, v, o, l, BH, BHkv, S, causal, scale, s)
+                : launch<64>(q, k, v, o, l, BH, BHkv, S, causal, scale, s);
   return static_cast<int>(err);
 }
 

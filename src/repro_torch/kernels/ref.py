@@ -424,12 +424,15 @@ def exec_rows(slots: Sequence[Slot], luts, regs, spads, flags, sbuf=None,
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, return_lse: bool = False):
     """Plain softmax attention, the oracle of both flash kernels:
     fp32 scores over ``sqrt(dh)``, -1e30 above the diagonal when causal,
     softmax, ``P @ V`` in fp32, cast to q's dtype. q ``[BH, S, dh]``; k, v
     ``[BHkv, S, dh]`` with ``BH = G * BHkv``: query row-set i reads
-    key/value row-set ``i // G`` (G = 1 is the reference's contract)."""
+    key/value row-set ``i // G`` (G = 1 is the reference's contract).
+    With ``return_lse`` it returns (output, lse): lse ``[BH, S]`` fp32,
+    the natural log-sum-exp of each row's masked, scaled fp32 scores, as
+    ``flash_attention_sm90`` saves it for the backward kernel."""
     G = q.shape[0] // k.shape[0]
     if G > 1:
         k = k.repeat_interleave(G, dim=0)
@@ -441,15 +444,21 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, -1e30)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1)
+    return o
 
 
 def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  o: torch.Tensor, do: torch.Tensor, causal: bool = True
+                  o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                  lse: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of ``flash_ref``, with the backward kernel's own math
-    (``csrc/flash_attention_bwd.cu``), all in fp32: per query row the
-    log-sum-exp ``lse`` of its scores (recomputed from q and k) and
+    """The gradient of ``flash_ref``, with the backward kernels' own math
+    (``csrc/flash_attention_bwd.cu``, and ``flash_attention_bwd_sm90.cu``
+    when ``lse`` is given), all in fp32: per query row the log-sum-exp
+    ``lse`` of its scores (recomputed from q and k, or the forward's
+    ``[BH, S]`` fp32 ``lse`` as given) and
     ``D = rowsum(dO * O)``; ``P = exp(S - lse)``, ``dV = P^T dO``,
     ``dP = dO V^T``, ``dS = P (dP - D) / sqrt(dh)``, ``dQ = dS K``,
     ``dK = dS^T Q``. q, o, do ``[BH, S, dh]``; k, v ``[BHkv, S, dh]``:
@@ -465,7 +474,9 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, -1e30)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse.float()[..., None])
     D = (dof * of).sum(dim=-1, keepdim=True)
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)

@@ -8,10 +8,11 @@ traces one step with ``torch.profiler`` after a warm-up step. Prints one
 JSON line: the step's wall time (host clock, ending in a synchronize), its
 device-busy time (the sum of the kernels' times; the step runs on one
 stream, so they do not overlap) and the device's idle share, the device
-time of each kind of kernel (the backward and forward flash kernels,
-matrix products, the rest), the kernels with the most device time, the
-aten ops the step dispatches, and the peak device memory. Needs a CUDA
-device.
+time of each kind of kernel (the backward flash kernels, tensor-core and
+SIMT, the forward flash kernels, matrix products, the rest) and of each
+flash kernel's entry function (the backward's passes apart), the
+kernels with the most device time, the aten ops the step dispatches,
+and the peak device memory. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from .steps import make_train_step
 
 B, S = 4, 2048
 # kernel-name fragments of each kind, first match wins
-KINDS = (("flash_attention_bwd", ("flash_attention_bwd",)),
+KINDS = (("flash_attention_bwd_sm90", ("flash_attention_bwd_sm90",)),
+         ("flash_attention_bwd", ("flash_attention_bwd",)),
          ("flash_attention_fwd", ("flash_attention",)),
          ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")))
 
@@ -61,11 +63,16 @@ def profile(cfg, device, B: int, S: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         one(2)
         torch.cuda.synchronize(device)
-    by_kind = {}
-    for name, _, us in _kernel_times(prof)[1]:
+    by_kind, flash = {}, {}
+    for name, calls, us in _kernel_times(prof)[1]:
         k = kind_of(name)
         by_kind[k] = by_kind.get(k, 0.0) + us / 1e3
+        if "flash_attention" in name:
+            # "void (anonymous namespace)::<entry><DH>(...)" -> entry
+            entry = name.split("::")[-1].split("<")[0]
+            flash[entry] = {"calls": calls, "ms": us / 1e3}
     out["device_ms_by_kind"] = by_kind
+    out["flash_kernels"] = flash
     with _OpCount() as count:
         one(3)
     out["aten_ops_per_step"] = count.n

@@ -86,7 +86,8 @@ def test_plain_version_is_the_cpu_path_and_is_not_counted():
     assert torch.equal(out, flash_ref(tq, tk, tv))
     assert fa.COUNTS == {"flash_attention_sm90": 0,
                          "flash_attention_simt": 0,
-                         "flash_attention_bwd": 0}
+                         "flash_attention_bwd": 0,
+                         "flash_attention_bwd_sm90": 0}
 
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "flash_attention_sm90",

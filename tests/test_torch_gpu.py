@@ -465,6 +465,80 @@ def test_flash_bwd_kernel_matches_plain(cuda, BH, BHkv, S, dh, dtype,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("S", [64, 77, 129, 300, 1000, 2048])
+def test_flash_bwd_sm90_matches_plain(cuda, S, G, dh, causal):
+    """The tensor-core backward kernel against ``flash_bwd_ref(lse=)`` on
+    the same CUDA tensors, with lse from the forward kernel: each of dq,
+    dk, dv within 2e-2 of its max (P, dS and the outputs rounded to bf16);
+    one launch, and the same bits on a relaunch (no atomics). The
+    forward's lse within 1e-3 of ``flash_ref``'s (fp32 sums of bf16
+    products in another order, and exp2/log2 in place of exp/log). S runs
+    from one 64-row tile to the training length, with tails of 13, 1, 44
+    and 104 rows; 2 KV heads read by G query heads."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
+    q, k, v = _bf16_qkv(cuda, 2 * G, 2, S, dh, S * 100 + G * 10 + dh + 7)
+    do = _bf16_qkv(cuda, 2 * G, 2, S, dh, S * 100 + G * 10 + dh + 8)[0]
+    o, lse = fa.flash_attention_sm90(q, k, v, causal, return_lse=True)
+    _, lse_ref = flash_ref(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+    fa.reset_counts()
+    got = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {name: int(name == "flash_attention_bwd_sm90")
+                         for name in fa.COUNTS}
+    for a, b in zip(got, flash_bwd_ref(q, k, v, o, do, causal, lse=lse)):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(
+            b.float().abs().max())
+    again = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_sm90_forward_without_lse_gives_the_same_output(cuda):
+    """Asking the forward for lse changes nothing in its output."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _bf16_qkv(cuda, 8, 4, 300, 128, 3)
+    o, _ = fa.flash_attention_sm90(q, k, v, return_lse=True)
+    assert torch.equal(o, fa.flash_attention_sm90(q, k, v))
+
+
+def test_lm_train_step_bf16_runs_the_sm90_backward(cuda):
+    """qwen3-0.6b's SMOKE config in bf16 at d_head 128 on the card: each
+    layer's forward and its recompute on ``flash_attention_sm90`` and its
+    backward on ``flash_attention_bwd_sm90``, never the SIMT kernel; every
+    leaf's gradient finite and nonzero."""
+    from unittest import mock
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    cfg = SMOKE["qwen3-0.6b"].scaled(dtype="bfloat16", d_head=128)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100)))
+             .to(cuda) for k in ("tokens", "labels")}
+    model, step, _, _ = steps.make_train_step(cfg, device=cuda)
+    params = model.init(torch.Generator().manual_seed(0))
+    grads, apply = [], adamw.apply
+
+    def spy(p, g, o, **kw):
+        grads.append(g)
+        return apply(p, g, o, **kw)
+
+    fa.reset_counts()
+    with mock.patch.object(steps.adamw, "apply", spy):
+        step(params, adamw.init(params), batch)
+    assert fa.COUNTS == {"flash_attention_sm90": 2 * cfg.n_layers,
+                         "flash_attention_simt": 0, "flash_attention_bwd": 0,
+                         "flash_attention_bwd_sm90": cfg.n_layers}
+    for g in adamw.leaves(grads[0]):
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+
+
 def test_lm_train_step_on_card_gives_every_leaf_a_gradient(cuda):
     """qwen3-0.6b's SMOKE config in float32, one ``make_train_step`` step
     on the card: two flash forwards a layer (the step and its recompute)
@@ -498,7 +572,8 @@ def test_lm_train_step_on_card_gives_every_leaf_a_gradient(cuda):
         if dev is cuda:
             assert fa.COUNTS == {"flash_attention_sm90": 0,
                                  "flash_attention_simt": 2 * cfg.n_layers,
-                                 "flash_attention_bwd": cfg.n_layers}
+                                 "flash_attention_bwd": cfg.n_layers,
+                                 "flash_attention_bwd_sm90": 0}
         for g in adamw.leaves(grads[0]):
             assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
         outs.append((metrics, grads[0]))
