@@ -16,13 +16,19 @@ against its plain PyTorch version on the card:
 * flash attention against ``flash_ref`` (fp32 within 1e-4, bf16 within
   2e-2) at the reference kernel test's five shapes, GQA, a tail tile, a
   non-causal shape and the qwen3-0.6b prefill's, each on the kernel that
-  ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the tensor-core
-  kernel ``flash_attention_sm90.cu``, float32 on the CUDA-core kernel
-  ``flash_attention.cu``;
+  ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the wgmma
+  kernel ``flash_attention_sm90.cu``, float32 (and bf16 at other head
+  dims) on the 3xTF32 kernel ``flash_attention.cu``, there also saving lse
+  (within 1e-5 of ``flash_ref``'s in fp32); each case's error against
+  ``flash_ref`` in float64 beside it; the 3xTF32 split's rounding against
+  ``cvt.rna.tf32.f32``;
 * the backward flash kernel ``flash_attention_bwd.cu`` against
   ``flash_bwd_ref`` (each of dq, dk, dv within 1e-4 of its max in fp32,
-  2e-2 in bf16) at the same cases, launched twice for the same bits, and
-  at the bf16 cases with dh 64 or 128 the tensor-core backward kernel
+  2e-2 in bf16) at the same cases, launched twice for the same bits,
+  computing lse itself and, at the cases ``flash_attention.cu`` runs,
+  given that kernel's lse (against ``flash_bwd_ref(lse=)``, with the error
+  against ``flash_bwd_ref`` in float64 beside it); and at the bf16 cases
+  with dh 64 or 128 the wgmma backward kernel
   ``flash_attention_bwd_sm90.cu`` against ``flash_bwd_ref(lse=)`` with lse
   from the forward kernel (within 2e-2 of each output's max, the same bits
   on a relaunch).
@@ -58,11 +64,13 @@ launch counts set to 0 just before and read just after:
   ``flash_ref`` under autograd, and 2 steps, a checkpoint, a restore and
   1 step equal 3 steps bit for bit;
 
-and times each kernel against its bound (both flash kernels, the
-tensor-core one also saving lse, the plain version and SDPA in turns at
-the prefill's shape in bf16, the CUDA-core kernel, the plain version and
-SDPA in turns in float32, and in bf16 both backward kernels, the plain
-version and SDPA's backward in turns, in float32 the SIMT one). Each
+and times each kernel against its bound (both flash kernels, the wgmma
+one also saving lse, the plain version and SDPA in turns at the
+prefill's shape in bf16, the 3xTF32 kernel with and without lse, the
+plain version and SDPA in turns in float32, and in bf16 both backward
+kernels, the plain version and SDPA's backward in turns, in float32 the
+3xTF32 one with and without lse; the float32 rows give the fp32
+CUDA-core bound and the 3xTF32 tensor-core bound). Each
 Vcycle case of the timing also reports what bounds the kernel: the
 busiest core's rows a Vcycle (``busy_rows``), the kernel's ns per such row
 (``ns_per_busy_row``), the bytes of code rows it reads a launch
@@ -108,6 +116,7 @@ LM_GREEDY_CHECK = 8        # greedy tokens compared in float32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 # INT32 issue rate: the H100 SXM's 67 TFLOP/s FP32 peak is 132 SMs x 128
 # lanes x 2 (FMA) x 1.98 GHz; each SM has 64 INT32 lanes, one op per clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -163,7 +172,8 @@ PTXAS_KERNELS = {"flash_attention_bwd_sm90_delta_kernel":
                  "vcycle_seed_kernel": "vcycle_seed",
                  "flash_attention_sm90_kernel": "flash_attention_sm90",
                  "flash_attention_kernel": "flash_attention_simt",
-                 "flash_attention_bwd_prep_kernel": "flash_attention_bwd",
+                 "tf32x3_rounding_kernel": "tf32x3_rounding",
+                 "flash_attention_bwd_delta_kernel": "flash_attention_bwd",
                  "flash_attention_bwd_dkdv_kernel": "flash_attention_bwd",
                  "flash_attention_bwd_dq_kernel": "flash_attention_bwd"}
 
@@ -172,10 +182,10 @@ def phase_build(kbuild, build_future):
     """The library every kernel is built into, with each kernel's
     registers a thread, static shared memory and spills from the
     compiler's -Xptxas -v report (the most over a kernel's template
-    instances), and the tensor-core flash kernels' dynamic shared memory.
-    Those kernels, the SIMT backward flash kernel (each backward kernel's
-    three entry functions counted as one) and the two Vcycle kernels must
-    not spill."""
+    instances), and the flash kernels' dynamic shared memory (and, for the
+    3xTF32 ones in float32, blocks an SM). Those kernels (each backward
+    kernel's three entry functions counted as one) and the two Vcycle
+    kernels must not spill."""
     t0 = time.perf_counter()
     path, log, build_s = build_future.result()
     ptxas, kernel = {}, None
@@ -207,14 +217,31 @@ def phase_build(kbuild, build_future):
             dh: {"dkdv": lib.flash_attention_bwd_sm90_smem_bytes(dh, 0),
                  "dq": lib.flash_attention_bwd_sm90_smem_bytes(dh, 1)}
             for dh in (64, 128)}
+    for name, smem, blocks in (
+            ("flash_attention_simt",
+             lambda dh, bf: lib.flash_attention_smem_bytes(dh, bf),
+             lambda dh: {"fwd": lib.flash_attention_blocks_per_sm(dh)}),
+            ("flash_attention_bwd",
+             lambda dh, bf: {"dkdv": lib.flash_attention_bwd_smem_bytes(
+                 0, dh, bf), "dq": lib.flash_attention_bwd_smem_bytes(
+                     1, dh, bf)},
+             lambda dh: {"dkdv": lib.flash_attention_bwd_blocks_per_sm(0, dh),
+                         "dq": lib.flash_attention_bwd_blocks_per_sm(1, dh)})):
+        if name in ptxas:
+            ptxas[name]["dynamic_smem_bytes"] = {
+                f"{dt}_dh{dh}": smem(dh, int(dt == "bf16"))
+                for dt in ("fp32", "bf16") for dh in (32, 64, 128)}
+            ptxas[name]["fp32_blocks_per_sm"] = {
+                dh: blocks(dh) for dh in (32, 64, 128)}
     emit({"phase": "build", "library": str(path.relative_to(ROOT)),
           "registers_per_thread": {k: v["registers"]
                                    for k, v in ptxas.items()},
           "ptxas": ptxas, "ptxas_warnings": [
               ln.strip() for ln in log.splitlines() if "arning" in ln],
           "build_s": build_s, "waited_s": time.perf_counter() - t0})
-    for name in ("flash_attention_sm90", "flash_attention_bwd",
-                 "flash_attention_bwd_sm90", "vcycle_chunk", "vcycle_seed"):
+    for name in ("flash_attention_sm90", "flash_attention_simt",
+                 "flash_attention_bwd", "flash_attention_bwd_sm90",
+                 "vcycle_chunk", "vcycle_seed"):
         info = ptxas.get(name)
         if info is None or info["spill_bytes"]:
             raise AssertionError(f"{name}: not built or spills ({info})")
@@ -1135,11 +1162,41 @@ def flash_inputs(torch, BH, BHkv, S, dh, dtype, seed):
                  .to(getattr(torch, dtype)) for n in (BH, BHkv, BHkv))
 
 
-def phase_flash(torch, fa, flash_ref):
+def tf32_rounding(torch, kbuild) -> dict:
+    """tf32x3.cuh's integer rounding to TF32 against ``cvt.rna.tf32.f32``
+    on the card: normal floats over 60 binades and the same with their
+    last 13 bits set to a tie; it raises on a mismatch."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(1 << 22, generator=g, device="cuda") * torch.exp2(
+        torch.randint(-30, 30, (1 << 22,), generator=g, device="cuda")
+        .float())
+    x = torch.cat([x, ((x.view(torch.int32) & ~0x1fff) | 0x1000)
+                   .view(torch.float32)])
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kbuild.check("tf32x3_rounding_mismatches",
+                 kbuild.load().tf32x3_rounding_mismatches(
+                     x.data_ptr(), x.numel(), count.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream))
+    if int(count):
+        raise AssertionError(f"tf32 rounding: {int(count)} of {x.numel()} "
+                             "differ from cvt.rna.tf32.f32")
+    return {"values": x.numel(), "mismatches": int(count)}
+
+
+def _f64(*ts):
+    return tuple(t.double() for t in ts)
+
+
+def phase_flash(torch, fa, flash_ref, kbuild):
     """Each case through ``flash_attention`` against the plain version on
     the same CUDA tensors, with the kernel that ran (one launch, the one
     ``route`` names); fp32 within 1e-4 (sums in another order), bf16
-    within 2e-2 (P and the output rounded to bf16)."""
+    within 2e-2 (P and the output rounded to bf16); the error against
+    ``flash_ref`` in float64 beside it. The cases on
+    ``flash_attention_simt`` also through its lse route: the same output
+    with ``return_lse``, one launch, lse within 1e-5 (fp32) or 1e-4 (bf16)
+    of ``flash_ref``'s, and its error in float64."""
+    rounding = tf32_rounding(torch, kbuild)
     cases = []
     for i, (BH, BHkv, S, dh, dtype, causal) in enumerate(FLASH_CASES):
         q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, i)
@@ -1157,10 +1214,36 @@ def phase_flash(torch, fa, flash_ref):
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
             raise AssertionError(f"{tag}: {ran[0]} != plain (max abs err "
                                  f"{err})")
-        cases.append({"BH": BH, "BHkv": BHkv, "S": S, "dh": dh,
-                      "dtype": dtype, "causal": causal, "kernel": ran[0],
-                      "max_abs_err": err, "tol": tol})
-    emit({"phase": "flash_vs_plain", "cases": cases})
+        o64, lse64 = flash_ref(*_f64(q, k, v), causal, return_lse=True)
+        case = {"BH": BH, "BHkv": BHkv, "S": S, "dh": dh, "dtype": dtype,
+                "causal": causal, "kernel": ran[0], "max_abs_err": err,
+                "tol": tol, "max_abs_err_float64": float(
+                    (out.double() - o64).abs().max())}
+        if ran[0] == "flash_attention_simt":
+            fa.reset_counts()
+            o, lse = fa.flash_attention_simt(q, k, v, causal,
+                                             return_lse=True)
+            launches = dict(fa.COUNTS)
+            lse_ref = flash_ref(q, k, v, causal, return_lse=True)[1]
+            torch.cuda.synchronize()
+            lse_tol = 1e-5 if dtype == "float32" else 1e-4
+            if launches["flash_attention_simt"] != 1 or sum(
+                    launches.values()) != 1:
+                raise AssertionError(f"{tag} lse: launched {launches}")
+            if not torch.equal(o, out):
+                raise AssertionError(f"{tag}: the output with lse differs")
+            if not torch.allclose(lse, lse_ref, rtol=lse_tol, atol=lse_tol):
+                raise AssertionError(f"{tag}: lse != flash_ref's (max abs "
+                                     f"err {(lse - lse_ref).abs().max()})")
+            case["lse"] = {
+                "max_abs_err": float((lse - lse_ref).abs().max()),
+                "tol": lse_tol, "max_abs_err_float64": float(
+                    (lse.double() - lse64).abs().max())}
+        cases.append(case)
+        del q, k, v, out, ref, o64, lse64
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_vs_plain", "tf32_rounding": rounding,
+          "cases": cases})
     return max(c["max_abs_err"] for c in cases)
 
 
@@ -1190,7 +1273,11 @@ def phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref):
     with the lse that ``flash_attention_sm90`` saves, against
     ``flash_bwd_ref(..., lse=)``: within 2e-2 of each output's max, one
     launch, the same bits again; and that lse within 1e-3 of
-    ``flash_ref``'s."""
+    ``flash_ref``'s. At the cases ``route`` sends to
+    ``flash_attention_simt`` also ``flash_attention_bwd`` given that
+    kernel's lse, against ``flash_bwd_ref(..., lse=)`` within 1e-4 or 2e-2
+    of each output's max, one launch, the same bits again, with each
+    output's error against ``flash_bwd_ref`` in float64."""
     cases = []
     zero = {name: 0 for name in fa.COUNTS}
     for i, (BH, BHkv, S, dh, dtype, causal) in enumerate(FLASH_CASES):
@@ -1213,6 +1300,32 @@ def phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref):
                 "causal": causal, "max_abs_err": err, "err_over_max": rel,
                 "tol": tol}
         del got, again, want
+        if fa.route(q.dtype, dh) == "flash_attention_simt":
+            o, lse = fa.flash_attention_simt(q, k, v, causal,
+                                             return_lse=True)
+            fa.reset_counts()
+            got = fa.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+            launches = dict(fa.COUNTS)
+            again = fa.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+            want = flash_bwd_ref(q, k, v, o, do, causal, lse=lse)
+            torch.cuda.synchronize()
+            if launches != {**zero, "flash_attention_bwd": 1}:
+                raise AssertionError(f"{tag} lse: launched {launches}")
+            err, rel = _grad_errs(torch, got, want, again, tol, f"{tag} lse")
+            q64, k64, v64, do64 = _f64(q, k, v, do)
+            want64 = flash_bwd_ref(q64, k64, v64,
+                                   flash_ref(q64, k64, v64, causal), do64,
+                                   causal)
+            case["lse_route"] = {
+                "max_abs_err": err, "err_over_max": rel, "tol": tol,
+                "max_abs_err_float64": {
+                    name: float((a.double() - b).abs().max())
+                    for name, a, b in zip(("dq", "dk", "dv"), got, want64)},
+                "err_over_max_float64": {
+                    name: float((a.double() - b).abs().max()
+                                / b.abs().max())
+                    for name, a, b in zip(("dq", "dk", "dv"), got, want64)}}
+            del got, again, want, want64, q64, k64, v64, do64, lse
         if dtype == "bfloat16" and dh in fa.SM90_HEAD_DIMS:
             o, lse = fa.flash_attention_sm90(q, k, v, causal,
                                              return_lse=True)
@@ -1668,10 +1781,13 @@ def time_flash(torch, fa, flash_ref):
 
 def time_flash_fp32(torch, fa, flash_ref):
     """``flash_attention_simt`` on its own path's type: float32 at the
-    serving shape (causal, GQA G=2), timed in one call in turns with the
-    plain version and float32 SDPA (kernel, plain, SDPA, then the same in
-    reverse), against its bound: the causal products at the card's
-    float32 rate outside the tensor cores."""
+    serving shape (causal, GQA G=2), without lse (as the prefill runs it)
+    and saving it (as training runs it), timed in one call in turns with
+    the plain version and float32 SDPA (kernel, kernel with lse, plain,
+    SDPA, then the same in reverse), against two bounds: the causal
+    products at the card's float32 rate outside the tensor cores
+    (``bound_ms``), and the three TF32 products of each in 3xTF32 at the
+    tensor cores' TF32 rate (``bound_3xtf32_ms``)."""
     import torch.nn.functional as F
     BH, BHkv, S, dh = LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "float32", 98)
@@ -1684,12 +1800,16 @@ def time_flash_fp32(torch, fa, flash_ref):
             out[name] = fn(q, k, v)
         return launch
 
+    def with_lse(q, k, v):
+        return fa.flash_attention_simt(q, k, v, return_lse=True)[0]
+
     def sdpa():
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                               enable_gqa=True)
 
     fns = {"flash_attention_simt": (run("flash_attention_simt",
-                                        fa.flash_attention_simt), 5, 1),
+                                        fa.flash_attention_simt), 10, 2),
+           "simt_lse": (run("simt_lse", with_lse), 10, 2),
            "plain": (run("plain", flash_ref), 3, 1),
            "library": (sdpa, 5, 1)}
     turns = {name: [] for name in fns}
@@ -1706,9 +1826,14 @@ def time_flash_fp32(torch, fa, flash_ref):
     if err > FLASH_TOL["float32"]:
         raise AssertionError(f"timed float32 flash_attention_simt != plain "
                              f"({err})")
+    if not torch.equal(out["simt_lse"], out["flash_attention_simt"]):
+        raise AssertionError("flash_attention_simt saving lse gave another "
+                             "output")
     return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} float32 causal",
             "ms": ms["flash_attention_simt"],
             "ms_turns": turns["flash_attention_simt"],
+            "ms_with_lse": ms["simt_lse"],
+            "ms_with_lse_turns": turns["simt_lse"],
             "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
             "library_ms": ms["library"],
             "library_ms_turns": turns["library"],
@@ -1716,6 +1841,8 @@ def time_flash_fp32(torch, fa, flash_ref):
                        "in float32",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_3xtf32_ms": max(t_bytes,
+                                   3 * flops / TF32_FLOPS_PER_S * 1e3),
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
             "tflops_per_s": flops / ms["flash_attention_simt"] * 1e-9}
 
@@ -1724,22 +1851,25 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     """The backward flash kernels at the qwen3-0.6b training shape (causal,
     GQA G=2) in ``dtype``, timed in one call in turns with the plain
     version and the backward of SDPA on the same inputs (kernels, plain,
-    SDPA, then the same in reverse): ``flash_attention_bwd`` in either
-    type, and in bf16 also ``flash_attention_bwd_sm90`` with the lse the
-    forward saves (its plain version ``flash_bwd_ref(lse=)``). Bound: the
-    gradient's five products, 2.5x the forward's causal products, at the
-    card's rate for ``dtype`` (tensor cores for bf16), against each input
-    read and each output written once (lse's bytes too, for the kernel
-    that reads it). Returns {kernel name: its row}."""
+    SDPA, then the same in reverse). In bf16: ``flash_attention_bwd_sm90``
+    with the lse the forward saves (its plain version
+    ``flash_bwd_ref(lse=)``) and ``flash_attention_bwd`` computing lse
+    itself (``flash_bwd_ref``). In float32: ``flash_attention_bwd`` given
+    the lse ``flash_attention_simt`` saves, as training runs it, and
+    computing it itself (``ms_without_lse``), against
+    ``flash_bwd_ref(lse=)``. Bound: the gradient's five products, 2.5x the
+    forward's causal products, at the card's rate for ``dtype`` (tensor
+    cores for bf16, the CUDA cores for float32; for float32 also three
+    TF32 products each at the TF32 rate, ``bound_3xtf32_ms``), against
+    each input read and each output written once (lse's bytes too, for
+    the kernel that reads it). Returns {kernel name: its row}."""
     import torch.nn.functional as F
     BH, BHkv, S, dh = TRAIN_B * 16, TRAIN_B * 8, TRAIN_S, 128
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, 97)
     do = flash_inputs(torch, BH, BHkv, S, dh, dtype, 96)[0]
     sm90 = dtype == "bfloat16"
-    if sm90:
-        o, lse = fa.flash_attention_sm90(q, k, v, return_lse=True)
-    else:
-        o = fa.flash_attention(q, k, v)
+    forward = fa.flash_attention_sm90 if sm90 else fa.flash_attention_simt
+    o, lse = forward(q, k, v, return_lse=True)
     B = TRAIN_B
     q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh).detach()
                   .requires_grad_() for t in (q, k, v))
@@ -1748,27 +1878,38 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     do4 = do.view(B, BH // B, S, dh)
     out = {}
 
-    def simt():
-        out["flash_attention_bwd"] = fa.flash_attention_bwd(q, k, v, o, do)
+    def bwd():
+        out["bwd"] = fa.flash_attention_bwd(q, k, v, o, do)
+
+    def bwd_lse():
+        out["bwd_lse"] = fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+
+    def bwd_sm90():
+        out["bwd_sm90"] = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse)
 
     def plain():
         out["plain"] = flash_bwd_ref(q, k, v, o, do)
 
+    def plain_lse():
+        out["plain_lse"] = flash_bwd_ref(q, k, v, o, do, lse=lse)
+
     def sdpa_bwd():
         torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
 
-    fns = {"flash_attention_bwd": (simt, 5, 1), "plain": (plain, 3, 1),
-           "library": (sdpa_bwd, 10, 2)}
+    # (row, its timed call, the plain call it is held to, the lse bytes it
+    # reads, the same kernel without lse)
     if sm90:
-        def kernel_sm90():
-            out["flash_attention_bwd_sm90"] = fa.flash_attention_bwd_sm90(
-                q, k, v, o, do, lse)
-
-        def plain_lse():
-            out["plain_lse"] = flash_bwd_ref(q, k, v, o, do, lse=lse)
-
-        fns = {"flash_attention_bwd_sm90": (kernel_sm90, 20, 3), **fns,
+        fns = {"bwd_sm90": (bwd_sm90, 20, 3), "bwd": (bwd, 10, 2),
+               "plain": (plain, 3, 1), "library": (sdpa_bwd, 10, 2),
                "plain_lse": (plain_lse, 3, 1)}
+        rows = (("flash_attention_bwd_sm90", "bwd_sm90", "plain_lse",
+                 4 * BH * S, None),
+                ("flash_attention_bwd", "bwd", "plain", 0, None))
+    else:
+        fns = {"bwd_lse": (bwd_lse, 10, 2), "bwd": (bwd, 10, 2),
+               "plain_lse": (plain_lse, 3, 1), "library": (sdpa_bwd, 10, 2)}
+        rows = (("flash_attention_bwd", "bwd_lse", "plain_lse", 4 * BH * S,
+                 "bwd"),)
     turns = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
@@ -1782,14 +1923,11 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
     t_ops = flops / rate * 1e3
     res = {}
-    for name, plain_name, extra in (
-            ("flash_attention_bwd", "plain", 0),
-            ("flash_attention_bwd_sm90", "plain_lse", 4 * BH * S)):
-        if name not in out:
-            continue
+    for name, key, plain_key, extra, alone in rows:
+        checked = [key] if alone is None else [key, alone]
         errs = [(float((a.float() - b.float()).abs().max()),
                  float(b.float().abs().max()))
-                for a, b in zip(out[name], out[plain_name])]
+                for c in checked for a, b in zip(out[c], out[plain_key])]
         err = max(e for e, _ in errs)
         rel = max(e / m for e, m in errs)
         if rel > FLASH_TOL[dtype]:
@@ -1798,8 +1936,8 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
         t_bytes = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
         res[name] = {
             "case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} {dtype} causal",
-            "ms": ms[name], "ms_turns": turns[name],
-            "plain_ms": ms[plain_name], "plain_ms_turns": turns[plain_name],
+            "ms": ms[key], "ms_turns": turns[key],
+            "plain_ms": ms[plain_key], "plain_ms_turns": turns[plain_key],
             "library_ms": ms["library"],
             "library_ms_turns": turns["library"],
             "library": "backward of scaled_dot_product_attention(is_causal, "
@@ -1808,7 +1946,13 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes + extra, "flops": flops, "max_abs_err": err,
             "err_over_max": rel,
-            "tflops_per_s": flops / ms[name] * 1e-9}
+            "tflops_per_s": flops / ms[key] * 1e-9}
+        if alone is not None:
+            res[name].update(ms_without_lse=ms[alone],
+                             ms_without_lse_turns=turns[alone])
+        if dtype == "float32":
+            res[name]["bound_3xtf32_ms"] = max(
+                t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3)
     return res
 
 
@@ -2031,6 +2175,9 @@ def kernel_line(name, source, replaces, launches, t, by_path=None):
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+    for key in ("bound_3xtf32_ms", "ms_with_lse", "ms_without_lse"):
+        if key in t:
+            line[key] = t[key]
     if by_path is not None:
         line["launches_by_path"] = by_path
     return line
@@ -2079,7 +2226,7 @@ def main() -> int:
         compiles = [pool.submit(compile_full, n, CHECK_SEEDS) for n in NAMES]
         smi = phase_device(torch)
         phase_build(kbuild, build_future)
-        phase_flash(torch, fa, flash_ref)
+        phase_flash(torch, fa, flash_ref, kbuild)
         phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref)
         phase_random(torch, kv, random_chunk, CacheModel)
         phase_seed_random(torch, kv, random_vcycle, CacheModel)
@@ -2159,7 +2306,10 @@ def main() -> int:
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
                     "(float32, other head dims)",
-                    simt_launches, flash32),
+                    simt_launches, flash32,
+                    {"lm_serve_fp32_check": simt_launches,
+                     "lm_train_fp32_check":
+                     fp32_train_launches["flash_attention_simt"]}),
         kernel_line("flash_attention_bwd_sm90",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
                     "none: no TPU kernel is replaced; the gradient of "

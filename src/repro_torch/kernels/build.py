@@ -99,15 +99,25 @@ def load() -> ctypes.CDLL:
             lib.vcycle_seed_launch.restype = i
             lib.vcycle_seed_smem.argtypes = [i] * 6
             lib.vcycle_seed_smem.restype = ctypes.c_size_t
-            lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [
+            lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 6 + [
                 ctypes.c_float, p]
             lib.flash_attention_launch.restype = i
             lib.flash_attention_sm90_launch.argtypes = [p] * 5 + [i] * 5 + [
                 ctypes.c_float, p]
             lib.flash_attention_sm90_launch.restype = i
-            lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [i] * 6 + [
+            lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 6 + [
                 ctypes.c_float, p]
             lib.flash_attention_bwd_launch.restype = i
+            lib.flash_attention_smem_bytes.argtypes = [i, i]
+            lib.flash_attention_smem_bytes.restype = i
+            lib.flash_attention_blocks_per_sm.argtypes = [i]
+            lib.flash_attention_blocks_per_sm.restype = i
+            lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
+            lib.flash_attention_bwd_smem_bytes.restype = i
+            lib.flash_attention_bwd_blocks_per_sm.argtypes = [i, i]
+            lib.flash_attention_bwd_blocks_per_sm.restype = i
+            lib.tf32x3_rounding_mismatches.argtypes = [p, i, p, p]
+            lib.tf32x3_rounding_mismatches.restype = i
             lib.flash_attention_bwd_sm90_launch.argtypes = [p] * 10 + [
                 i] * 5 + [ctypes.c_float, p]
             lib.flash_attention_bwd_sm90_launch.restype = i

@@ -423,6 +423,12 @@ def exec_rows(slots: Sequence[Slot], luts, regs, spads, flags, sbuf=None,
         exec_slot(s, luts, regs, spads, flags, sbuf, regs_only, glob)
 
 
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    """The type the plain flash versions compute in: float64 for float64
+    inputs, else fp32."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, return_lse: bool = False):
     """Plain softmax attention, the oracle of both flash kernels:
@@ -432,19 +438,22 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key/value row-set ``i // G`` (G = 1 is the reference's contract).
     With ``return_lse`` it returns (output, lse): lse ``[BH, S]`` fp32,
     the natural log-sum-exp of each row's masked, scaled fp32 scores, as
-    ``flash_attention_sm90`` saves it for the backward kernel."""
+    the forward kernels save it for the backward kernels. float64 inputs
+    are computed in float64 throughout (a yardstick for the fp32 kernels'
+    error)."""
     G = q.shape[0] // k.shape[0]
     if G > 1:
         k = k.repeat_interleave(G, dim=0)
         v = v.repeat_interleave(G, dim=0)
     dh = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(dh)
+    acc = _acc_dtype(q)
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) / math.sqrt(dh)
     if causal:
         S = q.shape[1]
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, -1e30)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", w, v.to(acc)).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1)
     return o
@@ -464,19 +473,21 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dK = dS^T Q``. q, o, do ``[BH, S, dh]``; k, v ``[BHkv, S, dh]``:
     dk and dv sum the G = BH / BHkv query row-sets that read each
     key/value row-set (``flash_ref``'s grouping, i // G). Returns
-    (dq, dk, dv) in the inputs' dtype."""
+    (dq, dk, dv) in the inputs' dtype; float64 inputs are computed in
+    float64 throughout."""
     BH, S, dh = q.shape
     G = BH // k.shape[0]
-    qf, of, dof = q.float(), o.float(), do.float()
-    kf = k.float().repeat_interleave(G, dim=0)
-    vf = v.float().repeat_interleave(G, dim=0)
+    acc = _acc_dtype(q)
+    qf, of, dof = q.to(acc), o.to(acc), do.to(acc)
+    kf = k.to(acc).repeat_interleave(G, dim=0)
+    vf = v.to(acc).repeat_interleave(G, dim=0)
     s = torch.einsum("bqd,bkd->bqk", qf, kf) / math.sqrt(dh)
     if causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, -1e30)
     if lse is None:
         lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse.float()[..., None])
+    p = torch.exp(s - lse.to(acc)[..., None])
     D = (dof * of).sum(dim=-1, keepdim=True)
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)

@@ -8,8 +8,8 @@ traces one step with ``torch.profiler`` after a warm-up step. Prints one
 JSON line: the step's wall time (host clock, ending in a synchronize), its
 device-busy time (the sum of the kernels' times; the step runs on one
 stream, so they do not overlap) and the device's idle share, the device
-time of each kind of kernel (the backward flash kernels, tensor-core and
-SIMT, the forward flash kernels, matrix products, the rest) and of each
+time of each kind of kernel (the backward flash kernels, wgmma and
+3xTF32, the forward flash kernels, matrix products, the rest) and of each
 flash kernel's entry function (the backward's passes apart), the
 kernels with the most device time, the aten ops the step dispatches,
 and the peak device memory. Needs a CUDA device.

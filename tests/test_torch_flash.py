@@ -115,8 +115,8 @@ def test_every_wrapper_runs_the_plain_version_on_the_cpu(wrapper, dh):
     (torch.float32, 16, "flash_attention_simt"),
 ])
 def test_route_by_dtype_and_head_dim(dtype, dh, kernel):
-    """bf16 with dh 64 or 128 on the tensor cores; float32 and every other
-    bf16 head dim up to 128 on the CUDA cores."""
+    """bf16 with dh 64 or 128 on the wgmma kernel; float32 and every other
+    bf16 head dim up to 128 on the 3xTF32 kernel."""
     assert fa.route(dtype, dh) == kernel
 
 

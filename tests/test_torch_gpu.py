@@ -381,8 +381,8 @@ def test_flash_sm90_reads_kv_head_h_div_g(cuda):
 
 
 def test_flash_routing_picks_the_kernel(cuda):
-    """bf16 at dh = 128 runs on the tensor-core kernel, float32 on the
-    CUDA-core one, each launched once."""
+    """bf16 at dh = 128 runs on the wgmma kernel, float32 on the 3xTF32
+    one, each launched once."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _bf16_qkv(cuda, 4, 2, 64, 128, 0)
     for dtype, kernel in ((torch.bfloat16, "flash_attention_sm90"),
@@ -507,10 +507,118 @@ def test_flash_sm90_forward_without_lse_gives_the_same_output(cuda):
     assert torch.equal(o, fa.flash_attention_sm90(q, k, v))
 
 
+# (BH, BHkv, S, dh, dtype, causal) through the lse route of the 3xTF32
+# kernels: float32 and bf16 off 64/128; GQA, three rows, tail tiles, a
+# head dim off the 16-byte chunk (30: plain loads), the prefill's length + 1
+FLASH_LSE_SHAPES = [
+    (2, 2, 256, 64, torch.float32, True),
+    (8, 4, 77, 16, torch.float32, False),
+    (4, 1, 129, 128, torch.float32, True),
+    (16, 8, 300, 100, torch.float32, True),
+    (4, 2, 3, 128, torch.float32, True),
+    (2, 1, 130, 30, torch.float32, True),
+    (16, 8, 2049, 128, torch.float32, True),
+    (6, 3, 1000, 32, torch.bfloat16, True),
+    (4, 2, 200, 100, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("BH,BHkv,S,dh,dtype,causal", FLASH_LSE_SHAPES)
+def test_flash_lse_route_matches_plain(cuda, BH, BHkv, S, dh, dtype,
+                                       causal):
+    """``flash_attention_simt(return_lse=True)`` and ``flash_attention_bwd``
+    given that lse, against ``flash_ref`` and ``flash_bwd_ref(lse=)`` on
+    the same CUDA tensors: the output within 1e-4 (fp32) or 2e-2 (bf16),
+    the fp32 lse within 1e-5 of ``flash_ref``'s, each of dq, dk, dv within
+    1e-4 or 2e-2 of its max; one launch each, the output the same with
+    and without lse, and the same bits on a relaunch (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(BH * S + dh + 11)
+    q, do = (torch.randn((BH, S, dh), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((BHkv, S, dh), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    fa.reset_counts()
+    o, lse = fa.flash_attention_simt(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {name: int(name == "flash_attention_simt")
+                         for name in fa.COUNTS}
+    ref_o, ref_lse = flash_ref(q, k, v, causal, return_lse=True)
+    assert o.dtype == dtype and lse.shape == (BH, S)
+    torch.testing.assert_close(o.float(), ref_o.float(), rtol=tol, atol=tol)
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
+    torch.testing.assert_close(lse, ref_lse, rtol=lse_tol, atol=lse_tol)
+    assert torch.equal(o, fa.flash_attention_simt(q, k, v, causal))
+    o2, lse2 = fa.flash_attention_simt(q, k, v, causal, return_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    fa.reset_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {name: int(name == "flash_attention_bwd")
+                         for name in fa.COUNTS}
+    for a, b in zip(got, flash_bwd_ref(q, k, v, o, do, causal, lse=lse)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(
+            b.float().abs().max())
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # without lse the kernel computes it itself, to the same gradient
+    alone = fa.flash_attention_bwd(q, k, v, o, do, causal)
+    for a, b in zip(got, alone):
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(
+            b.float().abs().max())
+
+
+def test_flash_fp32_autograd_saves_lse_for_the_backward(cuda):
+    """float32 through ``FlashAttention`` on the card: one forward and one
+    backward launch, the gradients within 1e-4 of each one's max of
+    ``flash_bwd_ref``'s."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, do = (torch.randn((4 if i in (0, 3) else 2, 300, 64),
+                               generator=g, device=cuda) for i in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_counts()
+    out = fa.flash_attention(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {"flash_attention_sm90": 0,
+                         "flash_attention_simt": 1, "flash_attention_bwd": 1,
+                         "flash_attention_bwd_sm90": 0}
+    o = flash_ref(q, k, v)
+    for t, b in zip(leaves, flash_bwd_ref(q, k, v, o, do)):
+        assert float((t.grad - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
+def test_tf32_rounding_equals_cvt_rna(cuda):
+    """tf32x3.cuh's integer rounding to TF32 equals ``cvt.rna.tf32.f32``
+    on normal floats over 60 binades, the same with their last 13 bits
+    set to a tie (0x1000), zeros and large finite floats."""
+    from repro_torch.kernels.build import check, load
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(1 << 20, generator=g, device=cuda) * torch.exp2(
+        torch.randint(-30, 30, (1 << 20,), generator=g, device=cuda).float())
+    ties = ((x.view(torch.int32) & ~0x1fff) | 0x1000).view(torch.float32)
+    edge = torch.tensor([0.0, -0.0, 3.4e38, -3.4e38, 1.0, -1.5],
+                        device=cuda)
+    x = torch.cat([x, ties, edge])
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    check("tf32x3_rounding_mismatches", load().tf32x3_rounding_mismatches(
+        x.data_ptr(), x.numel(), count.data_ptr(),
+        torch.cuda.current_stream().cuda_stream))
+    assert int(count) == 0
+
+
 def test_lm_train_step_bf16_runs_the_sm90_backward(cuda):
     """qwen3-0.6b's SMOKE config in bf16 at d_head 128 on the card: each
     layer's forward and its recompute on ``flash_attention_sm90`` and its
-    backward on ``flash_attention_bwd_sm90``, never the SIMT kernel; every
+    backward on ``flash_attention_bwd_sm90``, never the 3xTF32 kernel; every
     leaf's gradient finite and nonzero."""
     from unittest import mock
     from repro_torch.configs import SMOKE
