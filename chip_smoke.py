@@ -54,6 +54,16 @@ launch counts set to 0 just before and read just after:
   steps in bf16; in float32 the prefill (28 ``flash_attention_simt``
   launches) equals the same model on ``flash_ref`` and the first decode
   step equals a full forward over the 2049 tokens;
+* MoE serving, ``make_serve_steps`` on deepseek-moe-16b at full width
+  and all 28 layers (random weights from a seed): B=4 prompts of 2048
+  tokens, one prefill (28 ``flash_attention_sm90`` launches, G = 1) and
+  32 greedy decode steps in bf16, the init's peak bytes beside
+  ``param_count`` x 2 and each prefill layer's dropped share; the index
+  route equal to the reference's one-hot dispatch on layer 0's real
+  input; float32 checks at two layers as for qwen3-0.6b (2
+  ``flash_attention_simt`` launches a prefill; the decode check at
+  capacity C = T); then mixtral-8x7b at 16 of its 32 layers, whose
+  windowed prefill launches no flash kernel, and 8 decode steps;
 * LM training, ``repro_torch.launch.steps.make_train_step`` on qwen3-0.6b
   at full width in bf16 over ``TokenPipeline`` batches of 4 x 2048
   tokens: a warm-up step and three timed ones, each 56
@@ -122,8 +132,14 @@ TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
+T_IMPORT = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``at_s``)."""
+    print(json.dumps({**obj, "at_s": time.perf_counter() - T_IMPORT}),
+          flush=True)
 
 
 def compile_full(name: str, n_seeds: int):
@@ -1149,6 +1165,10 @@ FLASH_CASES = (
     (3, 3, 384, 64, "bfloat16", True),
     # the qwen3-0.6b prefill: B=4 x H=16 query heads over Hkv=8 (G=2)
     (LM_BATCH * 16, LM_BATCH * 8, LM_PROMPT, 128, "bfloat16", True),
+    # the deepseek-moe-16b prefill: B=4 x H=16 over Hkv=16 (G=1), and its
+    # float32 check's full forward over S+1 tokens
+    (LM_BATCH * 16, LM_BATCH * 16, LM_PROMPT, 128, "bfloat16", True),
+    (16, 16, LM_PROMPT + 1, 128, "float32", True),
     (16, 8, LM_PROMPT + 1, 128, "float32", True),
     (8, 4, 512, 128, "bfloat16", False),
     (6, 3, 1000, 64, "bfloat16", True),
@@ -1358,7 +1378,7 @@ def phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref):
 def _full_forward_last(torch, model, L, params, tokens):
     """Last-position logits of a full forward over ``tokens``."""
     x, pos = model._embed_inputs(params, {"tokens": tokens})
-    h = model._trunk(params, x, pos)
+    h, _ = model._trunk(params, x, pos)
     return L.unembed(params["embed"], model.cfg, h[:, -1:]).float()
 
 
@@ -1375,51 +1395,59 @@ def _greedy(torch, model, params, logits, cache, n):
     return torch.cat(toks, 1), first
 
 
-def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
-    """qwen3-0.6b at full width through ``make_serve_steps``: one prefill
-    and LM_DECODE greedy steps in the config's bf16, counted (one
-    ``flash_attention_sm90`` launch a layer); prefill and decode
-    tokens/s; then the float32 checks (a) kernel prefill (one
-    ``flash_attention_simt`` launch a layer, counted) == the same model on
-    ``flash_ref`` (logits within 1e-3, LM_GREEDY_CHECK greedy tokens
-    equal) and (b) first decode step == a full forward over the S+1 tokens
-    (within 1e-3). Returns the two kernels' launches on their paths."""
-    from unittest import mock
-    cfg = ARCHS[LM_ARCH]
-    rng = np.random.default_rng(13)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want_sm90,
+           MOE=None):
+    """``cfg`` in its bf16 through ``make_serve_steps`` on the card:
+    parameters from a ``torch.Generator`` seeded ``seed`` (the init's peak
+    bytes), LM_BATCH prompts of LM_PROMPT tokens from a numpy seed, a cache
+    for ``ctx``; one counted prefill and ``n_decode`` greedy steps, which
+    must launch ``want_sm90`` ``flash_attention_sm90`` and nothing else;
+    then 3 synced prefills and the decode loop again, timed; with ``MOE``
+    a last prefill recording each layer's dropped share. Returns (the
+    prompts, the numbers). Peak bytes are ``max_memory_allocated``, with
+    what was allocated before the init (``base_bytes``) beside them."""
     model, prefill_step, decode_step = steps.make_serve_steps(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(t.numel() for t in _leaves(params))
-    cache = model.make_cache(LM_BATCH, LM_CTX)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 13).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # the path, counted: one prefill and LM_DECODE greedy steps
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    cache = model.make_cache(LM_BATCH, ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the path, counted: one prefill and n_decode greedy steps
     fa.reset_counts()
     kv.reset_counts()
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, {"tokens": tokens}, cache)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     out = [tok]
-    for i in range(LM_DECODE):
+    for i in range(n_decode):
         tok, cache = decode_step(params, tok, cache, LM_PROMPT + i)
         out.append(tok)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = fa.COUNTS["flash_attention_sm90"]
-    if (launches != cfg.n_layers or fa.COUNTS["flash_attention_simt"]
+    counts = dict(fa.COUNTS)
+    if (counts != {**{k: 0 for k in counts},
+                   "flash_attention_sm90": want_sm90}
             or any(kv.COUNTS.values())):
-        raise AssertionError(f"bf16 serving launched {fa.COUNTS} (not "
-                             f"{cfg.n_layers} flash_attention_sm90), "
-                             f"Vcycle kernels {kv.COUNTS}")
+        raise AssertionError(f"{cfg.name} serving launched {counts} (not "
+                             f"{want_sm90} flash_attention_sm90), Vcycle "
+                             f"kernels {kv.COUNTS}")
     peak = torch.cuda.max_memory_allocated()
     gen = torch.cat(out, 1)
     if (not bool(torch.isfinite(logits).all())
             or logits.shape != (LM_BATCH, 1, cfg.vocab)
-            or gen.shape != (LM_BATCH, LM_DECODE + 1)
+            or gen.shape != (LM_BATCH, n_decode + 1)
             or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab):
-        raise AssertionError("serving gave non-finite logits or bad tokens")
+        raise AssertionError(f"{cfg.name} serving gave non-finite logits "
+                             "or bad tokens")
     # prefill tokens/s: 3 synced prefills after the one above
     prefill_s = []
     for _ in range(3):
@@ -1428,23 +1456,52 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
         logits, cache = prefill_step(params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-    # decode tokens/s: the LM_DECODE-step loop again, on the fresh cache
+    # decode tokens/s: the n_decode-step loop again, on the fresh cache
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(LM_DECODE):
+    for i in range(n_decode):
         tok, cache = decode_step(params, tok, cache, LM_PROMPT + i)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    res = {"arch": cfg.name, "call": "repro_torch.launch.steps."
+           f"make_serve_steps(ARCHS['{cfg.name}'])",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+           "B": LM_BATCH, "S": LM_PROMPT, "ctx": ctx,
+           "decode_steps": n_decode, "launches_per_run": counts,
+           "first_run_s": first_s, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": [LM_BATCH * LM_PROMPT / t
+                                    for t in prefill_s],
+           "decode_s": decode_s,
+           "decode_tokens_per_s": LM_BATCH * n_decode / decode_s,
+           "peak_memory_bytes": peak, "base_bytes": base,
+           "init_s": init_s, "init_peak_bytes": init_peak}
+    if MOE is not None:
+        _, calls = _spy_moe(MOE, lambda: prefill_step(
+            params, {"tokens": tokens}, cache))
+        if len(calls) != cfg.n_layers:
+            raise AssertionError(f"{cfg.name}: {len(calls)} MoE calls in a "
+                                 f"prefill of {cfg.n_layers} layers")
+        res["dropped_share_by_layer"] = [c[2] for c in calls]
+        del calls
     del params, cache, logits
     torch.cuda.empty_cache()
+    return tokens, res
 
-    # float32 checks at full width
-    cfg32 = cfg.scaled(dtype="float32")
-    m32 = steps.make_serve_steps(cfg32)[0]
+
+def _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens, ctx):
+    """``cfg`` in float32 at full width on the card: (a) the kernel
+    prefill (one ``flash_attention_simt`` launch a layer, counted) == the
+    same model on ``flash_ref`` (logits within 1e-3, LM_GREEDY_CHECK
+    greedy tokens equal) and (b) the first decode step == a full forward
+    over the S+1 tokens (within 1e-3). Returns its numbers."""
+    from unittest import mock
+    cfg = cfg.scaled(dtype="float32")
+    m32 = steps.make_serve_steps(cfg)[0]
     p32 = m32.init(torch.Generator(device="cuda").manual_seed(1))
     with torch.inference_mode():
-        c_k = m32.make_cache(LM_BATCH, LM_CTX)
+        c_k = m32.make_cache(LM_BATCH, ctx)
         fa.reset_counts()
         lk, c_k = m32.prefill(p32, {"tokens": tokens}, c_k)
         launches32 = fa.COUNTS["flash_attention_simt"]
@@ -1453,44 +1510,177 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
                                  f"(not {cfg.n_layers} "
                                  "flash_attention_simt)")
         greedy_k, first = _greedy(torch, m32, p32, lk, c_k, LM_GREEDY_CHECK)
+        del c_k
         full = _full_forward_last(torch, m32, L, p32, torch.cat(
             [tokens, greedy_k[:, :1]], 1))
         with mock.patch.object(L, "flash_attention", flash_ref):
-            c_p = m32.make_cache(LM_BATCH, LM_CTX)
+            c_p = m32.make_cache(LM_BATCH, ctx)
             lp, c_p = m32.prefill(p32, {"tokens": tokens}, c_p)
             greedy_p, _ = _greedy(torch, m32, p32, lp, c_p,
                                   LM_GREEDY_CHECK)
+            del c_p
     torch.cuda.synchronize()
     err_a = float((lk - lp).abs().max())
     err_b = float((first - full).abs().max())
     if err_a > 1e-3 or not torch.equal(greedy_k, greedy_p):
-        raise AssertionError(f"float32 prefill: kernel != flash_ref model "
-                             f"(logits {err_a}, greedy "
+        raise AssertionError(f"float32 {cfg.name} prefill: kernel != "
+                             f"flash_ref model (logits {err_a}, greedy "
                              f"{greedy_k.tolist()} vs {greedy_p.tolist()})")
     if err_b > 1e-3:
-        raise AssertionError(f"float32 first decode step != full forward "
-                             f"over S+1 tokens ({err_b})")
-    del p32, c_k, c_p
+        raise AssertionError(f"float32 {cfg.name} first decode step != full "
+                             f"forward over S+1 tokens ({err_b})")
+    del p32
     torch.cuda.empty_cache()
-    ntok = LM_BATCH * LM_PROMPT
-    emit({"phase": "lm_serve", "arch": LM_ARCH,
-          "call": f"repro_torch.launch.steps.make_serve_steps(ARCHS"
-                  f"['{LM_ARCH}'])",
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
-          "B": LM_BATCH, "S": LM_PROMPT, "ctx": LM_CTX,
-          "decode_steps": LM_DECODE,
+    return {"fp32_flash_attention_simt_launches_per_prefill": launches32,
+            "fp32_prefill_vs_plain_max_abs_err": err_a,
+            "fp32_greedy_tokens_equal": LM_GREEDY_CHECK,
+            "fp32_first_decode_vs_full_forward_max_abs_err": err_b}
+
+
+def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
+    """qwen3-0.6b at full width through ``make_serve_steps`` (``_serve``:
+    one prefill, one ``flash_attention_sm90`` launch a layer, and LM_DECODE
+    greedy steps in bf16; prefill and decode tokens/s), then
+    ``_fp32_checks`` at all 28 layers. Returns the two kernels' launches
+    on their paths."""
+    cfg = ARCHS[LM_ARCH]
+    tokens, res = _serve(torch, fa, kv, steps, cfg, 0, LM_DECODE, LM_CTX,
+                         cfg.n_layers)
+    checks = _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens,
+                          LM_CTX)
+    launches = res["launches_per_run"]["flash_attention_sm90"]
+    emit({"phase": "lm_serve", **res,
+          "flash_attention_sm90_launches_per_prefill": launches, **checks})
+    return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
+
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_DECODE = 32
+MOE_CTX = LM_PROMPT + MOE_DECODE
+MOE_CHECK_LAYERS = 2      # the float32 checks, as lm_train's
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_DECODE = "mixtral-8x7b", 16, 8
+
+
+def _spy_moe(MOE, fn):
+    """``fn()`` with every ``MOE.moe_fwd`` call recorded as (its params,
+    its input, the share of (token, k) pairs capacity dropped there, from
+    ``MOE.route`` on that input)."""
+    from unittest import mock
+    calls, inner = [], MOE.moe_fwd
+
+    def spy(p, cfg, x, *a, **kw):
+        r = MOE.route(p, cfg, x.reshape(-1, cfg.d_model), *a, **kw)
+        calls.append((p, x, float((~r.keep).float().mean())))
+        return inner(p, cfg, x, *a, **kw)
+
+    with mock.patch.object(MOE, "moe_fwd", spy):
+        out = fn()
+    return out, calls
+
+
+def _no_drops(MOE, cfg):
+    """``MOE.moe_fwd`` at capacity factor E/K: C = T, nothing dropped."""
+    import functools
+    from unittest import mock
+    return mock.patch.object(MOE, "moe_fwd", functools.partial(
+        MOE.moe_fwd, capacity_factor=cfg.n_experts / cfg.moe_top_k))
+
+
+def _moe_reckoning(cfg, ctx) -> dict:
+    """Bytes of the bf16 serving peak, from the shapes: the parameters,
+    the K/V cache and the largest MoE layer's transients in a prefill (the
+    [E*C, d] rows gathered, three [E, C, f] products, [E, C, d] out, the
+    [T, K, d] rows gathered back and their fp32 copy)."""
+    E, K, d = cfg.n_experts, cfg.moe_top_k, cfg.d_model
+    f = cfg.d_ff_expert or cfg.d_ff
+    T = LM_BATCH * LM_PROMPT
+    C = max(8, min(int(np.ceil(1.25 * T * K / E)), T))
+    total, _ = cfg.param_count()
+    params = 2 * (total + cfg.n_layers * d * E * 2 + d)   # router in fp32
+    Tw = min(ctx, cfg.swa_window) if cfg.swa_window else ctx
+    cache = 2 * 2 * cfg.n_layers * LM_BATCH * Tw * cfg.n_kv_heads \
+        * cfg.d_head
+    moe = 2 * (E * C * d + 3 * E * C * f + E * C * d + T * K * d) \
+        + 4 * T * K * d
+    return {"params": params, "cache": cache, "moe_layer": moe,
+            "total": params + cache + moe, "capacity": C}
+
+
+def _index_vs_onehot(torch, steps, MOE, cfg, tokens) -> dict:
+    """``MOE.moe_fwd`` (the index route) against ``MOE.moe_fwd_onehot``
+    (the reference's one-hot dispatch) on layer 0's real input, from a
+    prefill of ``tokens[:1]`` in float32: max |d| <= 1e-5 max |ref|, the
+    same aux, kept pairs and slots."""
+    cfg = cfg.scaled(dtype="float32")
+    m32 = steps.make_serve_steps(cfg)[0]
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(1))
+    with torch.inference_mode():
+        _, calls = _spy_moe(MOE, lambda: m32.prefill(
+            p32, {"tokens": tokens[:1]}, m32.make_cache(1, LM_PROMPT)))
+        p0, x0 = calls[0][0], calls[0][1]
+        del calls
+        y, aux = MOE.moe_fwd(p0, cfg, x0)
+        y1, aux1 = MOE.moe_fwd_onehot(p0, cfg, x0)
+        r = MOE.route(p0, cfg, x0.reshape(-1, cfg.d_model))
+        oh = MOE.onehot_slots(r.gate_idx, cfg.n_experts, r.capacity)
+        keep1, slot1 = oh.sum((2, 3)) > 0, oh.sum(2).argmax(-1)
+    torch.cuda.synchronize()
+    res = {"B": 1, "S": LM_PROMPT, "capacity": r.capacity,
+           "onehot_bytes": oh.numel() * oh.element_size(),
+           "max_abs_err": float((y - y1).abs().max()),
+           "max_abs_ref": float(y1.abs().max()),
+           "aux_abs_err": float((aux - aux1).abs()),
+           "kept_pairs": int(r.keep.sum()),
+           "dropped_pairs": int((~r.keep).sum()),
+           "kept_sets_equal": bool(torch.equal(r.keep, keep1)),
+           "slots_equal": bool(torch.equal(r.slot[r.keep],
+                                           slot1[r.keep]))}
+    if (res["max_abs_err"] > 1e-5 * res["max_abs_ref"]
+            or res["aux_abs_err"] > 1e-6 or not res["kept_sets_equal"]
+            or not res["slots_equal"]):
+        raise AssertionError(f"index route != one-hot: {res}")
+    del p32, p0, x0, y, y1, r, oh
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS):
+    """MoE serving through ``make_serve_steps`` on the card:
+    deepseek-moe-16b at full width and depth (``_serve``: one prefill, one
+    ``flash_attention_sm90`` launch a layer, MOE_DECODE greedy steps,
+    each prefill layer's dropped share; the init's peak beside
+    ``param_count`` x 2); ``_index_vs_onehot`` on layer 0's real input;
+    ``_fp32_checks`` at MOE_CHECK_LAYERS layers, at capacity factor E/K
+    (C = T, nothing dropped: a forward over S+1 tokens is another batch,
+    which at 1.25 would drop other pairs than prefill and decode do); then
+    mixtral-8x7b at full width and MIXTRAL_LAYERS of its 32 layers (what
+    one card holds), whose windowed prefill launches no flash kernel, and
+    MIXTRAL_DECODE steps. Returns the two flash kernels' launches."""
+    cfg = ARCHS[MOE_ARCH]
+    tokens, deepseek = _serve(torch, fa, kv, steps, cfg, 4, MOE_DECODE,
+                              MOE_CTX, cfg.n_layers, MOE)
+    onehot = _index_vs_onehot(torch, steps, MOE, cfg.scaled(
+        n_layers=MOE_CHECK_LAYERS), tokens)
+    cfg2 = cfg.scaled(n_layers=MOE_CHECK_LAYERS)
+    with _no_drops(MOE, cfg2):
+        checks = _fp32_checks(torch, fa, flash_ref, steps, L, cfg2, tokens,
+                              MOE_CTX)
+    mcfg = ARCHS[MIXTRAL_ARCH].scaled(n_layers=MIXTRAL_LAYERS)
+    _, mixtral = _serve(torch, fa, kv, steps, mcfg, 6, MIXTRAL_DECODE,
+                        LM_PROMPT + MIXTRAL_DECODE, 0, MOE)
+    for c, res in ((cfg, deepseek), (mcfg, mixtral)):
+        res.update(param_count=list(c.param_count()),
+                   param_count_x2_bytes=2 * c.param_count()[0],
+                   memory_reckoning_bytes=_moe_reckoning(c, res["ctx"]))
+    launches = deepseek["launches_per_run"]["flash_attention_sm90"]
+    emit({"phase": "lm_serve_moe", **deepseek,
           "flash_attention_sm90_launches_per_prefill": launches,
-          "fp32_flash_attention_simt_launches_per_prefill": launches32,
-          "first_run_s": first_s, "prefill_s": prefill_s,
-          "prefill_tokens_per_s": [ntok / t for t in prefill_s],
-          "decode_s": decode_s,
-          "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
-          "peak_memory_bytes": peak,
-          "fp32_prefill_vs_plain_max_abs_err": err_a,
-          "fp32_greedy_tokens_equal": LM_GREEDY_CHECK,
-          "fp32_first_decode_vs_full_forward_max_abs_err": err_b})
-    return launches, launches32
+          "index_route_vs_onehot": onehot,
+          "fp32_check_layers": MOE_CHECK_LAYERS,
+          "fp32_check_capacity": "C = T (factor E/K)", **checks,
+          "mixtral": {**mixtral,
+                      "layers_of": ARCHS[MIXTRAL_ARCH].n_layers}})
+    return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
 
 
 TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 3
@@ -2205,6 +2395,7 @@ def main() -> int:
         from repro_torch.optim import adamw
         from repro_torch.runtime.checkpoint import CheckpointManager
         from repro_torch.models import layers as L
+        from repro_torch.models import moe as MOE
         from repro_torch.runtime import elastic
         from repro_torch.core import bsp
         from repro_torch.core.grid import GridMachine
@@ -2257,6 +2448,8 @@ def main() -> int:
                                (("mc", s_main), ("bc", s_bc)))
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
+    moe_sm90_launches, moe_simt_launches = phase_lm_serve_moe(
+        torch, fa, kv, flash_ref, steps, L, MOE, ARCHS)
     train_launches, fp32_train_launches = phase_lm_train(
         torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
         PipelineConfig, CheckpointManager)
@@ -2277,6 +2470,8 @@ def main() -> int:
           "b1_chunk_launches_on_machine_path": b1_launches,
           "sm90_launches_on_bf16_serving_path": sm90_launches,
           "simt_launches_on_fp32_serving_path": simt_launches,
+          "sm90_launches_on_bf16_moe_serving_path": moe_sm90_launches,
+          "simt_launches_on_fp32_moe_serving_check": moe_simt_launches,
           "chunk_launches_on_serve_path": serve_launches,
           "chunk_launches_on_elastic_path": elastic_launches,
           "chunk_launches_on_sharded_path": sharded_launches,
@@ -2301,6 +2496,7 @@ def main() -> int:
                     "(bf16, dh 64 or 128)",
                     sm90_launches, flash["flash_attention_sm90"],
                     {"lm_serve": sm90_launches,
+                     "lm_serve_moe": moe_sm90_launches,
                      "lm_train": train_launches["flash_attention_sm90"]}),
         kernel_line("flash_attention_simt",
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2308,6 +2504,7 @@ def main() -> int:
                     "(float32, other head dims)",
                     simt_launches, flash32,
                     {"lm_serve_fp32_check": simt_launches,
+                     "lm_serve_moe_fp32_check": moe_simt_launches,
                      "lm_train_fp32_check":
                      fp32_train_launches["flash_attention_simt"]}),
         kernel_line("flash_attention_bwd_sm90",

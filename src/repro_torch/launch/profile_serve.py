@@ -1,8 +1,10 @@
 """Where LM serving spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch deepseek-moe-16b] [--layers 16]
 
-Serves qwen3-0.6b at full width through ``make_serve_steps`` (random bf16
+Serves ``--arch`` (qwen3-0.6b unless given) at full width through
+``make_serve_steps``, ``--layers`` of its layers where given (random bf16
 weights from a seed; B=4 prompts of 2048 tokens, a cache for 2112) and
 traces one prefill and 8 greedy decode steps with ``torch.profiler``,
 after a warm-up of each. Prints one JSON line: for each phase the wall
@@ -14,6 +16,7 @@ a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -56,7 +59,7 @@ def _kernel_times(prof):
     return sum(r[2] for r in rows), rows
 
 
-def profile_phase(device, fn, top: int = 8) -> dict:
+def profile_phase(device, fn, top: int = 12) -> dict:
     """Wall time and device-busy time of ``fn()`` under the profiler."""
     torch.cuda.synchronize(device)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -108,12 +111,20 @@ def profile(cfg, device, B: int, S: int, ctx: int, decode_steps: int
     return out
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve this many of the config's layers")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = profile(ARCHS["qwen3-0.6b"], torch.device("cuda"), B, S, CTX,
-                  DECODE)
+    cfg = ARCHS[args.arch]
+    if args.layers:
+        cfg = cfg.scaled(n_layers=args.layers)
+    out = profile(cfg, torch.device("cuda"), B, S, CTX, DECODE)
+    out["n_layers"] = cfg.n_layers
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
 

@@ -30,7 +30,7 @@ def make_train_step(cfg: ModelConfig, device=None,
     ``adamw.apply``; ``metrics`` holds the loss's parts, ``loss`` and
     ``gnorm``. It returns new tensors and leaves ``params`` and ``opt`` as
     they are. A leaf the loss does not reach raises (every leaf of a dense
-    decoder gets a gradient). ``p_shapes`` and ``opt_shapes`` are
+    or MoE decoder gets a gradient). ``p_shapes`` and ``opt_shapes`` are
     meta-device tensors. Raises unless ``device`` is given or a CUDA
     device is present (the step follows its inputs; ``device`` is where
     ``model.init`` puts them by default)."""

@@ -10,8 +10,9 @@ checkpoint in ``--ckpt-dir``, and the token pipeline is counter-based, so
 the resumed run sees the batches an uninterrupted run would.
 ``--compress-grads`` sends the gradient through the int8 round trip with
 error feedback. There is no mesh: ``--model-parallel`` other than 1
-raises. Archs the port cannot build (MoE, zamba2, xLSTM, whisper) raise
-``NotImplementedError``.
+raises. Dense and MoE archs train (``--arch mixtral-8x7b --smoke
+--device cpu``); those the port cannot build (zamba2, xLSTM, whisper)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ What differs from the reference:
 * ``attention_decode`` writes the new K/V into the cache in place.
 * There is no mesh, so ``shard_act`` has no counterpart.
 * Initializers draw from an explicit ``torch.Generator`` on its own device
-  and move the result to ``device``; on the ``meta`` device they draw
+  and move the result to ``device``, scaling the fp32 draw in place (one
+  fp32 copy of a leaf at a time); on the ``meta`` device they draw
   nothing and give shapes only (``Model.abstract_params``).
 """
 from __future__ import annotations
@@ -51,7 +52,7 @@ def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                device) -> torch.Tensor:
     scale = 1.0 / np.sqrt(d_in)
-    return (_randn(gen, (d_in, d_out), device) * scale).to(dtype)
+    return _randn(gen, (d_in, d_out), device).mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------- norms ----
@@ -262,8 +263,8 @@ def mlp_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ embedding ----
 def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     dt = _dtype(cfg)
-    p = {"tok": (_randn(gen, (cfg.vocab, cfg.d_model), device)
-                 * 0.02).to(dt)}
+    p = {"tok": _randn(gen, (cfg.vocab, cfg.d_model), device).mul_(0.02)
+         .to(dt)}
     if not cfg.tie_embeddings:
         p["out"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
     return p

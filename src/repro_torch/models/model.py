@@ -1,18 +1,20 @@
 """Unified model API: build(cfg) -> Model with init / loss / prefill /
 decode_step / make_cache / abstract_params / input_specs.
 
-Port of ``repro.models.model`` for dense decoder-only configs. Parameters
-are nested dicts of tensors, name for name the reference's pytree, with the
-layers stacked ``[L, ...]`` (``convert.params_from_jax`` carries them
-across). Entry points that create tensors (``init``, ``make_cache``) run on
-the card unless given ``device="cpu"``; the rest follow their inputs.
+Port of ``repro.models.model`` for decoder-only configs, dense and MoE
+(deepseek-moe-16b, mixtral-8x7b). Parameters are nested dicts of tensors,
+name for name the reference's pytree, with the layers stacked ``[L, ...]``
+(``convert.params_from_jax`` carries them across). Entry points that
+create tensors (``init``, ``make_cache``) run on the card unless given
+``device="cpu"``; the rest follow their inputs.
 
 ``prefill`` and ``decode_step`` update the cache they are given in place
 and return it: a cache that went through either holds the new state, so a
 caller that wants the old one keeps a clone. ``prefill`` fills the whole
 cache ``make_cache`` gave (see ``transformer.decoder_prefill`` for where
 that departs from the reference). ``loss`` is the reference's, and
-differentiable: its attention runs ``FlashAttention`` under grad.
+differentiable: its attention runs ``FlashAttention`` under grad, and a
+MoE stack adds its auxiliary loss.
 ``abstract_params`` gives meta-device tensors (the reference's
 ``ShapeDtypeStruct``s) and ``input_specs`` ``(shape, dtype)`` pairs for
 the text inputs; the VLM patch prefix and the audio frames are not ported
@@ -72,9 +74,11 @@ class Model:
         return T.decoder_init(None, self.cfg, torch.device("meta"))
 
     # ---------------------------------------------------------- forward ----
-    def _trunk(self, params: Params, x, pos, state=None) -> torch.Tensor:
-        """The normed hidden states; ``state`` is a decode step's
-        ``(k, v)`` caches, updated in place."""
+    def _trunk(self, params: Params, x, pos, state=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the normed hidden states, the MoE auxiliary loss summed over
+        the layers); ``state`` is a decode step's ``(k, v)`` caches,
+        updated in place."""
         return T.decoder_fwd(self.cfg, params, x, pos, state)
 
     def _embed_inputs(self, params: Params, batch: Dict) -> Tuple:
@@ -94,18 +98,18 @@ class Model:
     def loss(self, params: Params, batch: Dict
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross-entropy from fp32 logits, plus the
-        z-loss ``1e-4 * mean(logsumexp^2)`` and ``1e-2 * aux`` (0 for a
-        dense stack). Returns (total, {"nll", "aux", "zloss"})."""
+        z-loss ``1e-4 * mean(logsumexp^2)`` and ``1e-2 * aux``, the MoE
+        auxiliary loss summed over the layers (0 for a dense stack).
+        Returns (total, {"nll", "aux", "zloss"})."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params, batch)
-        h = self._trunk(params, x, pos)
+        h, aux = self._trunk(params, x, pos)
         logits = L.unembed(params["embed"], cfg, h).float()
         labels = batch["labels"].to(logits.device, torch.long)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         nll = (logz - gold).mean()
         zloss = 1e-4 * logz.square().mean()
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         total = nll + zloss + 1e-2 * aux
         return total, {"nll": nll, "aux": aux, "zloss": zloss}
 
@@ -114,7 +118,7 @@ class Model:
         """Zeroed K/V caches sized for a context of ``ctx`` tokens:
         ``{"k", "v"}``, each ``[L, B, Tw, Hkv, dh]``."""
         cfg = self.cfg
-        T._dense_only(cfg)
+        T._decoder_only(cfg)
         Tw = min(ctx, cfg.swa_window) if cfg.swa_window else ctx
         k = torch.zeros((cfg.n_layers, B, Tw, cfg.n_kv_heads, cfg.d_head),
                         dtype=L._dtype(cfg), device=self._device(device))
@@ -138,7 +142,7 @@ class Model:
         B = tokens.shape[0]
         x = L.embed(params["embed"], tokens)
         pos = _decode_pos(B, pos_scalar, cfg.m_rope, device=x.device)
-        h = self._trunk(params, x, pos, state=(cache["k"], cache["v"]))
+        h, _ = self._trunk(params, x, pos, state=(cache["k"], cache["v"]))
         return L.unembed(params["embed"], cfg, h).float(), cache
 
     # ------------------------------------------------------ input specs ----
@@ -149,7 +153,7 @@ class Model:
         ``patches`` and audio ``frames`` are not ported: an
         encoder-decoder config raises, and a VLM config gets its text
         inputs only."""
-        T._dense_only(self.cfg)
+        T._decoder_only(self.cfg)
         B, S = global_batch, seq_len
         if mode == "train":
             return {"tokens": ((B, S), torch.int32),

@@ -206,5 +206,5 @@ def test_train_cli_refuses_what_it_cannot_run(tmp_path):
         train.main([*CLI, "--model-parallel", "2", "--ckpt-dir",
                     str(tmp_path)])
     with pytest.raises(NotImplementedError):
-        train.main([*CLI, "--arch", "mixtral-8x7b", "--ckpt-dir",
+        train.main([*CLI, "--arch", "zamba2-7b", "--ckpt-dir",
                     str(tmp_path)])

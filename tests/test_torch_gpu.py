@@ -425,6 +425,57 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
     assert torch.equal(toks, tokc)
 
 
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mixtral-8x7b"])
+def test_moe_prefill_and_decode_on_card_match_cpu(cuda, name):
+    """The MoE SMOKE configs in float32: the serve steps on the card
+    (routing by index, the flash kernel in deepseek's prefill; mixtral's
+    window sends its prefill to plain attention) against the same on the
+    CPU."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_serve_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKE[name].scaled(dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, prefill, decode = make_serve_steps(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        fa.reset_counts()
+        logits, cache = prefill(params, {"tokens": tokens.to(dev)},
+                                model.make_cache(2, 128))
+        launches = fa.COUNTS["flash_attention_simt"]
+        tok, seq = torch.argmax(logits[:, -1], -1)[:, None], []
+        for i in range(4):
+            tok, cache = decode(params, tok, cache, 100 + i)
+            seq.append(tok.cpu())
+        outs.append((logits.cpu(), torch.cat(seq, 1), launches))
+    (lg, toks, n), (lc, tokc, nc) = outs
+    windowed = cfg.swa_window is not None and cfg.swa_window < 100
+    assert n == (0 if windowed else cfg.n_layers) and nc == 0
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(toks, tokc)
+
+
+def test_moe_slots_on_card_match_cpu(cuda):
+    """``moe.slots`` at deepseek-moe-16b's prefill width of routing (T =
+    8192 tokens, top-6 of 64, skewed to a few experts) on the card: the
+    stable sort gives each pair the slot it gets on the CPU and from the
+    reference's one-hot cumsum, so capacity (C = 960) keeps the same
+    pairs."""
+    from repro_torch.models import moe as M
+    g = torch.Generator().manual_seed(4)
+    scores = torch.rand((8192, 64), generator=g) + torch.linspace(0, 1, 64)
+    gate_idx = scores.topk(6, dim=-1).indices
+    cpu = M.slots(gate_idx, 64)
+    assert torch.equal(M.slots(gate_idx.to(cuda), 64).cpu(), cpu)
+    oh = M.onehot_slots(gate_idx[:256], 64, 256)
+    assert torch.equal(M.slots(gate_idx[:256].to(cuda), 64).cpu(),
+                       oh.sum(2).argmax(-1))
+    assert int((cpu >= M.capacity(8192, 64, 6, 1.25)).sum()) > 0
+
+
 # (BH, BHkv, S, dh, dtype, causal): GQA, tail tiles, dh off 64 and 128,
 # non-causal, and the qwen3-0.6b training shape (B=4, H=16, Hkv=8)
 FLASH_BWD_SHAPES = [

@@ -266,8 +266,23 @@ def test_params_from_jax_go_to_the_card_unless_asked():
     assert torch.equal(cpu["layers"]["w"], torch.zeros((2, 3, 3)))
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "zamba2-7b", "xlstm-125m",
+@pytest.mark.parametrize("name", ["zamba2-7b", "xlstm-125m",
                                   "whisper-medium"])
 def test_unported_stacks_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         build(SMOKE[name], "cpu").init(torch.Generator())
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mixtral-8x7b"])
+def test_moe_stacks_build_with_param_count_total(name):
+    """The MoE configs build, and their init holds ``param_count``'s total
+    plus what it leaves out: each layer's fp32 router and the final
+    norm."""
+    cfg = SMOKE[name]
+    p = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    n = sum(v.numel() for v in jax.tree.leaves(
+        p, is_leaf=lambda v: torch.is_tensor(v)))
+    total, _ = cfg.param_count()
+    assert n == total + cfg.n_layers * cfg.d_model * cfg.n_experts \
+        + cfg.d_model
+    assert p["layers"]["moe"]["router"].dtype == torch.float32

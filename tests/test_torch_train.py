@@ -44,8 +44,9 @@ from repro_torch.optim import adamw
 # the dense decoder-only configs; qwen2-vl-72b on its text path (M-RoPE)
 DENSE = ("qwen3-0.6b", "qwen3-1.7b", "starcoder2-3b", "qwen1.5-110b",
          "qwen2-vl-72b")
-NOT_DENSE = ("mixtral-8x7b", "deepseek-moe-16b", "zamba2-7b", "xlstm-125m",
-             "whisper-medium")
+# not trained by the port yet (the MoE configs train since MoE was
+# ported: tests/test_torch_moe.py)
+NOT_DENSE = ("zamba2-7b", "xlstm-125m", "whisper-medium")
 B, S = 2, 16
 
 
