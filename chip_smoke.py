@@ -15,7 +15,9 @@ against its plain PyTorch version on the card:
   memory) and on the first two Vcycles of each of the nine full circuits;
 * flash attention against ``flash_ref`` (fp32 within 1e-4, bf16 within
   2e-2) at the reference kernel test's five shapes, GQA, a tail tile, a
-  non-causal shape and the qwen3-0.6b prefill's, each on the kernel that
+  non-causal shape and the qwen3-0.6b, deepseek-moe-16b and zamba2-7b
+  prefills' (zamba2's shared attention: bf16 at dh 112), each on the
+  kernel that
   ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the wgmma
   kernel ``flash_attention_sm90.cu``, float32 (and bf16 at other head
   dims) on the 3xTF32 kernel ``flash_attention.cu``, there also saving lse
@@ -64,6 +66,15 @@ launch counts set to 0 just before and read just after:
   ``flash_attention_simt`` launches a prefill; the decode check at
   capacity C = T); then mixtral-8x7b at 16 of its 32 layers, whose
   windowed prefill launches no flash kernel, and 8 decode steps;
+* SSM serving, ``make_serve_steps`` on zamba2-7b at full width and all 81
+  layers (random weights from a seed): B=4 prompts of 2048 tokens, one
+  prefill (13 ``flash_attention_simt`` launches, one a group of six
+  Mamba2 layers: its shared attention in bf16 at dh 112, causal, since
+  its window of 4096 covers the prompt) and 16 greedy decode steps, one
+  timed prefill and the decode loop again, the init's peak bytes beside
+  ``param_count`` x 2; float32 checks at 9 layers as for qwen3-0.6b (1
+  launch a prefill); then xlstm-125m whole (no attention, no kernel),
+  32 decode steps and its float32 checks;
 * LM training, ``repro_torch.launch.steps.make_train_step`` on qwen3-0.6b
   at full width in bf16 over ``TokenPipeline`` batches of 4 x 2048
   tokens: a warm-up step and three timed ones, each 56
@@ -76,7 +87,9 @@ launch counts set to 0 just before and read just after:
 
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
-prefill's shape in bf16, the 3xTF32 kernel with and without lse, the
+prefill's shape in bf16, the 3xTF32 kernel in bf16 at zamba2-7b's
+prefill shape (dh 112, the SSM serving path's) against the plain
+version and SDPA in turns, the 3xTF32 kernel with and without lse, the
 plain version and SDPA in turns in float32, and in bf16 both backward
 kernels, the plain version and SDPA's backward in turns, in float32 the
 3xTF32 one with and without lse; the float32 rows give the fp32
@@ -1172,6 +1185,9 @@ FLASH_CASES = (
     (16, 8, LM_PROMPT + 1, 128, "float32", True),
     (8, 4, 512, 128, "bfloat16", False),
     (6, 3, 1000, 64, "bfloat16", True),
+    # the zamba2-7b prefill's shared attention: B=4 x H=32 over Hkv=32,
+    # dh = 3584 / 32 = 112, so bf16 on flash_attention.cu
+    (LM_BATCH * 32, LM_BATCH * 32, LM_PROMPT, 112, "bfloat16", True),
 )
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -1395,17 +1411,18 @@ def _greedy(torch, model, params, logits, cache, n):
     return torch.cat(toks, 1), first
 
 
-def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want_sm90,
-           MOE=None):
+def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
+           MOE=None, repeats=3):
     """``cfg`` in its bf16 through ``make_serve_steps`` on the card:
     parameters from a ``torch.Generator`` seeded ``seed`` (the init's peak
     bytes), LM_BATCH prompts of LM_PROMPT tokens from a numpy seed, a cache
     for ``ctx``; one counted prefill and ``n_decode`` greedy steps, which
-    must launch ``want_sm90`` ``flash_attention_sm90`` and nothing else;
-    then 3 synced prefills and the decode loop again, timed; with ``MOE``
-    a last prefill recording each layer's dropped share. Returns (the
-    prompts, the numbers). Peak bytes are ``max_memory_allocated``, with
-    what was allocated before the init (``base_bytes``) beside them."""
+    must launch the flash kernels ``want`` names as many times as it says
+    ({kernel: launches}) and nothing else; then ``repeats`` synced
+    prefills and the decode loop again, timed; with ``MOE`` a last
+    prefill recording each layer's dropped share. Returns (the prompts,
+    the numbers). Peak bytes are ``max_memory_allocated``, with what was
+    allocated before the init (``base_bytes``) beside them."""
     model, prefill_step, decode_step = steps.make_serve_steps(cfg)
     tokens = torch.from_numpy(np.random.default_rng(seed + 13).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
@@ -1434,12 +1451,11 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want_sm90,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = dict(fa.COUNTS)
-    if (counts != {**{k: 0 for k in counts},
-                   "flash_attention_sm90": want_sm90}
+    if (counts != {**{k: 0 for k in counts}, **want}
             or any(kv.COUNTS.values())):
         raise AssertionError(f"{cfg.name} serving launched {counts} (not "
-                             f"{want_sm90} flash_attention_sm90), Vcycle "
-                             f"kernels {kv.COUNTS}")
+                             f"{want} and nothing else), Vcycle kernels "
+                             f"{kv.COUNTS}")
     peak = torch.cuda.max_memory_allocated()
     gen = torch.cat(out, 1)
     if (not bool(torch.isfinite(logits).all())
@@ -1448,9 +1464,9 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want_sm90,
             or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab):
         raise AssertionError(f"{cfg.name} serving gave non-finite logits "
                              "or bad tokens")
-    # prefill tokens/s: 3 synced prefills after the one above
+    # prefill tokens/s: synced prefills after the one above
     prefill_s = []
-    for _ in range(3):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill_step(params, {"tokens": tokens}, cache)
@@ -1490,14 +1506,17 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want_sm90,
     return tokens, res
 
 
-def _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens, ctx):
+def _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens, ctx,
+                 want=None):
     """``cfg`` in float32 at full width on the card: (a) the kernel
-    prefill (one ``flash_attention_simt`` launch a layer, counted) == the
-    same model on ``flash_ref`` (logits within 1e-3, LM_GREEDY_CHECK
-    greedy tokens equal) and (b) the first decode step == a full forward
-    over the S+1 tokens (within 1e-3). Returns its numbers."""
+    prefill (``want`` ``flash_attention_simt`` launches, counted; one a
+    layer unless given) == the same model on ``flash_ref`` (logits within
+    1e-3, LM_GREEDY_CHECK greedy tokens equal) and (b) the first decode
+    step == a full forward over the S+1 tokens (within 1e-3). Returns its
+    numbers."""
     from unittest import mock
     cfg = cfg.scaled(dtype="float32")
+    want = cfg.n_layers if want is None else want
     m32 = steps.make_serve_steps(cfg)[0]
     p32 = m32.init(torch.Generator(device="cuda").manual_seed(1))
     with torch.inference_mode():
@@ -1505,10 +1524,9 @@ def _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens, ctx):
         fa.reset_counts()
         lk, c_k = m32.prefill(p32, {"tokens": tokens}, c_k)
         launches32 = fa.COUNTS["flash_attention_simt"]
-        if launches32 != cfg.n_layers or fa.COUNTS["flash_attention_sm90"]:
+        if launches32 != want or fa.COUNTS["flash_attention_sm90"]:
             raise AssertionError(f"float32 prefill launched {fa.COUNTS} "
-                                 f"(not {cfg.n_layers} "
-                                 "flash_attention_simt)")
+                                 f"(not {want} flash_attention_simt)")
         greedy_k, first = _greedy(torch, m32, p32, lk, c_k, LM_GREEDY_CHECK)
         del c_k
         full = _full_forward_last(torch, m32, L, p32, torch.cat(
@@ -1545,7 +1563,7 @@ def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
     on their paths."""
     cfg = ARCHS[LM_ARCH]
     tokens, res = _serve(torch, fa, kv, steps, cfg, 0, LM_DECODE, LM_CTX,
-                         cfg.n_layers)
+                         {"flash_attention_sm90": cfg.n_layers})
     checks = _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens,
                           LM_CTX)
     launches = res["launches_per_run"]["flash_attention_sm90"]
@@ -1658,7 +1676,8 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS):
     MIXTRAL_DECODE steps. Returns the two flash kernels' launches."""
     cfg = ARCHS[MOE_ARCH]
     tokens, deepseek = _serve(torch, fa, kv, steps, cfg, 4, MOE_DECODE,
-                              MOE_CTX, cfg.n_layers, MOE)
+                              MOE_CTX, {"flash_attention_sm90": cfg.n_layers},
+                              MOE)
     onehot = _index_vs_onehot(torch, steps, MOE, cfg.scaled(
         n_layers=MOE_CHECK_LAYERS), tokens)
     cfg2 = cfg.scaled(n_layers=MOE_CHECK_LAYERS)
@@ -1667,7 +1686,7 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS):
                               MOE_CTX)
     mcfg = ARCHS[MIXTRAL_ARCH].scaled(n_layers=MIXTRAL_LAYERS)
     _, mixtral = _serve(torch, fa, kv, steps, mcfg, 6, MIXTRAL_DECODE,
-                        LM_PROMPT + MIXTRAL_DECODE, 0, MOE)
+                        LM_PROMPT + MIXTRAL_DECODE, {}, MOE)
     for c, res in ((cfg, deepseek), (mcfg, mixtral)):
         res.update(param_count=list(c.param_count()),
                    param_count_x2_bytes=2 * c.param_count()[0],
@@ -1680,6 +1699,62 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS):
           "fp32_check_capacity": "C = T (factor E/K)", **checks,
           "mixtral": {**mixtral,
                       "layers_of": ARCHS[MIXTRAL_ARCH].n_layers}})
+    return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
+
+
+SSM_ARCH, SSM_DECODE = "zamba2-7b", 16
+SSM_CTX = LM_PROMPT + 32
+SSM_CHECK_LAYERS = 9      # one group of 6 and the tail of 3
+XLSTM_ARCH, XLSTM_DECODE = "xlstm-125m", 32
+
+
+def _ssm_reckoning(cfg, ctx, n_params) -> dict:
+    """Bytes of zamba2's bf16 serving state, from the shapes: the
+    parameters (the fp32 A_log, D and dt_bias among them), the shared
+    attention's K/V cache and the fp32 SSM states."""
+    H = 2 * cfg.d_model // cfg.ssm_headdim
+    n_attn = cfg.n_layers // cfg.attn_every
+    params = 2 * n_params + 2 * 3 * H * cfg.n_layers
+    Tw = min(ctx, 4096)                 # transformer.ZAMBA_WINDOW
+    cache = 2 * 2 * n_attn * LM_BATCH * Tw * cfg.n_kv_heads * cfg.d_head
+    ssm = 4 * cfg.n_layers * LM_BATCH * H * cfg.ssm_state * cfg.ssm_headdim
+    return {"params": params, "attention_cache": cache, "ssm_state": ssm,
+            "total": params + cache + ssm}
+
+
+def phase_lm_serve_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, smi):
+    """The SSM stacks through ``make_serve_steps`` on the card: zamba2-7b
+    at full width and all 81 layers (``_serve``: one prefill, whose
+    shared attention is one ``flash_attention_simt`` launch a group, 13
+    in bf16 at dh 112, and SSM_DECODE greedy steps; one timed prefill, the
+    scan being slow; the init's peak beside ``param_count`` x 2), then
+    ``_fp32_checks`` at SSM_CHECK_LAYERS layers (one group, one launch);
+    then xlstm-125m whole, which launches no kernel, XLSTM_DECODE steps,
+    and its float32 checks. Returns the launches of
+    ``flash_attention_simt`` on the bf16 path and the float32 check."""
+    cfg = ARCHS[SSM_ARCH]
+    n_attn = cfg.n_layers // cfg.attn_every
+    tokens, zamba = _serve(torch, fa, kv, steps, cfg, 8, SSM_DECODE, SSM_CTX,
+                           {"flash_attention_simt": n_attn}, repeats=1)
+    ccfg = cfg.scaled(n_layers=SSM_CHECK_LAYERS)
+    checks = _fp32_checks(torch, fa, flash_ref, steps, L, ccfg, tokens,
+                          SSM_CTX, want=SSM_CHECK_LAYERS // cfg.attn_every)
+    xcfg = ARCHS[XLSTM_ARCH]
+    xtokens, xlstm = _serve(torch, fa, kv, steps, xcfg, 10, XLSTM_DECODE,
+                            LM_PROMPT + XLSTM_DECODE, {}, repeats=1)
+    xchecks = _fp32_checks(torch, fa, flash_ref, steps, L, xcfg, xtokens,
+                           LM_PROMPT + XLSTM_DECODE, want=0)
+    for c, res in ((cfg, zamba), (xcfg, xlstm)):
+        res.update(param_count=list(c.param_count()),
+                   param_count_x2_bytes=2 * c.param_count()[0])
+    zamba["memory_reckoning_bytes"] = _ssm_reckoning(cfg, SSM_CTX,
+                                                     zamba["params"])
+    launches = zamba["launches_per_run"]["flash_attention_simt"]
+    emit({"phase": "lm_serve_ssm", "card": smi, **zamba,
+          "flash_attention_simt_launches_per_prefill": launches,
+          "attention_d_head": cfg.d_head,
+          "fp32_check_layers": SSM_CHECK_LAYERS, **checks,
+          "xlstm": {**xlstm, **xchecks}})
     return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
 
 
@@ -1967,6 +2042,53 @@ def time_flash(torch, fa, flash_ref):
     res["flash_attention_sm90"].update(ms_with_lse=ms["sm90_lse"],
                                        ms_with_lse_turns=turns["sm90_lse"])
     return res
+
+
+def time_flash_zamba2(torch, fa, flash_ref):
+    """``flash_attention_simt`` at zamba2-7b's prefill shape (BH = BHkv =
+    128, S = 2048, dh = 112, bf16, causal; the route for bf16 at dh 112),
+    timed in one call in turns with the plain version and SDPA (kernel,
+    plain, SDPA, then in reverse): CUDA-event ms and the bound at the bf16
+    tensor-core rate."""
+    import torch.nn.functional as F
+    BH = BHkv = LM_BATCH * 32
+    S, dh = LM_PROMPT, 112
+    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", 98)
+    q4, k4, v4 = (t.view(LM_BATCH, BH // LM_BATCH, S, dh) for t in (q, k, v))
+    out = {}
+
+    def run(name, fn):
+        def launch():
+            out[name] = fn(q, k, v)
+        return launch
+
+    fns = {"kernel": (run("kernel", fa.flash_attention_simt), 5, 1),
+           "plain": (run("plain", flash_ref), 3, 1),
+           "library": (lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=True), 20, 3)}
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, n, warm = fns[name]
+            turns[name].append(cuda_ms(torch, fn, n, warm))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    err = float((out["kernel"].float() - out["plain"].float()).abs().max())
+    if err > FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"timed flash_attention_simt at dh 112 != "
+                             f"plain ({err})")
+    nbytes = 2 * (2 * BH * S * dh + 2 * BHkv * S * dh)
+    flops = 2 * BH * S * S * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 causal",
+            "ms": ms["kernel"], "ms_turns": turns["kernel"],
+            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+            "library_ms": ms["library"], "library_ms_turns": turns["library"],
+            "library": "scaled_dot_product_attention(is_causal)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "tflops_per_s": flops / ms["kernel"] * 1e-9}
 
 
 def time_flash_fp32(torch, fa, flash_ref):
@@ -2450,16 +2572,20 @@ def main() -> int:
                                                   steps, L, ARCHS)
     moe_sm90_launches, moe_simt_launches = phase_lm_serve_moe(
         torch, fa, kv, flash_ref, steps, L, MOE, ARCHS)
+    ssm_simt_launches, ssm_fp32_launches = phase_lm_serve_ssm(
+        torch, fa, kv, flash_ref, steps, L, ARCHS, smi)
     train_launches, fp32_train_launches = phase_lm_train(
         torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
         PipelineConfig, CheckpointManager)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
+    flash112 = time_flash_zamba2(torch, fa, flash_ref)
     bwd = {dt: time_flash_bwd(torch, fa, flash_bwd_ref, dt)
            for dt in ("bfloat16", "float32")}
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
+          "flash_attention_simt_zamba2": flash112,
           "flash_attention_bwd_sm90": bwd["bfloat16"][
               "flash_attention_bwd_sm90"],
           "flash_attention_bwd": bwd["bfloat16"]["flash_attention_bwd"],
@@ -2472,6 +2598,8 @@ def main() -> int:
           "simt_launches_on_fp32_serving_path": simt_launches,
           "sm90_launches_on_bf16_moe_serving_path": moe_sm90_launches,
           "simt_launches_on_fp32_moe_serving_check": moe_simt_launches,
+          "simt_launches_on_bf16_ssm_serving_path": ssm_simt_launches,
+          "simt_launches_on_fp32_ssm_serving_check": ssm_fp32_launches,
           "chunk_launches_on_serve_path": serve_launches,
           "chunk_launches_on_elastic_path": elastic_launches,
           "chunk_launches_on_sharded_path": sharded_launches,
@@ -2498,15 +2626,23 @@ def main() -> int:
                     {"lm_serve": sm90_launches,
                      "lm_serve_moe": moe_sm90_launches,
                      "lm_train": train_launches["flash_attention_sm90"]}),
-        kernel_line("flash_attention_simt",
-                    "src/repro_torch/kernels/csrc/flash_attention.cu",
-                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
-                    "(float32, other head dims)",
-                    simt_launches, flash32,
-                    {"lm_serve_fp32_check": simt_launches,
-                     "lm_serve_moe_fp32_check": moe_simt_launches,
-                     "lm_train_fp32_check":
-                     fp32_train_launches["flash_attention_simt"]}),
+        {**kernel_line("flash_attention_simt",
+                       "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:33 "
+                       "_flash_kernel (float32, other head dims)",
+                       ssm_simt_launches, flash112,
+                       {"lm_serve_ssm": ssm_simt_launches,
+                        "lm_serve_fp32_check": simt_launches,
+                        "lm_serve_moe_fp32_check": moe_simt_launches,
+                        "lm_serve_ssm_fp32_check": ssm_fp32_launches,
+                        "lm_train_fp32_check":
+                        fp32_train_launches["flash_attention_simt"]}),
+         "case": flash112["case"],
+         "fp32": kernel_line("flash_attention_simt",
+                             "src/repro_torch/kernels/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:33 "
+                             "_flash_kernel (float32)", simt_launches,
+                             flash32)},
         kernel_line("flash_attention_bwd_sm90",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
                     "none: no TPU kernel is replaced; the gradient of "

@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch deepseek-moe-16b] [--layers 16]
 
+``--arch`` takes any config the port serves: the dense and MoE decoders,
+zamba2-7b and xlstm-125m.
+
 Serves ``--arch`` (qwen3-0.6b unless given) at full width through
 ``make_serve_steps``, ``--layers`` of its layers where given (random bf16
 weights from a seed; B=4 prompts of 2048 tokens, a cache for 2112) and

@@ -33,7 +33,13 @@ def make_train_step(cfg: ModelConfig, device=None,
     or MoE decoder gets a gradient). ``p_shapes`` and ``opt_shapes`` are
     meta-device tensors. Raises unless ``device`` is given or a CUDA
     device is present (the step follows its inputs; ``device`` is where
-    ``model.init`` puts them by default)."""
+    ``model.init`` puts them by default). zamba2 and xLSTM raise
+    ``NotImplementedError``: they serve, and their training waits for
+    ROADMAP A8.7."""
+    if cfg.block in ("mamba2", "xlstm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the {cfg.block} stack but does not "
+            "train it yet (ROADMAP A8.7)")
     model = build(cfg, resolve_device(device))
     p_shapes = model.abstract_params()
     opt_shapes = adamw.init(p_shapes, compress=compress_grads)

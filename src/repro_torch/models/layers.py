@@ -16,7 +16,9 @@ What differs from the reference:
   bf16 tensor-core kernel rounds them to bf16 as ``_sdpa`` casts them to
   v's dtype, but after the running max, not after the whole softmax, so
   in bf16 the two differ by rounding.
-  Windowed attention and decode keep ``_sdpa``. ``_sdpa_chunked`` and
+  Windowed attention and decode keep ``_sdpa``, but for zamba2's shared
+  attention (``windowed_attention``): while its window covers the prompt,
+  that is causal attention, and it runs the kernel. ``_sdpa_chunked`` and
   ``REPRO_ATTN_CHUNK`` have no counterpart: the kernel replaces them.
 * ``attention_decode`` writes the new K/V into the cache in place.
 * There is no mesh, so ``shard_act`` has no counterpart.
@@ -197,6 +199,24 @@ def attention_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             if causal else None
         out = _sdpa(q, k, v, mask, cfg)
     return out @ p["wo"]
+
+
+def windowed_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                       pos: torch.Tensor, window: int
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Causal self-attention over a sliding window of ``window`` keys
+    (prefill / full forward), as the reference's zamba2 shared attention
+    computes it with ``causal_mask(S, S, window)``. Returns (out, k, v),
+    k and v for a prefill's cache. While ``S <= window`` the window masks
+    nothing the causal mask does not, so it runs the flash kernel
+    (``flash_sdpa``); past it, the masked ``_sdpa``."""
+    q, k, v = _qkv(p, cfg, x, pos)
+    S = x.shape[1]
+    if S <= window:
+        out = flash_sdpa(q, k, v)
+    else:
+        out = _sdpa(q, k, v, causal_mask(S, S, window, device=x.device), cfg)
+    return out @ p["wo"], k, v
 
 
 def cross_attention_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -1,10 +1,12 @@
 """Unified model API: build(cfg) -> Model with init / loss / prefill /
 decode_step / make_cache / abstract_params / input_specs.
 
-Port of ``repro.models.model`` for decoder-only configs, dense and MoE
-(deepseek-moe-16b, mixtral-8x7b). Parameters are nested dicts of tensors,
+Port of ``repro.models.model`` for the decoder-only configs: dense, MoE
+(deepseek-moe-16b, mixtral-8x7b), the zamba2 hybrid (``block="mamba2"``)
+and xLSTM (``block="xlstm"``). Parameters are nested dicts of tensors,
 name for name the reference's pytree, with the layers stacked ``[L, ...]``
-(``convert.params_from_jax`` carries them across). Entry points that
+(zamba2's and xLSTM's groups ``[n_super, inner, ...]``;
+``convert.params_from_jax`` carries them across). Entry points that
 create tensors (``init``, ``make_cache``) run on the card unless given
 ``device="cpu"``; the rest follow their inputs.
 
@@ -12,9 +14,13 @@ create tensors (``init``, ``make_cache``) run on the card unless given
 and return it: a cache that went through either holds the new state, so a
 caller that wants the old one keeps a clone. ``prefill`` fills the whole
 cache ``make_cache`` gave (see ``transformer.decoder_prefill`` for where
-that departs from the reference). ``loss`` is the reference's, and
-differentiable: its attention runs ``FlashAttention`` under grad, and a
-MoE stack adds its auxiliary loss.
+that departs from the reference). A zamba2 or xLSTM cache holds the
+recurrent states (fp32) beside zamba2's shared-attention K/V, as the
+reference's ``make_cache`` lays them out; ``prefill`` writes every leaf.
+``loss`` is the reference's, and differentiable: its attention runs
+``FlashAttention`` under grad, and a MoE stack adds its auxiliary loss.
+(zamba2 and xLSTM take the loss's value; ``launch.steps`` does not train
+them yet.)
 ``abstract_params`` gives meta-device tensors (the reference's
 ``ShapeDtypeStruct``s) and ``input_specs`` ``(shape, dtype)`` pairs for
 the text inputs; the VLM patch prefix and the audio frames are not ported
@@ -66,20 +72,27 @@ class Model:
     def init(self, generator: torch.Generator, device=None) -> Params:
         """Random parameters drawn from ``generator`` (on its own device),
         placed on ``device``: the model's, else the card."""
-        return T.decoder_init(generator, self.cfg, self._device(device))
+        return _INIT[self.cfg.block](generator, self.cfg,
+                                     self._device(device))
 
     def abstract_params(self) -> Params:
         """The parameters' shapes and dtypes as meta-device tensors (no
         storage, nothing drawn)."""
-        return T.decoder_init(None, self.cfg, torch.device("meta"))
+        return _INIT[self.cfg.block](None, self.cfg, torch.device("meta"))
 
     # ---------------------------------------------------------- forward ----
     def _trunk(self, params: Params, x, pos, state=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the normed hidden states, the MoE auxiliary loss summed over
-        the layers); ``state`` is a decode step's ``(k, v)`` caches,
+        the layers, 0 for other stacks); ``state`` is a decode step's
+        cache (the dense stack's ``(k, v)``, zamba2's and xLSTM's dict),
         updated in place."""
-        return T.decoder_fwd(self.cfg, params, x, pos, state)
+        cfg = self.cfg
+        if cfg.block == "attn":
+            return T.decoder_fwd(cfg, params, x, pos, state)
+        h = _STACK[cfg.block](cfg, params, x, pos, state,
+                              decode=state is not None)
+        return h, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def _embed_inputs(self, params: Params, batch: Dict) -> Tuple:
         """Returns (x, pos)."""
@@ -115,13 +128,43 @@ class Model:
 
     # ---------------------------------------------------------- serving ----
     def make_cache(self, B: int, ctx: int, device=None) -> Any:
-        """Zeroed K/V caches sized for a context of ``ctx`` tokens:
-        ``{"k", "v"}``, each ``[L, B, Tw, Hkv, dh]``."""
+        """The decode state sized for a context of ``ctx`` tokens: for
+        attention stacks the zeroed K/V caches ``{"k", "v"}``, each ``[L,
+        B, Tw, Hkv, dh]``; for zamba2 ``{"ssm", "ak", "av"[, "tail_ssm"]}``
+        and for xLSTM ``{"mC", "mn", "sc", "sn"}``, the reference's
+        leaves (the recurrent states in fp32, sLSTM's ``n`` at ones)."""
         cfg = self.cfg
+        dev = self._device(device)
+        dt = L._dtype(cfg)
+
+        def f32(*shape, fill=0.0):
+            return torch.full(shape, fill, dtype=torch.float32, device=dev)
+
+        if cfg.block == "mamba2":
+            inner = cfg.attn_every
+            n_super, tail = T._groups(cfg, inner)
+            H = 2 * cfg.d_model // cfg.ssm_headdim
+            N, P = cfg.ssm_state, cfg.ssm_headdim
+            Tw = min(ctx, T.ZAMBA_WINDOW)
+            ak = torch.zeros((n_super, B, Tw, cfg.n_kv_heads, cfg.d_head),
+                             dtype=dt, device=dev)
+            st = {"ssm": f32(n_super, inner, B, H, N, P), "ak": ak,
+                  "av": torch.zeros_like(ak)}
+            if tail:
+                st["tail_ssm"] = f32(tail, B, H, N, P)
+            return st
+        if cfg.block == "xlstm":
+            inner = cfg.slstm_every - 1
+            n_super, _ = T._groups(cfg, cfg.slstm_every)
+            H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+            return {"mC": f32(n_super, inner, B, H, dh, dh),
+                    "mn": f32(n_super, inner, B, H, dh),
+                    "sc": f32(n_super, B, cfg.d_model),
+                    "sn": f32(n_super, B, cfg.d_model, fill=1.0)}
         T._decoder_only(cfg)
         Tw = min(ctx, cfg.swa_window) if cfg.swa_window else ctx
         k = torch.zeros((cfg.n_layers, B, Tw, cfg.n_kv_heads, cfg.d_head),
-                        dtype=L._dtype(cfg), device=self._device(device))
+                        dtype=dt, device=dev)
         return {"k": k, "v": torch.zeros_like(k)}
 
     def prefill(self, params: Params, batch: Dict, cache: Any
@@ -130,7 +173,11 @@ class Model:
         fp32, the cache primed in place)."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params, batch)
-        h = T.decoder_prefill(cfg, params, x, pos, (cache["k"], cache["v"]))
+        if cfg.block == "attn":
+            h = T.decoder_prefill(cfg, params, x, pos,
+                                  (cache["k"], cache["v"]))
+        else:
+            h = _STACK[cfg.block](cfg, params, x, pos, cache)
         logits = L.unembed(params["embed"], cfg, h[:, -1:]).float()
         return logits, cache
 
@@ -142,7 +189,8 @@ class Model:
         B = tokens.shape[0]
         x = L.embed(params["embed"], tokens)
         pos = _decode_pos(B, pos_scalar, cfg.m_rope, device=x.device)
-        h, _ = self._trunk(params, x, pos, state=(cache["k"], cache["v"]))
+        state = (cache["k"], cache["v"]) if cfg.block == "attn" else cache
+        h, _ = self._trunk(params, x, pos, state=state)
         return L.unembed(params["embed"], cfg, h).float(), cache
 
     # ------------------------------------------------------ input specs ----
@@ -163,6 +211,11 @@ class Model:
         if mode == "decode":
             return {"tokens": ((B, 1), torch.int32)}
         raise ValueError(f"input_specs: unknown mode {mode!r}")
+
+
+_INIT = {"attn": T.decoder_init, "mamba2": T.zamba2_init,
+         "xlstm": T.xlstm_init}
+_STACK = {"mamba2": T.zamba2_fwd, "xlstm": T.xlstm_fwd}
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

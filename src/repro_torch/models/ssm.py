@@ -1,0 +1,205 @@
+"""Recurrent blocks: Mamba2 (SSD, for zamba2) and xLSTM (mLSTM/sLSTM).
+
+Port of ``repro.models.ssm``: the same names, parameter leaves and
+arithmetic on torch tensors. Each ``lax.scan`` over the sequence becomes a
+Python loop over its steps, with the state in fp32. The reference has no
+Pallas kernel here, so none is ported: the steps are plain PyTorch ops.
+
+What differs from the reference:
+
+* A state given to ``mamba2_fwd``, ``mlstm_fwd`` or ``slstm_fwd`` is left
+  as it is; the scan copies it into a state of its own and returns views
+  of that. The states are laid out so that a step is few kernels: Mamba2
+  keeps ``h`` as [B,N,H,P], so ``y_t = C_t h_t`` is one ``bmm``; mLSTM
+  keeps n as the last column of ``[C | n]``, updated by v's appended 1,
+  so one product gives ``q.C`` and ``q.n``; sLSTM keeps ``(c, n)`` as one
+  tensor, one ``addcmul`` a step. With grad disabled (the serve steps run
+  under ``inference_mode``) Mamba2's and mLSTM's loops update their state
+  in place, ``h.mul_(decay).addcmul_(b, x)`` and one contraction: three
+  kernels a step, which read and write the state about three times
+  rather than five. With grad enabled they run out of place, as autograd
+  needs.
+* ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus`` is
+  (``F.softplus`` switches to ``x`` past a threshold of 20), computed in
+  the dtype the reference computes it in: mLSTM's input gate in the
+  model's dtype, then cast to fp32; sLSTM's and Mamba2's in fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import _dtype, dense_init, rmsnorm, rmsnorm_init
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` in x's dtype."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+# ---------------------------------------------------------------- mamba2 ----
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    d_in = 2 * d
+    H = d_in // cfg.ssm_headdim
+    N = cfg.ssm_state
+    return {
+        # fused input projection, split by mamba2_fwd as [z, x, B, C, dt]
+        "in_proj": dense_init(gen, d, 2 * d_in + 2 * N + H, dt, device),
+        "out_proj": dense_init(gen, d_in, d, dt, device),
+        "A_log": torch.zeros((H,), dtype=torch.float32, device=device),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "norm": rmsnorm_init(d_in, dt, device),
+    }
+
+
+def _mamba2_scan(xh, Bm, Cm, dtv, A, h0):
+    """Sequential SSD recurrence. xh: [B,S,H,P]; Bm/Cm: [B,S,N]; dtv:
+    [B,S,H]; h0: [B,H,N,P] fp32 or None (zeros). Returns (the final state
+    [B,H,N,P], a view of the scan's own; y [B,S,H,P]).
+
+    The scan keeps the state as [B,N,H,P], so that y_t = C_t h_t is one
+    ``bmm`` of [B,1,N] by [B,N,H*P]: a step is three kernels (decay,
+    outer-product add, contraction), the first two in place with grad
+    disabled."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    decay = torch.exp(-torch.exp(A)[None, None, :] * _softplus(dtv))
+    h = torch.zeros((B, N, H, P), dtype=torch.float32, device=xh.device)
+    if h0 is not None:
+        h.copy_(h0.transpose(1, 2))
+    inplace = not torch.is_grad_enabled()
+    steps = zip(decay[:, :, None, :, None].unbind(1),    # [B,1,H,1]
+                Bm[:, :, :, None, None].unbind(1),       # [B,N,1,1]
+                xh[:, :, None].unbind(1),                # [B,1,H,P]
+                Cm[:, :, None, :].unbind(1))             # [B,1,N]
+    ys = []
+    for dc, b_t, x_t, c_t in steps:
+        if inplace:
+            h.mul_(dc).addcmul_(b_t, x_t)
+        else:
+            h = h * dc + b_t * x_t
+        ys.append(torch.bmm(c_t, h.view(B, N, H * P)))   # [B,1,H*P]
+    return h.transpose(1, 2), torch.stack(ys, 1).view(B, S, H, P)
+
+
+def mamba2_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,d] -> (y, final_state [B,H,N,P] fp32)."""
+    B, S, d = x.shape
+    d_in = 2 * d
+    P = cfg.ssm_headdim
+    H = d_in // P
+    N = cfg.ssm_state
+    z, xr, Bm, Cm, dtv = torch.split(x @ p["in_proj"],
+                                     [d_in, d_in, N, N, H], dim=-1)
+    xh = xr.reshape(B, S, H, P).float()
+    dtv = dtv.float() + p["dt_bias"]
+    h, y = _mamba2_scan(xh, Bm.float(), Cm.float(), dtv, p["A_log"], state)
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
+    return y @ p["out_proj"], h
+
+
+# ----------------------------------------------------------------- xlstm ----
+def mlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    return {
+        "wq": dense_init(gen, d, d, dt, device),
+        "wk": dense_init(gen, d, d, dt, device),
+        "wv": dense_init(gen, d, d, dt, device),
+        "wi": dense_init(gen, d, cfg.n_heads, dt, device),   # input gate
+        "wf": dense_init(gen, d, cfg.n_heads, dt, device),   # forget gate
+        "wo": dense_init(gen, d, d, dt, device),
+        "norm": rmsnorm_init(d, dt, device),
+    }
+
+
+def mlstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              state: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
+    """Matrix-memory LSTM. state = (C [B,H,dh,dh], n [B,H,dh]), fp32."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    q = (x @ p["wq"]).reshape(B, S, H, dh).float()
+    k = (x @ p["wk"]).reshape(B, S, H, dh).float() / math.sqrt(dh)
+    v = (x @ p["wv"]).reshape(B, S, H, dh).float()
+    # the input gate in x's dtype, as the reference computes it
+    ig = torch.exp(-_softplus(-(x @ p["wi"]))).float()
+    fg = torch.sigmoid((x @ p["wf"]).float())
+    # C and n in one [B,H,dh,dh+1] state: n is C's last column, updated
+    # by v's appended 1 (f n + i k 1), so q C gives q.C and q.n at once
+    Cn = torch.zeros((B, H, dh, dh + 1), dtype=torch.float32,
+                     device=x.device)
+    if state is not None:
+        Cn[..., :dh].copy_(state[0])
+        Cn[..., dh].copy_(state[1])
+    v1 = torch.cat([v, v.new_ones((B, S, H, 1))], -1)      # [B,S,H,dh+1]
+    inplace = not torch.is_grad_enabled()
+    steps = zip(fg[..., None, None].unbind(1),              # [B,H,1,1]
+                (ig[..., None] * k)[..., None].unbind(1),    # [B,H,dh,1]
+                v1[:, :, :, None].unbind(1),                # [B,H,1,dh+1]
+                q.transpose(0, 1).contiguous()[:, :, :, None])  # [B,H,1,dh]
+    outs = []
+    for f_t, ik_t, v_t, q_t in steps:
+        if inplace:
+            Cn.mul_(f_t).addcmul_(ik_t, v_t)
+        else:
+            Cn = f_t * Cn + ik_t * v_t
+        outs.append(torch.matmul(q_t, Cn))                  # [B,H,1,dh+1]
+    out = torch.stack(outs, 1)[:, :, :, 0]                  # [B,S,H,dh+1]
+    y = out[..., :dh] / out[..., dh:].abs().clamp_min(1.0)
+    y = y.reshape(B, S, d).to(x.dtype)
+    y = rmsnorm(p["norm"], y, cfg.norm_eps)
+    return y @ p["wo"], (Cn[..., :dh], Cn[..., dh])
+
+
+def slstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    return {
+        "wz": dense_init(gen, d, d, dt, device),
+        "wi": dense_init(gen, d, d, dt, device),
+        "wf": dense_init(gen, d, d, dt, device),
+        "wo": dense_init(gen, d, d, dt, device),
+        "proj": dense_init(gen, d, d, dt, device),
+        "norm": rmsnorm_init(d, dt, device),
+    }
+
+
+def slstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              state: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
+    """Scalar-memory LSTM. state = (c [B,d], n [B,d]), fp32; n starts at
+    ones."""
+    B, S, d = x.shape
+    z = torch.tanh((x @ p["wz"]).float())
+    ig = torch.exp(-_softplus(-(x @ p["wi"]).float()))
+    fg = torch.sigmoid((x @ p["wf"]).float())
+    og = torch.sigmoid((x @ p["wo"]).float())
+    # c and n in one [B,2,d] state, out of place: one kernel a step
+    # (c, n) <- f (c, n) + (i z, i), and every step's (c, n) is kept
+    cn = torch.zeros((B, 2, d), dtype=torch.float32, device=x.device)
+    if state is None:
+        cn[:, 1] = 1.0
+    else:
+        cn[:, 0].copy_(state[0])
+        cn[:, 1].copy_(state[1])
+    add = torch.stack([ig * z, ig], 2)                      # [B,S,2,d]
+    cns = []
+    for f_t, a_t in zip(fg[:, :, None].unbind(1), add.unbind(1)):
+        cn = torch.addcmul(a_t, cn, f_t)
+        cns.append(cn)
+    cns = torch.stack(cns, 1)                               # [B,S,2,d]
+    y = (og * cns[:, :, 0] / cns[:, :, 1].clamp_min(1.0)).to(x.dtype)
+    y = rmsnorm(p["norm"], y, cfg.norm_eps)
+    return y @ p["proj"], (cn[:, 0], cn[:, 1])

@@ -1,31 +1,46 @@
-"""Decoder-only model stack: stacked ``[L, ...]`` layers applied in a loop.
+"""Model stacks: decoder-only, hybrid (zamba2) and xLSTM, with stacked
+``[L, ...]`` layers applied in a loop.
 
-Port of the decoder-only branch of ``repro.models.transformer`` (lines
-60-160), dense and MoE blocks: ``dense_block_init/fwd``,
-``decoder_init/fwd``, ``_ring`` and ``decoder_prefill``. ``scan_layers``
-becomes a Python loop over the layer axis of the stacked leaves.
+Port of ``repro.models.transformer`` but for its encoder-decoder stack:
+the decoder-only branch (lines 60-160), dense and MoE blocks
+(``dense_block_init/fwd``, ``decoder_init/fwd``, ``_ring``,
+``decoder_prefill``), zamba2 (``zamba2_init/fwd``, ``_mamba_layer_*``,
+``ZAMBA_WINDOW``; lines 184-300) and xLSTM (``xlstm_init/fwd``,
+``_xl_layer_init``; lines 304-366). ``scan_layers`` becomes a Python loop
+over the layer axis of the stacked leaves; a group of zamba2 or xLSTM
+(the reference's super-layer) is a loop over its inner layers.
 ``_remat``'s counterpart: with grad enabled, ``decoder_fwd`` runs each
 layer under ``torch.utils.checkpoint`` (non-reentrant), which saves the
 layer's input and recomputes the rest in the backward pass (the
 reference's ``REPRO_REMAT=min``; its default policy also saves the matrix
 products, and ``REPRO_REMAT`` has no counterpart).
 
-One departure from the reference: ``decoder_prefill`` fills caches of the
-length ``Tw`` the caller allocated, with prompt token t in slot ``t % Tw``
-for the last ``min(S, Tw)`` tokens. The reference's ``_ring`` returns only
-``S`` slots when ``S < Tw``, so its first decode step writes slot
-``S % S = 0`` over the first prompt token (ROADMAP queue C). For
-``S >= Tw`` both give the same cache.
+One departure from the reference: ``decoder_prefill`` and zamba2's
+prefill fill caches of the length ``Tw`` the caller allocated, with prompt
+token t in slot ``t % Tw`` for the last ``min(S, Tw)`` tokens. The
+reference's ``_ring`` returns only ``S`` slots when ``S < Tw`` (its
+``decoder_prefill`` and its zamba2 ``capture_kv``, lines 262-263), so its
+first decode step writes slot ``S % S = 0`` over the first prompt token
+(ROADMAP queue C). For ``S >= Tw`` both give the same cache.
 
 A MoE block (``cfg.is_moe``) runs ``moe.moe_fwd`` in place of the MLP and
 returns its auxiliary loss, which ``decoder_fwd`` sums over the layers as
-the reference's scan carry does. zamba2 (mamba2), xLSTM and the
-encoder-decoder stack are not ported yet (ROADMAP A8) and raise
-``NotImplementedError``.
+the reference's scan carry does. The encoder-decoder stack is not
+ported yet (ROADMAP A8) and raises ``NotImplementedError``.
+
+zamba2's shared attention runs ``layers.windowed_attention``: the flash
+kernel while the prompt fits ``ZAMBA_WINDOW`` (the window then masks
+nothing the causal mask does not), the masked ``_sdpa`` past it; its
+decode keeps ``attention_decode(..., window=ZAMBA_WINDOW)``. The zamba2
+and xLSTM forwards take ``cache=None`` for a full forward, a cache for a
+prefill (from the initial state; every state leaf and K/V slot of the
+cache is written) or, with ``decode=True``, a decode step from the
+cache's state, written back in place. There is no remat: these stacks
+serve but do not train yet.
 
 ``_stack_init`` allocates each stacked leaf once and fills layer i in
-place as it is drawn, so an init holds the parameters plus one layer, not
-the parameters twice.
+place as it is drawn, so an init holds the parameters plus one layer (for
+nested stacks, one group), not the parameters twice.
 """
 from __future__ import annotations
 
@@ -36,17 +51,18 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.block != "attn" or cfg.enc_dec:
+    """Refuses the encoder-decoder stack, the one stack not ported."""
+    if cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only attention stacks "
-            "(dense and MoE); zamba2, xLSTM and encoder-decoder wait for "
-            "ROADMAP A8")
+            f"{cfg.name}: the port runs the decoder-only stacks (dense, "
+            "MoE, zamba2, xLSTM); encoder-decoder waits for ROADMAP A8")
 
 
 def _stack_init(gen: torch.Generator, n: int, init_fn) -> Params:
@@ -192,4 +208,153 @@ def decoder_prefill(cfg: ModelConfig, params: Params, x, pos,
             x = x + m
         caches[0][i].copy_(_ring(k, S, Tw))
         caches[1][i].copy_(_ring(v, S, Tw))
+    return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+# ----------------------------------------------------------- zamba2 --------
+ZAMBA_WINDOW = 4096  # shared-attention sliding window (long-context safety)
+
+
+def _groups(cfg: ModelConfig, every: int) -> Tuple[int, int]:
+    """(groups, layers past the last group) of a stack in groups of
+    ``every`` layers."""
+    return cfg.n_layers // every, cfg.n_layers % every
+
+
+def zamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    inner = cfg.attn_every
+    n_super, tail = _groups(cfg, inner)
+    dt = L._dtype(cfg)
+
+    def layer(g):
+        return _mamba_layer_init(g, cfg, device)
+
+    p = {
+        "embed": L.embed_init(gen, cfg, device),
+        "super": _stack_init(gen, n_super,
+                             lambda g: _stack_init(g, inner, layer)),
+        "shared_ln": L.rmsnorm_init(cfg.d_model, dt, device),
+        "shared_attn": L.attention_init(gen, cfg, device),
+        "lnf": L.rmsnorm_init(cfg.d_model, dt, device),
+    }
+    if tail:
+        p["tail"] = _stack_init(gen, tail, layer)
+    return p
+
+
+def _mamba_layer_init(gen: torch.Generator, cfg: ModelConfig,
+                      device) -> Params:
+    dt = L._dtype(cfg)
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
+        "mamba": SSM.mamba2_init(gen, cfg, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, dt, device),
+        "mlp": L.mlp_init(gen, cfg, device),
+    }
+
+
+def _mamba_layer_fwd(cfg: ModelConfig, p: Params, x, state):
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    m, state = SSM.mamba2_fwd(p["mamba"], cfg, h, state)
+    x = x + m
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_fwd(p["mlp"], cfg, h), state
+
+
+def _mamba_layers(cfg: ModelConfig, stacked: Params, n: int, x, states,
+                  decode: bool):
+    """n Mamba layers from stacked ``[n, ...]`` leaves. ``states``, a
+    ``[n, B, H, N, P]`` cache leaf or None, receives each layer's final
+    state; a decode step starts from it."""
+    for i, p in enumerate(_unstack(stacked, n)):
+        x, s = _mamba_layer_fwd(cfg, p, x, states[i] if decode else None)
+        if states is not None:
+            states[i].copy_(s)
+    return x
+
+
+def zamba2_fwd(cfg: ModelConfig, params: Params, x, pos,
+               cache: Optional[Dict] = None, decode: bool = False):
+    """Returns the normed hidden states. ``cache``: {"ssm": [n_super,
+    inner, B,H,N,P], "tail_ssm": [tail, ...], "ak"/"av": [n_super, B, Tw,
+    Hkv, dh]}, or None for a full forward. A prefill (``decode`` False)
+    runs from the zero state and writes every leaf of the cache (K/V by
+    ``_ring``, all Tw slots); a decode step runs from the cache and
+    updates it in place."""
+    inner = cfg.attn_every
+    n_super, _ = _groups(cfg, inner)
+    S = x.shape[1]
+    ssm = None if cache is None else cache["ssm"]
+    for g, pg in enumerate(_unstack(params["super"], n_super)):
+        x = _mamba_layers(cfg, pg, inner, x,
+                          None if ssm is None else ssm[g], decode)
+        # shared attention block (weights shared across groups)
+        hn = L.rmsnorm(params["shared_ln"], x, cfg.norm_eps)
+        if decode:
+            a, _, _ = L.attention_decode(params["shared_attn"], cfg, hn,
+                                         cache["ak"][g], cache["av"][g],
+                                         pos, window=ZAMBA_WINDOW)
+        else:
+            a, k, v = L.windowed_attention(params["shared_attn"], cfg, hn,
+                                           pos, ZAMBA_WINDOW)
+            if cache is not None:
+                Tw = cache["ak"].shape[2]
+                cache["ak"][g].copy_(_ring(k, S, Tw))
+                cache["av"][g].copy_(_ring(v, S, Tw))
+        x = x + a
+    if "tail" in params:
+        nt = params["tail"]["ln1"]["scale"].shape[0]
+        x = _mamba_layers(cfg, params["tail"], nt, x,
+                          None if cache is None else cache["tail_ssm"],
+                          decode)
+    return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+# ------------------------------------------------------------ xlstm --------
+def xlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    inner = cfg.slstm_every - 1          # mLSTM layers per group
+    n_super, _ = _groups(cfg, cfg.slstm_every)
+
+    def group_init(g):
+        return {"m": _stack_init(g, inner, lambda g2: _xl_layer_init(
+                    g2, cfg, "m", device)),
+                "s": _xl_layer_init(g, cfg, "s", device)}
+
+    return {
+        "embed": L.embed_init(gen, cfg, device),
+        "super": _stack_init(gen, n_super, group_init),
+        "lnf": L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device),
+    }
+
+
+def _xl_layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                   device) -> Params:
+    p = {"ln": L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device)}
+    p["core"] = SSM.mlstm_init(gen, cfg, device) if kind == "m" else \
+        SSM.slstm_init(gen, cfg, device)
+    return p
+
+
+def xlstm_fwd(cfg: ModelConfig, params: Params, x, pos,
+              cache: Optional[Dict] = None, decode: bool = False):
+    """Returns the normed hidden states. ``cache``: {"mC": [n_super, inner,
+    B,H,dh,dh], "mn": [n_super, inner, B,H,dh], "sc"/"sn": [n_super, B,
+    d]}, or None for a full forward; a prefill writes the final states
+    into it, a decode step starts from them and updates them in place.
+    ``pos`` is unused: these layers have no positions."""
+    inner = cfg.slstm_every - 1
+    n_super, _ = _groups(cfg, cfg.slstm_every)
+
+    def run(fwd, p, h, keys, idx):
+        s0 = tuple(cache[k][idx] for k in keys) if decode else None
+        y, s = fwd(p["core"], cfg, L.rmsnorm(p["ln"], h, cfg.norm_eps), s0)
+        if cache is not None:
+            for k, v in zip(keys, s):
+                cache[k][idx].copy_(v)
+        return h + y
+
+    for g, pg in enumerate(_unstack(params["super"], n_super)):
+        for i, p in enumerate(_unstack(pg["m"], inner)):
+            x = run(SSM.mlstm_fwd, p, x, ("mC", "mn"), (g, i))
+        x = run(SSM.slstm_fwd, pg["s"], x, ("sc", "sn"), g)
     return L.rmsnorm(params["lnf"], x, cfg.norm_eps)

@@ -458,6 +458,46 @@ def test_moe_prefill_and_decode_on_card_match_cpu(cuda, name):
     assert torch.equal(toks, tokc)
 
 
+@pytest.mark.parametrize("name", ["zamba2-7b", "xlstm-125m"])
+def test_ssm_prefill_and_decode_on_card_match_cpu(cuda, name):
+    """The SSM SMOKE configs in float32: the serve steps on the card (the
+    scans in place under ``inference_mode``; zamba2's shared attention on
+    the flash kernel, one launch a group, its window covering the
+    prompt) against the same on the CPU: the logits within 1e-4, the same
+    greedy tokens, and each state leaf within 1e-4 of its max (the
+    recurrences carry both devices' rounding through 100 steps; zamba2's
+    second group's K sat 1.8e-4 from the CPU's at one element)."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_serve_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKE[name].scaled(dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, prefill, decode = make_serve_steps(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        fa.reset_counts()
+        logits, cache = prefill(params, {"tokens": tokens.to(dev)},
+                                model.make_cache(2, 128))
+        launches = fa.COUNTS["flash_attention_simt"]
+        tok, seq = torch.argmax(logits[:, -1], -1)[:, None], []
+        for i in range(4):
+            tok, cache = decode(params, tok, cache, 100 + i)
+            seq.append(tok.cpu())
+        outs.append((logits.cpu(), torch.cat(seq, 1), launches,
+                     {k: v.cpu() for k, v in cache.items()}))
+    (lg, toks, n, ck), (lc, tokc, nc, cc) = outs
+    groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    assert n == groups and nc == 0
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(toks, tokc)
+    for k in cc:
+        err = float((ck[k] - cc[k]).abs().max())
+        assert err <= 1e-4 * float(cc[k].abs().max()), (k, err)
+
+
 def test_moe_slots_on_card_match_cpu(cuda):
     """``moe.slots`` at deepseek-moe-16b's prefill width of routing (T =
     8192 tokens, top-6 of 64, skewed to a few experts) on the card: the
