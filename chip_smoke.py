@@ -15,9 +15,10 @@ against its plain PyTorch version on the card:
   memory) and on the first two Vcycles of each of the nine full circuits;
 * flash attention against ``flash_ref`` (fp32 within 1e-4, bf16 within
   2e-2) at the reference kernel test's five shapes, GQA, a tail tile, a
-  non-causal shape and the qwen3-0.6b, deepseek-moe-16b and zamba2-7b
-  prefills' (zamba2's shared attention: bf16 at dh 112), each on the
-  kernel that
+  non-causal shape and the qwen3-0.6b, deepseek-moe-16b, zamba2-7b,
+  whisper-medium (its encoder, not causal over 1500 frames, and its
+  decoder, both at dh 64) and qwen2-vl-72b (G 8) prefills' (zamba2's
+  shared attention: bf16 at dh 112), each on the kernel that
   ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the wgmma
   kernel ``flash_attention_sm90.cu``, float32 (and bf16 at other head
   dims) on the 3xTF32 kernel ``flash_attention.cu``, there also saving lse
@@ -75,6 +76,20 @@ launch counts set to 0 just before and read just after:
   ``param_count`` x 2; float32 checks at 9 layers as for qwen3-0.6b (1
   launch a prefill); then xlstm-125m whole (no attention, no kernel),
   32 decode steps and its float32 checks;
+* encoder-decoder serving, ``make_serve_steps`` on whisper-medium at full
+  width and all 48 layers (24 encoder, 24 decoder; random weights from a
+  seed): B=4 prompts of 224 tokens over 1500 frames (a numpy seed), a
+  cache for whisper's 448-token text context, one prefill (48
+  ``flash_attention_sm90`` launches: the encoder's 24 not causal at BH
+  64, S 1500, dh 64, the decoder's 24 causal at S 224) and 32 greedy
+  decode steps (cross-attention on ``_sdpa``), 3 timed prefills and the
+  decode loop again, prefill tokens/s beside encoder frames/s; float32
+  checks at full depth as for qwen3-0.6b (48 launches a prefill);
+* VLM serving, ``make_serve_steps`` on qwen2-vl-72b at full width and 24
+  of its 80 layers: B=4 prompts of 256 patches (a numpy seed) and 2048
+  tokens, a cache for 2336, one prefill (24 ``flash_attention_sm90``
+  launches, causal, BH 256 over BHkv 32, S 2304, dh 128) and 8 decode
+  steps from position 2304; float32 checks at 2 layers;
 * LM training, ``repro_torch.launch.steps.make_train_step`` on qwen3-0.6b
   at full width in bf16 over ``TokenPipeline`` batches of 4 x 2048
   tokens: a warm-up step and three timed ones, each 56
@@ -88,13 +103,14 @@ launch counts set to 0 just before and read just after:
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
 prefill's shape in bf16, the 3xTF32 kernel in bf16 at zamba2-7b's
-prefill shape (dh 112, the SSM serving path's) against the plain
-version and SDPA in turns, the 3xTF32 kernel with and without lse, the
-plain version and SDPA in turns in float32, and in bf16 both backward
-kernels, the plain version and SDPA's backward in turns, in float32 the
-3xTF32 one with and without lse; the float32 rows give the fp32
-CUDA-core bound and the 3xTF32 tensor-core bound). Each
-Vcycle case of the timing also reports what bounds the kernel: the
+prefill shape (dh 112, the SSM serving path's) and the wgmma kernel at
+whisper-medium's encoder shape and qwen2-vl-72b's prefill shape, each
+against the plain version and SDPA in turns, the 3xTF32 kernel with and
+without lse, the plain version and SDPA in turns in float32, and in bf16
+both backward kernels, the plain version and SDPA's backward in turns,
+in float32 the 3xTF32 one with and without lse; the float32 rows give
+the fp32 CUDA-core bound and the 3xTF32 tensor-core bound). Each Vcycle
+case of the timing also reports what bounds the kernel: the
 busiest core's rows a Vcycle (``busy_rows``), the kernel's ns per such row
 (``ns_per_busy_row``), the bytes of code rows it reads a launch
 (``code_bytes``) and, for the chunk kernel, its shared memory a block,
@@ -1188,6 +1204,14 @@ FLASH_CASES = (
     # the zamba2-7b prefill's shared attention: B=4 x H=32 over Hkv=32,
     # dh = 3584 / 32 = 112, so bf16 on flash_attention.cu
     (LM_BATCH * 32, LM_BATCH * 32, LM_PROMPT, 112, "bfloat16", True),
+    # whisper-medium: its encoder over 1500 frames (B=4 x H=16, dh = 64,
+    # not causal; a ragged tail tile of 92 rows) and its decoder's prefill
+    # over 224 tokens
+    (LM_BATCH * 16, LM_BATCH * 16, 1500, 64, "bfloat16", False),
+    (LM_BATCH * 16, LM_BATCH * 16, 224, 64, "bfloat16", True),
+    # the qwen2-vl-72b prefill: B=4 x H=64 over Hkv=8 (G=8), 256 patches
+    # and 2048 tokens
+    (LM_BATCH * 64, LM_BATCH * 8, 256 + LM_PROMPT, 128, "bfloat16", True),
 )
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -1391,31 +1415,42 @@ def phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref):
     emit({"phase": "flash_bwd_vs_plain", "cases": cases})
 
 
-def _full_forward_last(torch, model, L, params, tokens):
-    """Last-position logits of a full forward over ``tokens``."""
-    x, pos = model._embed_inputs(params, {"tokens": tokens})
-    h, _ = model._trunk(params, x, pos)
+def _full_forward_last(torch, model, L, params, tokens, extra=None):
+    """Last-position logits of a full forward over ``tokens`` (after a
+    VLM's ``patches``, over a whisper batch's ``frames``: ``extra``)."""
+    x, pos, enc_out, _ = model._embed_inputs(
+        params, {"tokens": tokens, **(extra or {})})
+    h, _ = model._trunk(params, x, pos, enc_out=enc_out)
     return L.unembed(params["embed"], model.cfg, h[:, -1:]).float()
 
 
-def _greedy(torch, model, params, logits, cache, n):
-    """The ``n`` greedy tokens after prefill ``logits`` (decoding in place)
-    and the first decode step's logits."""
+def _greedy(torch, model, params, logits, cache, n, start=LM_PROMPT):
+    """The ``n`` greedy tokens after prefill ``logits`` (decoding in place
+    from position ``start``) and the first decode step's logits."""
     tok = torch.argmax(logits[:, -1], -1)[:, None]
     toks, first = [tok], None
     for i in range(n - 1):
-        logits, cache = model.decode_step(params, tok, cache, LM_PROMPT + i)
+        logits, cache = model.decode_step(params, tok, cache, start + i)
         first = logits if first is None else first
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         toks.append(tok)
     return torch.cat(toks, 1), first
 
 
+def _start(extra, S):
+    """The first decode position after a prompt of S tokens: past a VLM's
+    patches too."""
+    return S + (extra["patches"].shape[1] if "patches" in (extra or {})
+                else 0)
+
+
 def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
-           MOE=None, repeats=3):
+           MOE=None, repeats=3, S=LM_PROMPT, extra=None):
     """``cfg`` in its bf16 through ``make_serve_steps`` on the card:
     parameters from a ``torch.Generator`` seeded ``seed`` (the init's peak
-    bytes), LM_BATCH prompts of LM_PROMPT tokens from a numpy seed, a cache
+    bytes), LM_BATCH prompts of S tokens from a numpy seed (after a VLM's
+    patches, over a whisper batch's frames: ``extra``, decoding from
+    ``_start``), a cache
     for ``ctx``; one counted prefill and ``n_decode`` greedy steps, which
     must launch the flash kernels ``want`` names as many times as it says
     ({kernel: launches}) and nothing else; then ``repeats`` synced
@@ -1425,7 +1460,9 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     allocated before the init (``base_bytes``) beside them."""
     model, prefill_step, decode_step = steps.make_serve_steps(cfg)
     tokens = torch.from_numpy(np.random.default_rng(seed + 13).integers(
-        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+        0, cfg.vocab, (LM_BATCH, S))).cuda()
+    batch = {"tokens": tokens, **(extra or {})}
+    start = _start(extra, S)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1442,11 +1479,11 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     fa.reset_counts()
     kv.reset_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": tokens}, cache)
+    logits, cache = prefill_step(params, batch, cache)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     out = [tok]
     for i in range(n_decode):
-        tok, cache = decode_step(params, tok, cache, LM_PROMPT + i)
+        tok, cache = decode_step(params, tok, cache, start + i)
         out.append(tok)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1469,7 +1506,7 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill_step(params, {"tokens": tokens}, cache)
+        logits, cache = prefill_step(params, batch, cache)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
     # decode tokens/s: the n_decode-step loop again, on the fresh cache
@@ -1477,25 +1514,24 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n_decode):
-        tok, cache = decode_step(params, tok, cache, LM_PROMPT + i)
+        tok, cache = decode_step(params, tok, cache, start + i)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     res = {"arch": cfg.name, "call": "repro_torch.launch.steps."
            f"make_serve_steps(ARCHS['{cfg.name}'])",
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
-           "B": LM_BATCH, "S": LM_PROMPT, "ctx": ctx,
+           "B": LM_BATCH, "S": S, "ctx": ctx,
+           "inputs": {k: list(v.shape) for k, v in batch.items()},
            "decode_steps": n_decode, "launches_per_run": counts,
            "first_run_s": first_s, "prefill_s": prefill_s,
-           "prefill_tokens_per_s": [LM_BATCH * LM_PROMPT / t
-                                    for t in prefill_s],
+           "prefill_tokens_per_s": [LM_BATCH * S / t for t in prefill_s],
            "decode_s": decode_s,
            "decode_tokens_per_s": LM_BATCH * n_decode / decode_s,
            "peak_memory_bytes": peak, "base_bytes": base,
            "init_s": init_s, "init_peak_bytes": init_peak}
     if MOE is not None:
-        _, calls = _spy_moe(MOE, lambda: prefill_step(
-            params, {"tokens": tokens}, cache))
+        _, calls = _spy_moe(MOE, lambda: prefill_step(params, batch, cache))
         if len(calls) != cfg.n_layers:
             raise AssertionError(f"{cfg.name}: {len(calls)} MoE calls in a "
                                  f"prefill of {cfg.n_layers} layers")
@@ -1507,35 +1543,39 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
 
 
 def _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens, ctx,
-                 want=None):
-    """``cfg`` in float32 at full width on the card: (a) the kernel
-    prefill (``want`` ``flash_attention_simt`` launches, counted; one a
-    layer unless given) == the same model on ``flash_ref`` (logits within
-    1e-3, LM_GREEDY_CHECK greedy tokens equal) and (b) the first decode
-    step == a full forward over the S+1 tokens (within 1e-3). Returns its
+                 want=None, extra=None):
+    """``cfg`` in float32 at full width on the card, on ``tokens`` (after
+    or over ``extra``, as ``_serve``): (a) the kernel prefill (``want``
+    ``flash_attention_simt`` launches, counted; one a layer unless given)
+    == the same model on ``flash_ref`` (logits within 1e-3,
+    LM_GREEDY_CHECK greedy tokens equal) and (b) the first decode step ==
+    a full forward over the S+1 tokens (within 1e-3). Returns its
     numbers."""
     from unittest import mock
     cfg = cfg.scaled(dtype="float32")
     want = cfg.n_layers if want is None else want
     m32 = steps.make_serve_steps(cfg)[0]
     p32 = m32.init(torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": tokens, **(extra or {})}
+    start = _start(extra, tokens.shape[1])
     with torch.inference_mode():
         c_k = m32.make_cache(LM_BATCH, ctx)
         fa.reset_counts()
-        lk, c_k = m32.prefill(p32, {"tokens": tokens}, c_k)
+        lk, c_k = m32.prefill(p32, batch, c_k)
         launches32 = fa.COUNTS["flash_attention_simt"]
         if launches32 != want or fa.COUNTS["flash_attention_sm90"]:
             raise AssertionError(f"float32 prefill launched {fa.COUNTS} "
                                  f"(not {want} flash_attention_simt)")
-        greedy_k, first = _greedy(torch, m32, p32, lk, c_k, LM_GREEDY_CHECK)
+        greedy_k, first = _greedy(torch, m32, p32, lk, c_k, LM_GREEDY_CHECK,
+                                  start)
         del c_k
         full = _full_forward_last(torch, m32, L, p32, torch.cat(
-            [tokens, greedy_k[:, :1]], 1))
+            [tokens, greedy_k[:, :1]], 1), extra)
         with mock.patch.object(L, "flash_attention", flash_ref):
             c_p = m32.make_cache(LM_BATCH, ctx)
-            lp, c_p = m32.prefill(p32, {"tokens": tokens}, c_p)
+            lp, c_p = m32.prefill(p32, batch, c_p)
             greedy_p, _ = _greedy(torch, m32, p32, lp, c_p,
-                                  LM_GREEDY_CHECK)
+                                  LM_GREEDY_CHECK, start)
             del c_p
     torch.cuda.synchronize()
     err_a = float((lk - lp).abs().max())
@@ -1755,6 +1795,141 @@ def phase_lm_serve_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, smi):
           "attention_d_head": cfg.d_head,
           "fp32_check_layers": SSM_CHECK_LAYERS, **checks,
           "xlstm": {**xlstm, **xchecks}})
+    return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
+
+
+ENCDEC_ARCH, ENCDEC_S, ENCDEC_DECODE = "whisper-medium", 224, 32
+# whisper's text context: n_text_ctx in the model dimensions that
+# openai/whisper's model.py publishes for every size
+ENCDEC_CTX = 448
+VLM_ARCH, VLM_LAYERS, VLM_DECODE = "qwen2-vl-72b", 24, 8
+VLM_PATCHES = 256          # the reference's input_specs
+VLM_CTX = VLM_PATCHES + LM_PROMPT + 32
+VLM_CHECK_LAYERS = 2      # the float32 checks, as lm_serve_moe's
+
+
+def _frontend(torch, profile_serve, cfg, seed):
+    """``profile_serve.frontend_inputs`` (whisper's frames or qwen2-vl's
+    patches, x0.02 from a numpy seed) as float32 on the card; the model
+    casts them to its dtype."""
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            profile_serve.frontend_inputs(
+                cfg, LM_BATCH, np.random.default_rng(seed)).items()}
+
+
+def _spy_flash(L):
+    """A patch of ``L.flash_attention`` recording (q's shape, k's shape,
+    causal) of each call."""
+    from unittest import mock
+    calls, inner = [], L.flash_attention
+
+    def spy(q, k, v, causal=True):
+        calls.append((tuple(q.shape), tuple(k.shape), causal))
+        return inner(q, k, v, causal)
+
+    return calls, mock.patch.object(L, "flash_attention", spy)
+
+
+def _check_flash_calls(calls, want, runs, tag):
+    """``calls`` (``_spy_flash``'s over ``runs`` prefills) are ``want``,
+    the calls of one prefill, in order, ``runs`` times over."""
+    if calls != want * runs:
+        raise AssertionError(f"{tag}: flash_attention calls {calls[:4]}... "
+                             f"({len(calls)}), not {want[:1]}... "
+                             f"({len(want)} a prefill) x {runs}")
+
+
+def phase_lm_serve_encdec(torch, fa, kv, flash_ref, steps, L, ARCHS, smi,
+                          profile_serve):
+    """whisper-medium at full width and all 48 layers through
+    ``make_serve_steps`` on the card (``_serve``: LM_BATCH prompts of
+    ENCDEC_S tokens over 1500 frames, a cache for ENCDEC_CTX; one
+    prefill and ENCDEC_DECODE greedy steps, which launch 48
+    ``flash_attention_sm90`` and nothing else: the encoder's 24 non-causal
+    at BH 64, S 1500, dh 64, then the decoder's 24 causal at S 224; 3
+    timed prefills and the decode loop again), then ``_fp32_checks`` at
+    full depth (48 ``flash_attention_simt`` launches a prefill). Returns
+    the two kernels' launches."""
+    cfg = ARCHS[ENCDEC_ARCH]
+    frames = _frontend(torch, profile_serve, cfg, 12)
+    BH, dh = LM_BATCH * cfg.n_heads, cfg.d_head
+    enc = ((BH, cfg.n_frames, dh),) * 2 + (False,)
+    dec = ((BH, ENCDEC_S, dh),) * 2 + (True,)
+    calls, spy = _spy_flash(L)
+    n_attn = cfg.n_enc_layers + cfg.n_layers
+    with spy:
+        tokens, res = _serve(torch, fa, kv, steps, cfg, 12, ENCDEC_DECODE,
+                             ENCDEC_CTX, {"flash_attention_sm90": n_attn},
+                             S=ENCDEC_S, extra=frames)
+    _check_flash_calls(calls, [enc] * cfg.n_enc_layers + [dec] * cfg.n_layers,
+                       1 + len(res["prefill_s"]), cfg.name)
+    checks = _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens,
+                          ENCDEC_CTX, want=n_attn, extra=frames)
+    total, _ = cfg.param_count()
+    n_self = cfg.n_layers * LM_BATCH * ENCDEC_CTX * cfg.n_kv_heads * dh
+    reckoning = {"params": 2 * total, "self_attention_cache": 2 * 2 * n_self,
+                 "enc_out": 2 * LM_BATCH * cfg.n_frames * cfg.d_model}
+    reckoning["total"] = sum(reckoning.values())
+    launches = res["launches_per_run"]["flash_attention_sm90"]
+    emit({"phase": "lm_serve_encdec", "card": smi, **res,
+          "n_enc_layers": cfg.n_enc_layers, "n_frames": cfg.n_frames,
+          "encoder_frames_per_s": [LM_BATCH * cfg.n_frames / t
+                                   for t in res["prefill_s"]],
+          "param_count": list(cfg.param_count()),
+          "param_count_x2_bytes": 2 * total,
+          "memory_reckoning_bytes": reckoning,
+          "flash_attention_sm90_launches_per_prefill": launches,
+          "flash_calls_per_prefill": {
+              "encoder": {"q": enc[0], "k": enc[1], "causal": enc[2],
+                          "n": cfg.n_enc_layers},
+              "decoder": {"q": dec[0], "k": dec[1], "causal": dec[2],
+                          "n": cfg.n_layers}},
+          "fp32_check_layers": n_attn, **checks})
+    return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
+
+
+def phase_lm_serve_vlm(torch, fa, kv, flash_ref, steps, L, ARCHS, smi,
+                       profile_serve):
+    """qwen2-vl-72b at full width and VLM_LAYERS of its 80 layers (what
+    one card holds in bf16) through ``make_serve_steps`` (``_serve``:
+    LM_BATCH prompts of 256 patches and LM_PROMPT tokens, a cache for
+    VLM_CTX, VLM_DECODE greedy steps from position 256 + S; one
+    ``flash_attention_sm90`` launch a layer, causal, BH 256 over BHkv 32
+    (G 8), S 2304, dh 128), then ``_fp32_checks`` at VLM_CHECK_LAYERS
+    layers. Returns the two kernels' launches."""
+    full = ARCHS[VLM_ARCH]
+    cfg = full.scaled(n_layers=VLM_LAYERS)
+    patches = _frontend(torch, profile_serve, cfg, 14)
+    n = VLM_PATCHES + LM_PROMPT
+    call = ((LM_BATCH * cfg.n_heads, n, cfg.d_head),
+            (LM_BATCH * cfg.n_kv_heads, n, cfg.d_head), True)
+    calls, spy = _spy_flash(L)
+    with spy:
+        tokens, res = _serve(torch, fa, kv, steps, cfg, 14, VLM_DECODE,
+                             VLM_CTX, {"flash_attention_sm90": cfg.n_layers},
+                             extra=patches)
+    _check_flash_calls(calls, [call] * cfg.n_layers,
+                       1 + len(res["prefill_s"]), cfg.name)
+    checks = _fp32_checks(torch, fa, flash_ref, steps, L,
+                          cfg.scaled(n_layers=VLM_CHECK_LAYERS), tokens,
+                          VLM_CTX, extra=patches)
+    total, _ = cfg.param_count()
+    cache = 2 * 2 * cfg.n_layers * LM_BATCH * VLM_CTX * cfg.n_kv_heads \
+        * cfg.d_head
+    launches = res["launches_per_run"]["flash_attention_sm90"]
+    emit({"phase": "lm_serve_vlm", "card": smi, **res,
+          "layers_of": full.n_layers, "patches": VLM_PATCHES,
+          "prefill_positions_per_s": [LM_BATCH * n / t
+                                      for t in res["prefill_s"]],
+          "param_count": list(cfg.param_count()),
+          "param_count_x2_bytes": 2 * total,
+          "full_depth_param_count_x2_bytes": 2 * full.param_count()[0],
+          "memory_reckoning_bytes": {"params": 2 * total, "cache": cache,
+                                     "total": 2 * total + cache},
+          "flash_attention_sm90_launches_per_prefill": launches,
+          "flash_call": {"q": call[0], "k": call[1], "causal": call[2],
+                         "G": cfg.n_heads // cfg.n_kv_heads},
+          "fp32_check_layers": VLM_CHECK_LAYERS, **checks})
     return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
 
 
@@ -2044,28 +2219,30 @@ def time_flash(torch, fa, flash_ref):
     return res
 
 
-def time_flash_zamba2(torch, fa, flash_ref):
-    """``flash_attention_simt`` at zamba2-7b's prefill shape (BH = BHkv =
-    128, S = 2048, dh = 112, bf16, causal; the route for bf16 at dh 112),
-    timed in one call in turns with the plain version and SDPA (kernel,
-    plain, SDPA, then in reverse): CUDA-event ms and the bound at the bf16
-    tensor-core rate."""
+def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed):
+    """The kernel ``route`` picks for bf16 at ``dh``, at (BH, BHkv, S, dh,
+    causal), timed in one call in turns with the plain version and SDPA
+    (kernel, plain, SDPA, then in reverse): CUDA-event ms and the bound at
+    the bf16 tensor-core rate (score and P V products: 2 x BH S^2 dh
+    multiply-adds, half of them when causal)."""
     import torch.nn.functional as F
-    BH = BHkv = LM_BATCH * 32
-    S, dh = LM_PROMPT, 112
-    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", 98)
-    q4, k4, v4 = (t.view(LM_BATCH, BH // LM_BATCH, S, dh) for t in (q, k, v))
+    kernel = fa.route(torch.bfloat16, dh)
+    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", seed)
+    q4, k4, v4 = (t.view(LM_BATCH, t.shape[0] // LM_BATCH, S, dh)
+                  for t in (q, k, v))
     out = {}
 
     def run(name, fn):
         def launch():
-            out[name] = fn(q, k, v)
+            out[name] = fn(q, k, v, causal)
         return launch
 
-    fns = {"kernel": (run("kernel", fa.flash_attention_simt), 5, 1),
+    fast = kernel == "flash_attention_sm90"
+    fns = {"kernel": (run("kernel", getattr(fa, kernel)),
+                      20 if fast else 5, 3 if fast else 1),
            "plain": (run("plain", flash_ref), 3, 1),
            "library": (lambda: F.scaled_dot_product_attention(
-               q4, k4, v4, is_causal=True), 20, 3)}
+               q4, k4, v4, is_causal=causal, enable_gqa=BH != BHkv), 20, 3)}
     turns = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
@@ -2073,22 +2250,45 @@ def time_flash_zamba2(torch, fa, flash_ref):
             turns[name].append(cuda_ms(torch, fn, n, warm))
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
     err = float((out["kernel"].float() - out["plain"].float()).abs().max())
+    tag = (f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 "
+           f"{'causal' if causal else 'not causal'}")
     if err > FLASH_TOL["bfloat16"]:
-        raise AssertionError(f"timed flash_attention_simt at dh 112 != "
-                             f"plain ({err})")
+        raise AssertionError(f"timed {kernel} at {tag} != plain ({err})")
     nbytes = 2 * (2 * BH * S * dh + 2 * BHkv * S * dh)
-    flops = 2 * BH * S * S * dh
+    flops = (2 if causal else 4) * BH * S * S * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"case": f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 causal",
+    return {"case": tag, "kernel": kernel,
             "ms": ms["kernel"], "ms_turns": turns["kernel"],
             "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
             "library_ms": ms["library"], "library_ms_turns": turns["library"],
-            "library": "scaled_dot_product_attention(is_causal)",
+            "library": "scaled_dot_product_attention(is_causal="
+            f"{causal}{', enable_gqa' if BH != BHkv else ''})",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
             "tflops_per_s": flops / ms["kernel"] * 1e-9}
+
+
+def time_flash_zamba2(torch, fa, flash_ref):
+    """``flash_attention_simt`` at zamba2-7b's prefill shape (BH = BHkv =
+    128, S = 2048, dh = 112, bf16, causal; the route for bf16 at dh 112),
+    by ``_time_flash_case``."""
+    return _time_flash_case(torch, fa, flash_ref, LM_BATCH * 32,
+                            LM_BATCH * 32, LM_PROMPT, 112, True, 98)
+
+
+def time_flash_encdec(torch, fa, flash_ref):
+    """``flash_attention_sm90`` at whisper-medium's encoder shape (BH =
+    BHkv = 64, S = 1500, dh = 64, not causal) and at qwen2-vl-72b's
+    prefill (BH 256 over BHkv 32, G 8, S 2304, dh 128, causal), each by
+    ``_time_flash_case``."""
+    return {"whisper_encoder": _time_flash_case(
+                torch, fa, flash_ref, LM_BATCH * 16, LM_BATCH * 16, 1500, 64,
+                False, 97),
+            "qwen2_vl_prefill": _time_flash_case(
+                torch, fa, flash_ref, LM_BATCH * 64, LM_BATCH * 8,
+                VLM_PATCHES + LM_PROMPT, 128, True, 96)}
 
 
 def time_flash_fp32(torch, fa, flash_ref):
@@ -2513,7 +2713,7 @@ def main() -> int:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
         from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
-        from repro_torch.launch import steps
+        from repro_torch.launch import profile_serve, steps
         from repro_torch.optim import adamw
         from repro_torch.runtime.checkpoint import CheckpointManager
         from repro_torch.models import layers as L
@@ -2574,6 +2774,10 @@ def main() -> int:
         torch, fa, kv, flash_ref, steps, L, MOE, ARCHS)
     ssm_simt_launches, ssm_fp32_launches = phase_lm_serve_ssm(
         torch, fa, kv, flash_ref, steps, L, ARCHS, smi)
+    encdec_sm90_launches, encdec_fp32_launches = phase_lm_serve_encdec(
+        torch, fa, kv, flash_ref, steps, L, ARCHS, smi, profile_serve)
+    vlm_sm90_launches, vlm_fp32_launches = phase_lm_serve_vlm(
+        torch, fa, kv, flash_ref, steps, L, ARCHS, smi, profile_serve)
     train_launches, fp32_train_launches = phase_lm_train(
         torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
         PipelineConfig, CheckpointManager)
@@ -2581,11 +2785,13 @@ def main() -> int:
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
     flash112 = time_flash_zamba2(torch, fa, flash_ref)
+    flash_encdec = time_flash_encdec(torch, fa, flash_ref)
     bwd = {dt: time_flash_bwd(torch, fa, flash_bwd_ref, dt)
            for dt in ("bfloat16", "float32")}
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
           "flash_attention_simt_zamba2": flash112,
+          "flash_attention_sm90_encdec": flash_encdec,
           "flash_attention_bwd_sm90": bwd["bfloat16"][
               "flash_attention_bwd_sm90"],
           "flash_attention_bwd": bwd["bfloat16"]["flash_attention_bwd"],
@@ -2600,6 +2806,10 @@ def main() -> int:
           "simt_launches_on_fp32_moe_serving_check": moe_simt_launches,
           "simt_launches_on_bf16_ssm_serving_path": ssm_simt_launches,
           "simt_launches_on_fp32_ssm_serving_check": ssm_fp32_launches,
+          "sm90_launches_on_bf16_encdec_serving_path": encdec_sm90_launches,
+          "simt_launches_on_fp32_encdec_serving_check": encdec_fp32_launches,
+          "sm90_launches_on_bf16_vlm_serving_path": vlm_sm90_launches,
+          "simt_launches_on_fp32_vlm_serving_check": vlm_fp32_launches,
           "chunk_launches_on_serve_path": serve_launches,
           "chunk_launches_on_elastic_path": elastic_launches,
           "chunk_launches_on_sharded_path": sharded_launches,
@@ -2618,14 +2828,22 @@ def main() -> int:
                     "src/repro_torch/kernels/csrc/vcycle_seed.cu",
                     "src/repro/kernels/vcycle.py:45 _vcycle_kernel",
                     seed_launches, seed),
-        kernel_line("flash_attention_sm90",
-                    "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
-                    "(bf16, dh 64 or 128)",
-                    sm90_launches, flash["flash_attention_sm90"],
-                    {"lm_serve": sm90_launches,
-                     "lm_serve_moe": moe_sm90_launches,
-                     "lm_train": train_launches["flash_attention_sm90"]}),
+        {**kernel_line("flash_attention_sm90",
+                       "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                       "src/repro/kernels/flash_attention.py:33 "
+                       "_flash_kernel (bf16, dh 64 or 128)",
+                       sm90_launches, flash["flash_attention_sm90"],
+                       {"lm_serve": sm90_launches,
+                        "lm_serve_moe": moe_sm90_launches,
+                        "lm_serve_encdec": encdec_sm90_launches,
+                        "lm_serve_vlm": vlm_sm90_launches,
+                        "lm_train": train_launches["flash_attention_sm90"]}),
+         "other_shapes": {
+             name: {"launches": n, **{k: flash_encdec[name][k] for k in (
+                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")}}
+             for name, n in (("whisper_encoder", encdec_sm90_launches // 2),
+                             ("qwen2_vl_prefill", vlm_sm90_launches))}},
         {**kernel_line("flash_attention_simt",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:33 "
@@ -2635,6 +2853,8 @@ def main() -> int:
                         "lm_serve_fp32_check": simt_launches,
                         "lm_serve_moe_fp32_check": moe_simt_launches,
                         "lm_serve_ssm_fp32_check": ssm_fp32_launches,
+                        "lm_serve_encdec_fp32_check": encdec_fp32_launches,
+                        "lm_serve_vlm_fp32_check": vlm_fp32_launches,
                         "lm_train_fp32_check":
                         fp32_train_launches["flash_attention_simt"]}),
          "case": flash112["case"],

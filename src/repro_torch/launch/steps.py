@@ -33,13 +33,19 @@ def make_train_step(cfg: ModelConfig, device=None,
     or MoE decoder gets a gradient). ``p_shapes`` and ``opt_shapes`` are
     meta-device tensors. Raises unless ``device`` is given or a CUDA
     device is present (the step follows its inputs; ``device`` is where
-    ``model.init`` puts them by default). zamba2 and xLSTM raise
-    ``NotImplementedError``: they serve, and their training waits for
-    ROADMAP A8.7."""
+    ``model.init`` puts them by default). zamba2, xLSTM and the
+    encoder-decoder raise ``NotImplementedError``: they serve, and their
+    training waits for ROADMAP A8.7 (zamba2, xLSTM) and A8.8 (whisper).
+    A VLM's ``patches``, inputs and not parameters, go through the step
+    as the tokens do."""
     if cfg.block in ("mamba2", "xlstm"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the {cfg.block} stack but does not "
             "train it yet (ROADMAP A8.7)")
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the encoder-decoder stack but does "
+            "not train it yet (ROADMAP A8.8)")
     model = build(cfg, resolve_device(device))
     p_shapes = model.abstract_params()
     opt_shapes = adamw.init(p_shapes, compress=compress_grads)
@@ -72,7 +78,8 @@ def make_serve_steps(cfg: ModelConfig, device=None):
     """Returns (model, prefill_step, decode_step).
 
     ``prefill_step(params, batch, cache) -> (logits [B, 1, V], cache)`` runs
-    the prompt ``batch["tokens"]`` and primes the cache;
+    the prompt ``batch["tokens"]`` (after a VLM's ``batch["patches"]``;
+    over a whisper batch's ``batch["frames"]``) and primes the cache;
     ``decode_step(params, tokens [B, 1], cache, pos) -> (next [B, 1] int32,
     cache)`` takes one greedy step at position ``pos``. Raises unless
     ``device`` is given or a CUDA device is present (the steps follow

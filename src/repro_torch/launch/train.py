@@ -11,9 +11,9 @@ the resumed run sees the batches an uninterrupted run would.
 ``--compress-grads`` sends the gradient through the int8 round trip with
 error feedback. There is no mesh: ``--model-parallel`` other than 1
 raises. Dense and MoE archs train (``--arch mixtral-8x7b --smoke
---device cpu``). zamba2 and xLSTM serve (``launch.steps.make_serve_steps``)
-but do not train yet (ROADMAP A8.7), and whisper is not ported: these
-raise ``NotImplementedError``.
+--device cpu``). zamba2, xLSTM and whisper serve
+(``launch.steps.make_serve_steps``) but do not train yet (ROADMAP A8.7,
+A8.8): these raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -1,14 +1,16 @@
 """Unified model API: build(cfg) -> Model with init / loss / prefill /
 decode_step / make_cache / abstract_params / input_specs.
 
-Port of ``repro.models.model`` for the decoder-only configs: dense, MoE
-(deepseek-moe-16b, mixtral-8x7b), the zamba2 hybrid (``block="mamba2"``)
-and xLSTM (``block="xlstm"``). Parameters are nested dicts of tensors,
-name for name the reference's pytree, with the layers stacked ``[L, ...]``
-(zamba2's and xLSTM's groups ``[n_super, inner, ...]``;
-``convert.params_from_jax`` carries them across). Entry points that
-create tensors (``init``, ``make_cache``) run on the card unless given
-``device="cpu"``; the rest follow their inputs.
+Port of ``repro.models.model`` for every config: dense, MoE
+(deepseek-moe-16b, mixtral-8x7b), the zamba2 hybrid (``block="mamba2"``),
+xLSTM (``block="xlstm"``), the whisper encoder-decoder (``enc_dec``) and
+qwen2-vl's patch prefix. Parameters are nested dicts of tensors, name for
+name the reference's pytree, with the layers stacked ``[L, ...]``
+(zamba2's and xLSTM's groups ``[n_super, inner, ...]``; whisper's
+``enc_layers`` and ``dec_layers``; ``convert.params_from_jax`` carries
+them across). Entry points that create tensors (``init``, ``make_cache``)
+run on the card unless given ``device="cpu"``; the rest follow their
+inputs.
 
 ``prefill`` and ``decode_step`` update the cache they are given in place
 and return it: a cache that went through either holds the new state, so a
@@ -17,20 +19,29 @@ cache ``make_cache`` gave (see ``transformer.decoder_prefill`` for where
 that departs from the reference). A zamba2 or xLSTM cache holds the
 recurrent states (fp32) beside zamba2's shared-attention K/V, as the
 reference's ``make_cache`` lays them out; ``prefill`` writes every leaf.
+An encoder-decoder cache also holds the encoder's output ``enc_out``,
+which ``prefill`` writes and every decode step's cross-attention reads.
 ``loss`` is the reference's, and differentiable: its attention runs
 ``FlashAttention`` under grad, and a MoE stack adds its auxiliary loss.
-(zamba2 and xLSTM take the loss's value; ``launch.steps`` does not train
-them yet.)
+(zamba2, xLSTM and whisper take the loss's value; ``launch.steps`` does
+not train them yet.)
+
+The stubbed frontends are the reference's: a VLM batch's ``patches``
+``[B, P, d]`` (precomputed patch embeddings) go before the token
+embeddings, the positions run over all ``P + S``, and the loss drops the
+first P positions; a whisper batch's ``frames`` ``[B, n_frames, d]``
+(precomputed frame embeddings) get a sinusoid (``_sinusoid``) and go
+through the encoder.
 ``abstract_params`` gives meta-device tensors (the reference's
 ``ShapeDtypeStruct``s) and ``input_specs`` ``(shape, dtype)`` pairs for
-the text inputs; the VLM patch prefix and the audio frames are not ported
-(ROADMAP A8).
+every input.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -72,51 +83,67 @@ class Model:
     def init(self, generator: torch.Generator, device=None) -> Params:
         """Random parameters drawn from ``generator`` (on its own device),
         placed on ``device``: the model's, else the card."""
-        return _INIT[self.cfg.block](generator, self.cfg,
-                                     self._device(device))
+        return _init(self.cfg)(generator, self.cfg, self._device(device))
 
     def abstract_params(self) -> Params:
         """The parameters' shapes and dtypes as meta-device tensors (no
         storage, nothing drawn)."""
-        return _INIT[self.cfg.block](None, self.cfg, torch.device("meta"))
+        return _init(self.cfg)(None, self.cfg, torch.device("meta"))
 
     # ---------------------------------------------------------- forward ----
-    def _trunk(self, params: Params, x, pos, state=None
+    def _trunk(self, params: Params, x, pos, state=None, enc_out=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the normed hidden states, the MoE auxiliary loss summed over
         the layers, 0 for other stacks); ``state`` is a decode step's
-        cache (the dense stack's ``(k, v)``, zamba2's and xLSTM's dict),
-        updated in place."""
+        cache (the attention stacks' ``(k, v)``, zamba2's and xLSTM's
+        dict), updated in place; ``enc_out`` the encoder's output, which
+        the encoder-decoder's cross-attention reads."""
         cfg = self.cfg
-        if cfg.block == "attn":
+        if cfg.enc_dec:
+            h = T.encdec_fwd(cfg, params, x, pos, enc_out, state)
+        elif cfg.block == "attn":
             return T.decoder_fwd(cfg, params, x, pos, state)
-        h = _STACK[cfg.block](cfg, params, x, pos, state,
-                              decode=state is not None)
+        else:
+            h = _STACK[cfg.block](cfg, params, x, pos, state,
+                                  decode=state is not None)
         return h, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def _embed_inputs(self, params: Params, batch: Dict) -> Tuple:
-        """Returns (x, pos)."""
+        """Returns (x, pos, enc_out, label_offset): a VLM batch's
+        ``patches`` go before the tokens (offset by their count), a
+        whisper batch's ``frames`` through the encoder (``enc_out``;
+        None otherwise)."""
         cfg = self.cfg
-        if (cfg.family == "vlm" and "patches" in batch) or cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: patch and audio-frame inputs are not ported "
-                "(ROADMAP A8)")
         tokens = batch["tokens"]
-        B, S = tokens.shape
+        B = tokens.shape[0]
         x = L.embed(params["embed"], tokens)
+        enc_out = None
+        offset = 0
+        if cfg.family == "vlm" and "patches" in batch:
+            # stubbed vision frontend: precomputed patch embeddings prefix
+            patches = batch["patches"].to(x.device, x.dtype)
+            x = torch.cat([patches, x], 1)
+            offset = patches.shape[1]
+        if cfg.enc_dec:
+            frames = batch["frames"].to(x.device, x.dtype)
+            pe = _sinusoid(frames.shape[1], cfg.d_model, x.dtype, x.device)
+            enc_out = T.encoder_fwd(cfg, params, frames + pe)
         pos = _positions(B, x.shape[1], m_rope=cfg.m_rope, device=x.device)
-        return x, pos
+        return x, pos, enc_out, offset
 
     # ------------------------------------------------------------- loss ----
     def loss(self, params: Params, batch: Dict
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross-entropy from fp32 logits, plus the
         z-loss ``1e-4 * mean(logsumexp^2)`` and ``1e-2 * aux``, the MoE
-        auxiliary loss summed over the layers (0 for a dense stack).
+        auxiliary loss summed over the layers (0 for a dense stack), over
+        the token positions (a VLM's patch positions have no label).
         Returns (total, {"nll", "aux", "zloss"})."""
         cfg = self.cfg
-        x, pos = self._embed_inputs(params, batch)
-        h, aux = self._trunk(params, x, pos)
+        x, pos, enc_out, offset = self._embed_inputs(params, batch)
+        h, aux = self._trunk(params, x, pos, enc_out=enc_out)
+        if offset:
+            h = h[:, offset:]
         logits = L.unembed(params["embed"], cfg, h).float()
         labels = batch["labels"].to(logits.device, torch.long)
         logz = torch.logsumexp(logits, dim=-1)
@@ -130,7 +157,8 @@ class Model:
     def make_cache(self, B: int, ctx: int, device=None) -> Any:
         """The decode state sized for a context of ``ctx`` tokens: for
         attention stacks the zeroed K/V caches ``{"k", "v"}``, each ``[L,
-        B, Tw, Hkv, dh]``; for zamba2 ``{"ssm", "ak", "av"[, "tail_ssm"]}``
+        B, Tw, Hkv, dh]`` (an encoder-decoder's beside ``enc_out``,
+        ``[B, n_frames, d]``); for zamba2 ``{"ssm", "ak", "av"[, "tail_ssm"]}``
         and for xLSTM ``{"mC", "mn", "sc", "sn"}``, the reference's
         leaves (the recurrent states in fp32, sLSTM's ``n`` at ones)."""
         cfg = self.cfg
@@ -161,19 +189,32 @@ class Model:
                     "mn": f32(n_super, inner, B, H, dh),
                     "sc": f32(n_super, B, cfg.d_model),
                     "sn": f32(n_super, B, cfg.d_model, fill=1.0)}
-        T._decoder_only(cfg)
         Tw = min(ctx, cfg.swa_window) if cfg.swa_window else ctx
         k = torch.zeros((cfg.n_layers, B, Tw, cfg.n_kv_heads, cfg.d_head),
                         dtype=dt, device=dev)
+        if cfg.enc_dec:
+            return {"k": k, "v": torch.zeros_like(k), "enc_out": torch.zeros(
+                (B, cfg.n_frames, cfg.d_model), dtype=dt, device=dev)}
         return {"k": k, "v": torch.zeros_like(k)}
 
     def prefill(self, params: Params, batch: Dict, cache: Any
                 ) -> Tuple[torch.Tensor, Any]:
         """Run the full prompt, return (last-token logits [B, 1, V] in
-        fp32, the cache primed in place)."""
+        fp32, the cache primed in place). An encoder-decoder's
+        ``enc_out`` goes into the cache's, which must have the batch's
+        frame count (``ValueError`` otherwise)."""
         cfg = self.cfg
-        x, pos = self._embed_inputs(params, batch)
-        if cfg.block == "attn":
+        x, pos, enc_out, _ = self._embed_inputs(params, batch)
+        if cfg.enc_dec:
+            if enc_out.shape != cache["enc_out"].shape:
+                raise ValueError(
+                    f"{cfg.name}: the batch's encoder output "
+                    f"{tuple(enc_out.shape)} does not fit the cache's "
+                    f"enc_out {tuple(cache['enc_out'].shape)}")
+            cache["enc_out"].copy_(enc_out)
+            h = T.encdec_prefill(cfg, params, x, pos, cache["enc_out"],
+                                 (cache["k"], cache["v"]))
+        elif cfg.block == "attn":
             h = T.decoder_prefill(cfg, params, x, pos,
                                   (cache["k"], cache["v"]))
         else:
@@ -190,31 +231,55 @@ class Model:
         x = L.embed(params["embed"], tokens)
         pos = _decode_pos(B, pos_scalar, cfg.m_rope, device=x.device)
         state = (cache["k"], cache["v"]) if cfg.block == "attn" else cache
-        h, _ = self._trunk(params, x, pos, state=state)
+        h, _ = self._trunk(params, x, pos, state=state,
+                           enc_out=cache.get("enc_out"))
         return L.unembed(params["embed"], cfg, h).float(), cache
 
     # ------------------------------------------------------ input specs ----
     def input_specs(self, seq_len: int, global_batch: int,
                     mode: str = "train") -> Dict[str, Tuple]:
-        """``(shape, dtype)`` stand-ins for the model's text inputs in
-        ``mode`` ("train", "prefill" or "decode"). The reference's VLM
-        ``patches`` and audio ``frames`` are not ported: an
-        encoder-decoder config raises, and a VLM config gets its text
-        inputs only."""
-        T._decoder_only(self.cfg)
+        """``(shape, dtype)`` stand-ins for the model's inputs in ``mode``
+        ("train", "prefill" or "decode"): the tokens (and labels), and in
+        train and prefill modes a VLM's ``patches`` ``(B, 256, d)`` and an
+        encoder-decoder's ``frames`` ``(B, n_frames, d)``."""
+        cfg = self.cfg
         B, S = global_batch, seq_len
+        toks = ((B, S), torch.int32)
         if mode == "train":
-            return {"tokens": ((B, S), torch.int32),
-                    "labels": ((B, S), torch.int32)}
-        if mode == "prefill":
-            return {"tokens": ((B, S), torch.int32)}
-        if mode == "decode":
-            return {"tokens": ((B, 1), torch.int32)}
-        raise ValueError(f"input_specs: unknown mode {mode!r}")
+            specs = {"tokens": toks, "labels": toks}
+        elif mode == "prefill":
+            specs = {"tokens": toks}
+        elif mode == "decode":
+            specs = {"tokens": ((B, 1), torch.int32)}
+        else:
+            raise ValueError(f"input_specs: unknown mode {mode!r}")
+        dt = L._dtype(cfg)
+        if cfg.family == "vlm" and mode in ("train", "prefill"):
+            specs["patches"] = ((B, 256, cfg.d_model), dt)
+        if cfg.enc_dec and mode in ("train", "prefill"):
+            specs["frames"] = ((B, cfg.n_frames, cfg.d_model), dt)
+        return specs
+
+
+def _sinusoid(S: int, d: int, dtype: torch.dtype, device=None
+              ) -> torch.Tensor:
+    """[1, S, d]: the sines and then the cosines of position over
+    ``10000 ** (2 i / d)``, computed in float64 as the reference's numpy
+    code does, rounded to float32 and from there to ``dtype`` (as
+    ``jnp.asarray`` rounds a float64 array)."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    pe = np.concatenate([np.sin(ang), np.cos(ang)], -1).astype(np.float32)
+    return torch.from_numpy(pe[None]).to(device, dtype)
 
 
 _INIT = {"attn": T.decoder_init, "mamba2": T.zamba2_init,
          "xlstm": T.xlstm_init}
+
+
+def _init(cfg: ModelConfig):
+    return T.encdec_init if cfg.enc_dec else _INIT[cfg.block]
 _STACK = {"mamba2": T.zamba2_fwd, "xlstm": T.xlstm_fwd}
 
 

@@ -1,32 +1,43 @@
-"""Model stacks: decoder-only, hybrid (zamba2) and xLSTM, with stacked
-``[L, ...]`` layers applied in a loop.
+"""Model stacks: decoder-only, hybrid (zamba2), xLSTM and
+encoder-decoder, with stacked ``[L, ...]`` layers applied in a loop.
 
-Port of ``repro.models.transformer`` but for its encoder-decoder stack:
-the decoder-only branch (lines 60-160), dense and MoE blocks
-(``dense_block_init/fwd``, ``decoder_init/fwd``, ``_ring``,
-``decoder_prefill``), zamba2 (``zamba2_init/fwd``, ``_mamba_layer_*``,
-``ZAMBA_WINDOW``; lines 184-300) and xLSTM (``xlstm_init/fwd``,
-``_xl_layer_init``; lines 304-366). ``scan_layers`` becomes a Python loop
-over the layer axis of the stacked leaves; a group of zamba2 or xLSTM
-(the reference's super-layer) is a loop over its inner layers.
-``_remat``'s counterpart: with grad enabled, ``decoder_fwd`` runs each
-layer under ``torch.utils.checkpoint`` (non-reentrant), which saves the
-layer's input and recomputes the rest in the backward pass (the
-reference's ``REPRO_REMAT=min``; its default policy also saves the matrix
-products, and ``REPRO_REMAT`` has no counterpart).
+Port of ``repro.models.transformer``: the decoder-only branch (lines
+60-160), dense and MoE blocks (``dense_block_init/fwd``,
+``decoder_init/fwd``, ``_ring``, ``decoder_prefill``), zamba2
+(``zamba2_init/fwd``, ``_mamba_layer_*``, ``ZAMBA_WINDOW``; lines
+184-300), xLSTM (``xlstm_init/fwd``, ``_xl_layer_init``; lines 304-366)
+and the encoder-decoder stack (``encdec_init``, ``encoder_fwd``,
+``encdec_fwd``, ``encdec_prefill``; lines 163-179 and 370-444).
+``scan_layers`` becomes a Python loop over the layer axis of the stacked
+leaves; a group of zamba2 or xLSTM (the reference's super-layer) is a
+loop over its inner layers.
+``_remat``'s counterpart: with grad enabled, ``decoder_fwd``,
+``encoder_fwd`` and ``encdec_fwd`` run each layer under
+``torch.utils.checkpoint`` (non-reentrant), which saves the layer's input
+and recomputes the rest in the backward pass (the reference's
+``REPRO_REMAT=min``; its default policy also saves the matrix products,
+and ``REPRO_REMAT`` has no counterpart).
 
-One departure from the reference: ``decoder_prefill`` and zamba2's
-prefill fill caches of the length ``Tw`` the caller allocated, with prompt
-token t in slot ``t % Tw`` for the last ``min(S, Tw)`` tokens. The
-reference's ``_ring`` returns only ``S`` slots when ``S < Tw`` (its
-``decoder_prefill`` and its zamba2 ``capture_kv``, lines 262-263), so its
-first decode step writes slot ``S % S = 0`` over the first prompt token
-(ROADMAP queue C). For ``S >= Tw`` both give the same cache.
+One departure from the reference: ``decoder_prefill``, zamba2's prefill
+and ``encdec_prefill`` fill caches of the length ``Tw`` the caller
+allocated, with prompt token t in slot ``t % Tw`` for the last ``min(S,
+Tw)`` tokens. The reference's ``_ring`` returns only ``S`` slots when
+``S < Tw`` (its ``decoder_prefill``, its zamba2 ``capture_kv``, lines
+262-263, and its ``encdec_prefill``, line 177), so its first decode step
+writes slot ``S % S = 0`` over the first prompt token (ROADMAP queue C).
+For ``S >= Tw`` both give the same cache.
 
 A MoE block (``cfg.is_moe``) runs ``moe.moe_fwd`` in place of the MLP and
 returns its auxiliary loss, which ``decoder_fwd`` sums over the layers as
-the reference's scan carry does. The encoder-decoder stack is not
-ported yet (ROADMAP A8) and raises ``NotImplementedError``.
+the reference's scan carry does.
+
+The encoder's self-attention is ``attention_fwd(..., causal=False)`` with
+no positions (no RoPE), so it runs the flash kernel unmasked; the
+decoder's is causal with RoPE, on the flash kernel in a prefill and a
+full forward and on ``attention_decode``'s cache in a decode step. Its
+cross-attention (``layers.cross_attention_fwd``) projects the encoder's
+output to K and V in every layer and at every step, as the reference
+does, and runs ``_sdpa``.
 
 zamba2's shared attention runs ``layers.windowed_attention``: the flash
 kernel while the prompt fits ``ZAMBA_WINDOW`` (the window then masks
@@ -57,14 +68,6 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    """Refuses the encoder-decoder stack, the one stack not ported."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the decoder-only stacks (dense, "
-            "MoE, zamba2, xLSTM); encoder-decoder waits for ROADMAP A8")
-
-
 def _stack_init(gen: torch.Generator, n: int, init_fn) -> Params:
     """n layers from ``init_fn(gen)``, drawn in order, as stacked
     ``[n, ...]`` leaves allocated once; layer i is copied into row i as it
@@ -93,7 +96,6 @@ def _stack_init(gen: torch.Generator, n: int, init_fn) -> Params:
 # ------------------------------------------------------- decoder-only ------
 def dense_block_init(gen: torch.Generator, cfg: ModelConfig,
                      device) -> Params:
-    _decoder_only(cfg)
     dt = L._dtype(cfg)
     p = {
         "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
@@ -120,7 +122,6 @@ def dense_block_fwd(cfg: ModelConfig, p: Params, x, pos,
     """Returns (x, aux), aux the MoE auxiliary loss (None for a dense
     block, whose loss is 0); a cache ``(k, v)`` is updated in place. (The
     reference also returns the cache.)"""
-    _decoder_only(cfg)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cache is None:
         a = L.attention_fwd(p["attn"], cfg, h, pos)
@@ -133,7 +134,6 @@ def dense_block_fwd(cfg: ModelConfig, p: Params, x, pos,
 
 
 def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    _decoder_only(cfg)
     return {
         "embed": L.embed_init(gen, cfg, device),
         "layers": _stack_init(gen, cfg.n_layers,
@@ -191,7 +191,6 @@ def decoder_prefill(cfg: ModelConfig, params: Params, x, pos,
     ``caches = (k, v)``, each ``[L, B, Tw, Hkv, dh]``, in place. Returns
     the normed hidden states (the MoE auxiliary loss is dropped, as the
     reference's ``Model.prefill`` drops it)."""
-    _decoder_only(cfg)
     S = x.shape[1]
     Tw = caches[0].shape[2]
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
@@ -357,4 +356,106 @@ def xlstm_fwd(cfg: ModelConfig, params: Params, x, pos,
         for i, p in enumerate(_unstack(pg["m"], inner)):
             x = run(SSM.mlstm_fwd, p, x, ("mC", "mn"), (g, i))
         x = run(SSM.slstm_fwd, pg["s"], x, ("sc", "sn"), g)
+    return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+# ----------------------------------------------------- encoder-decoder -----
+def encdec_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """The reference's leaves: ``enc_layers`` (``ln1``, ``attn``, ``ln2``,
+    ``mlp``) and ``dec_layers`` (also ``lnx`` and ``cross``), stacked,
+    beside ``embed``, ``enc_lnf`` and ``lnf``; drawn in that order."""
+    dt = L._dtype(cfg)
+
+    def norm():
+        return L.rmsnorm_init(cfg.d_model, dt, device)
+
+    def enc_layer(g):
+        return {"ln1": norm(), "attn": L.attention_init(g, cfg, device),
+                "ln2": norm(), "mlp": L.mlp_init(g, cfg, device)}
+
+    def dec_layer(g):
+        return {"ln1": norm(), "attn": L.attention_init(g, cfg, device),
+                "lnx": norm(), "cross": L.attention_init(g, cfg, device),
+                "ln2": norm(), "mlp": L.mlp_init(g, cfg, device)}
+
+    return {
+        "embed": L.embed_init(gen, cfg, device),
+        "enc_layers": _stack_init(gen, cfg.n_enc_layers, enc_layer),
+        "enc_lnf": norm(),
+        "dec_layers": _stack_init(gen, cfg.n_layers, dec_layer),
+        "lnf": norm(),
+    }
+
+
+def _enc_layer_fwd(cfg: ModelConfig, p: Params, x):
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + L.attention_fwd(p["attn"], cfg, h, None, causal=False)
+    return x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def encoder_fwd(cfg: ModelConfig, params: Params, frames: torch.Tensor):
+    """frames: [B, F, d] (the stubbed conv frontend's output, the sinusoid
+    added) -> the normed encoder output [B, F, d]. With grad enabled each
+    layer runs under ``torch.utils.checkpoint``."""
+    remat = torch.is_grad_enabled()
+    x = frames
+    for p in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        x = checkpoint(_enc_layer_fwd, cfg, p, x, use_reentrant=False) \
+            if remat else _enc_layer_fwd(cfg, p, x)
+    return L.rmsnorm(params["enc_lnf"], x, cfg.norm_eps)
+
+
+def _cross_and_mlp(cfg: ModelConfig, p: Params, x, enc_out):
+    """A decoder layer after its self-attention: cross-attention to
+    ``enc_out``, then the MLP, each on its own norm and residual."""
+    h = L.rmsnorm(p["lnx"], x, cfg.norm_eps)
+    x = x + L.cross_attention_fwd(p["cross"], cfg, h, enc_out)
+    return x + L.mlp_fwd(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _dec_layer_fwd(cfg: ModelConfig, p: Params, x, pos, enc_out,
+                   cache: Optional[Tuple] = None):
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cache is None:
+        a = L.attention_fwd(p["attn"], cfg, h, pos)
+    else:
+        a, _, _ = L.attention_decode(p["attn"], cfg, h, cache[0], cache[1],
+                                     pos)
+    return _cross_and_mlp(cfg, p, x + a, enc_out)
+
+
+def encdec_fwd(cfg: ModelConfig, params: Params, x, pos, enc_out,
+               caches: Optional[Tuple] = None):
+    """The decoder over ``enc_out`` [B, F, d]: a full forward
+    (``caches=None``; with grad enabled each layer under
+    ``torch.utils.checkpoint``) or a decode step on ``caches = (k, v)``,
+    each ``[L, B, Tw, Hkv, dh]``, updated in place. Returns the normed
+    hidden states."""
+    remat = caches is None and torch.is_grad_enabled()
+    for i, p in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(_dec_layer_fwd, cfg, p, x, pos, enc_out,
+                           use_reentrant=False)
+        else:
+            cache = None if caches is None else (caches[0][i], caches[1][i])
+            x = _dec_layer_fwd(cfg, p, x, pos, enc_out, cache)
+    return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+def encdec_prefill(cfg: ModelConfig, params: Params, x, pos, enc_out,
+                   caches: Tuple[torch.Tensor, torch.Tensor]):
+    """The decoder over the prompt once, its causal self-attention on the
+    flash kernel, filling all ``Tw`` slots of the self-attention caches
+    ``caches = (k, v)``, each ``[L, B, Tw, Hkv, dh]``, in place (the
+    reference's ring keeps S of them when S < Tw: see the module
+    docstring). Returns the normed hidden states."""
+    S = x.shape[1]
+    Tw = caches[0].shape[2]
+    for i, p in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = L._qkv(p["attn"], cfg, h, pos)
+        a = L.flash_sdpa(q, k, v) @ p["attn"]["wo"]
+        x = _cross_and_mlp(cfg, p, x + a, enc_out)
+        caches[0][i].copy_(_ring(k, S, Tw))
+        caches[1][i].copy_(_ring(v, S, Tw))
     return L.rmsnorm(params["lnf"], x, cfg.norm_eps)

@@ -303,7 +303,8 @@ def test_launch_bumps_the_counter(cuda):
 # ------------------------------------------------------- flash attention ----
 FLASH_SHAPES = [
     # (BH, BHkv, S, dh, dtype, causal): tests/test_kernels.py's five, GQA,
-    # a tail tile, and the qwen3-0.6b prefill (B=4, H=16, Hkv=8, S=2048)
+    # a tail tile, the qwen3-0.6b prefill (B=4, H=16, Hkv=8, S=2048) and
+    # whisper-medium's encoder
     (2, 2, 256, 64, torch.float32, True),
     (2, 2, 256, 64, torch.float32, False),
     (4, 4, 512, 128, torch.bfloat16, True),
@@ -313,6 +314,8 @@ FLASH_SHAPES = [
     (3, 3, 1000, 64, torch.bfloat16, True),
     (2, 1, 77, 16, torch.float32, False),
     (64, 32, 2048, 128, torch.bfloat16, True),
+    # whisper-medium's encoder (B=4, H=16, 1500 frames, not causal)
+    (64, 64, 1500, 64, torch.bfloat16, False),
 ]
 
 
@@ -345,14 +348,14 @@ def _bf16_qkv(cuda, BH, BHkv, S, dh, seed):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dh", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("S", [1, 17, 128, 129, 1000, 2048])
 def test_flash_sm90_matches_plain(cuda, S, G, dh, causal):
     """The tensor-core kernel against ``flash_ref`` in bf16 within 2e-2:
     one key tile and less (S = 1, 17, 128: the accumulator-to-A-fragment
     identity on one tile), a tail tile of one row (129), many tiles with a
     ragged tail (1000) and the serving length (2048), each with 2 KV heads
-    read by G query heads."""
+    read by G query heads (G = 8: qwen2-vl-72b's)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_ref
     q, k, v = _bf16_qkv(cuda, 2 * G, 2, S, dh, S * 100 + G * 10 + dh)
@@ -498,6 +501,85 @@ def test_ssm_prefill_and_decode_on_card_match_cpu(cuda, name):
         assert err <= 1e-4 * float(cc[k].abs().max()), (k, err)
 
 
+@pytest.mark.parametrize("name", ["whisper-medium", "qwen2-vl-72b"])
+def test_encdec_and_vlm_prefill_and_decode_on_card_match_cpu(cuda, name):
+    """whisper-medium's and qwen2-vl-72b's SMOKE configs in float32, with
+    their frames or 4 patches from a numpy seed: the serve steps on the
+    card (one ``flash_attention_simt`` launch a layer of each stack in the
+    prefill) against the same on the CPU: the logits within 1e-4, the
+    same greedy tokens, each cache leaf within 1e-4 of its max."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.profile_serve import frontend_inputs
+    from repro_torch.launch.steps import make_serve_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKE[name].scaled(dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (2, 100)))}
+    extra = frontend_inputs(cfg, 2, rng)
+    batch.update({k: torch.from_numpy(v) for k, v in extra.items()})
+    start = 100 + (extra["patches"].shape[1] if "patches" in extra else 0)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, prefill, decode = make_serve_steps(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        fa.reset_counts()
+        logits, cache = prefill(params, {k: v.to(dev) for k, v in
+                                         batch.items()},
+                                model.make_cache(2, 512))
+        launches = dict(fa.COUNTS)
+        tok, seq = torch.argmax(logits[:, -1], -1)[:, None], []
+        for i in range(4):
+            tok, cache = decode(params, tok, cache, start + i)
+            seq.append(tok.cpu())
+        outs.append((logits.cpu(), torch.cat(seq, 1), launches,
+                     {k: v.cpu() for k, v in cache.items()}))
+    (lg, toks, n, ck), (lc, tokc, nc, cc) = outs
+    assert n["flash_attention_simt"] == cfg.n_layers + cfg.n_enc_layers
+    assert sum(n.values()) == n["flash_attention_simt"]
+    assert not any(nc.values())
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(toks, tokc)
+    for k in cc:
+        err = float((ck[k] - cc[k]).abs().max())
+        assert err <= 1e-4 * float(cc[k].abs().max()), (k, err)
+
+
+def test_whisper_bf16_prefill_launches_sm90_in_both_stacks(cuda):
+    """whisper-medium's SMOKE config in bf16 at dh 64 (the full config's
+    head size): a prefill launches ``flash_attention_sm90`` once a layer
+    of each stack (the encoder's not causal) and nothing else, and its
+    logits sit within 2e-2 of their scale from the same prefill on the
+    CPU (on ``flash_ref``)."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.profile_serve import frontend_inputs
+    from repro_torch.launch.steps import make_serve_steps
+    cfg = SMOKE["whisper-medium"].scaled(dtype="bfloat16", d_head=64)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (2, 100)))}
+    batch.update({k: torch.from_numpy(v) for k, v in
+                  frontend_inputs(cfg, 2, rng).items()})
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, prefill, _ = make_serve_steps(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        fa.reset_counts()
+        logits, _ = prefill(params, {k: v.to(dev) for k, v in
+                                     batch.items()},
+                            model.make_cache(2, 128))
+        outs.append((logits.cpu(), dict(fa.COUNTS)))
+    (lg, n), (lc, nc) = outs
+    assert n == {name: (cfg.n_layers + cfg.n_enc_layers
+                        if name == "flash_attention_sm90" else 0)
+                 for name in fa.COUNTS}
+    assert not any(nc.values())
+    err, scale = float((lg - lc).abs().max()), float(lc.abs().max())
+    assert err <= 2e-2 * scale, (err, scale)
+
+
 def test_moe_slots_on_card_match_cpu(cuda):
     """``moe.slots`` at deepseek-moe-16b's prefill width of routing (T =
     8192 tokens, top-6 of 64, skewed to a few experts) on the card: the
@@ -526,6 +608,8 @@ FLASH_BWD_SHAPES = [
     (6, 3, 1000, 64, torch.bfloat16, True),
     (8, 4, 512, 128, torch.bfloat16, False),
     (64, 32, 2048, 128, torch.bfloat16, True),
+    # whisper-medium's encoder (B=4, H=16, 1500 frames, not causal)
+    (64, 64, 1500, 64, torch.bfloat16, False),
 ]
 
 

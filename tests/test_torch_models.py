@@ -266,12 +266,6 @@ def test_params_from_jax_go_to_the_card_unless_asked():
     assert torch.equal(cpu["layers"]["w"], torch.zeros((2, 3, 3)))
 
 
-@pytest.mark.parametrize("name", ["whisper-medium"])
-def test_unported_stacks_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build(SMOKE[name], "cpu").init(torch.Generator())
-
-
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "mixtral-8x7b"])
 def test_moe_stacks_build_with_param_count_total(name):
     """The MoE configs build, and their init holds ``param_count``'s total

@@ -196,7 +196,8 @@ class Case:
 
     def full(self, tokens):
         """The port's full forward: last-position logits."""
-        x, pos = self.model._embed_inputs(self.params, {"tokens": t(tokens)})
+        x, pos, _, _ = self.model._embed_inputs(self.params,
+                                                {"tokens": t(tokens)})
         h, aux = self.model._trunk(self.params, x, pos)
         assert float(aux) == 0.0
         return L.unembed(self.params["embed"], self.cfg, h[:, -1:]).float()

@@ -293,8 +293,8 @@ def test_train_step_matches_reference_step(compress):
 
 def test_abstract_params_and_input_specs_match_reference(case):
     """Meta tensors name for name, shape and dtype as the reference's
-    ``ShapeDtypeStruct``s; the train, prefill and decode specs of the
-    text inputs."""
+    ``ShapeDtypeStruct``s; the train, prefill and decode specs of every
+    input (qwen2-vl's ``patches`` too)."""
     ref_shapes = case.ref.abstract_params()
     mine = case.model.abstract_params()
     each_leaf(lambda o, r, p: (o.device.type == "meta"
@@ -304,7 +304,6 @@ def test_abstract_params_and_input_specs_match_reference(case):
     for mode in ("train", "prefill", "decode"):
         ref = case.ref.input_specs(32, 4, mode)
         got = case.model.input_specs(32, 4, mode)
-        ref.pop("patches", None)     # the VLM patch prefix is not ported
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in ref.items()} \
             == {k: (s, str(d).replace("torch.", ""))
                 for k, (s, d) in got.items()}
