@@ -99,6 +99,21 @@ launch counts set to 0 just before and read just after:
   ``flash_attention_bwd``) the step's gradients equal the same step on
   ``flash_ref`` under autograd, and 2 steps, a checkpoint, a restore and
   1 step equal 3 steps bit for bit;
+* the LM scaffold across devices, qwen3-0.6b at full width on a mesh of
+  four shards of the card (``launch.mesh.make_host_mesh(devices=
+  ["cuda:0"] * 4)``): ``lm_train_dp``, ``make_train_step(cfg, mesh)``
+  data-parallel on ``lm_train``'s params and batches (each shard 1 x 2048
+  tokens, one backward over the four losses, the bucketed gradient sum of
+  ``distributed/overlap.py``, AdamW on every replica), 4 x 56
+  ``flash_attention_sm90`` and 4 x 28 ``flash_attention_bwd_sm90``
+  launches a step, the replicas bit-equal after every step, the first
+  loss beside the one-device step's, the reduction's ms and the peak
+  beside a reckoning; in float32 at two layers over two shards the step's
+  loss, gradients and params equal the one-device step's; and
+  ``lm_serve_dp``, ``make_serve_steps(cfg, mesh)``, B=4 prompts of 2048
+  tokens a shard each (4 x 28 launches a prefill) and 32 greedy steps,
+  in float32 at two layers over two shards the logits and greedy tokens
+  of the one-device serve;
 
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
@@ -985,16 +1000,18 @@ def _label(devices) -> str:
     return "one shard a card: the exchange crosses cards"
 
 
+def _sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def _synced(torch, fn):
     """(fn(), seconds): host clock around work that ends in a sync of
     every card."""
-    def sync():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
-    sync()
+    _sync_all(torch)
     t0 = time.perf_counter()
     out = fn()
-    sync()
+    _sync_all(torch)
     return out, time.perf_counter() - t0
 
 
@@ -2142,6 +2159,318 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     return launches, want32
 
 
+DP_SHARDS = 4               # lm_train_dp's and lm_serve_dp's data shards
+DP_CHECK_SHARDS = 2         # their float32 checks' (CHECK_B = 2 rows)
+DP_LOSS_TOL = FLASH_TOL["bfloat16"]   # bf16 step loss, of its size
+
+
+def _peak(torch, devices):
+    """max_memory_allocated of each card the devices name."""
+    return {str(d): torch.cuda.max_memory_allocated(d)
+            for d in sorted({str(d) for d in devices})}
+
+
+def _reset_peak(torch, devices):
+    _sync_all(torch)
+    for d in {str(d) for d in devices}:
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _replicas_differ(torch, SH, replicas) -> int:
+    """Leaves of replicas 1.. that are not bit-equal to replica 0's."""
+    first = SH.tree_leaves(replicas[0])
+    return sum(not torch.equal(a, b.to(a.device))
+               for r in replicas[1:]
+               for a, b in zip(first, SH.tree_leaves(r)))
+
+
+def _timed_reduce(torch, OV, red):
+    """``OV.bucketed_mean`` between two CUDA events on shard 0's card,
+    appended to ``red``: the reduction's device time, with no sync."""
+    from unittest import mock
+    inner = OV.bucketed_mean
+
+    def timed(*a, **kw):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out = inner(*a, **kw)
+        t1.record()
+        red.append((t0, t1))
+        return out
+
+    return mock.patch.object(OV, "bucketed_mean", timed)
+
+
+def phase_lm_train_dp(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+                      PipelineConfig, SH, OV, make_host_mesh, place=one_card):
+    """qwen3-0.6b at full width, data-parallel over DP_SHARDS shards
+    (``place``: of card 0, or one a card) through ``make_train_step(cfg,
+    mesh)``: ``lm_train``'s params (seed 0) and batches, replicated, one
+    warm-up step and TRAIN_TIMED timed ones. Each step must launch D x 56
+    ``flash_attention_sm90`` and D x 28 ``flash_attention_bwd_sm90`` and
+    nothing else; the replicas (params, m, v) stay bit-equal after every
+    step; the first step's loss is within DP_LOSS_TOL of the one-device
+    step's on the same params and batch. The reduction
+    (``overlap.bucketed_mean``) is timed by CUDA events on shard 0's card.
+    Then in float32 at CHECK_LAYERS layers over DP_CHECK_SHARDS shards:
+    the DP step against the one-device step on the same params and
+    CHECK_B x CHECK_S batch, the loss within 1e-5 of its size, every
+    gradient leaf within 1e-5 of its max, the params after the step within
+    1e-5 (twice step 1's lr of 3e-6 is 6e-6: Adam's first update is about
+    lr x sign(g), which can flip where an element of g sits at its
+    rounding level). Returns the bf16 run's launches of each kernel and
+    the counted float32 DP step's."""
+    cfg = ARCHS[LM_ARCH]
+    devices = place(DP_SHARDS)
+    mesh = make_host_mesh(devices=devices)
+    D = len(devices)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
+    # the one-device step's loss on the same params and batch
+    model1, step1, p_shapes, _ = steps.make_train_step(cfg, devices[0])
+    params = model1.init(torch.Generator(device=devices[0]).manual_seed(0))
+    batch0 = _batch(torch, pipe, 0)
+    one_loss = float(step1(params, adamw.init(params), batch0)[2]["loss"])
+    torch.cuda.empty_cache()
+
+    model, step, _, _ = steps.make_train_step(cfg, mesh)
+    _reset_peak(torch, devices)
+    base = {str(d): torch.cuda.memory_allocated(d) for d in set(devices)}
+    pr = SH.replicate(params, mesh)
+    orr = SH.replicate(adamw.init(params), mesh)
+    del params
+    want = {"flash_attention_sm90": 2 * cfg.n_layers * D,
+            "flash_attention_simt": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_sm90": cfg.n_layers * D}
+    red, losses, gnorms, step_s, differ = [], [], [], [], []
+    with _timed_reduce(torch, OV, red):
+        for i in range(1 + TRAIN_TIMED):
+            batch = batch0 if i == 0 else _batch(torch, pipe, i)
+            _sync_all(torch)
+            t0 = time.perf_counter()
+            pr, orr, metrics = _counted(
+                fa, kv, lambda: step(pr, orr, batch), want,
+                f"dp train step {i + 1}")
+            _sync_all(torch)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["gnorm"]))
+            differ.append(_replicas_differ(torch, SH, pr)
+                          + _replicas_differ(torch, SH, [o.m for o in orr])
+                          + _replicas_differ(torch, SH, [o.v for o in orr]))
+    peak = _peak(torch, devices)
+    reduce_ms = [a.elapsed_time(b) for a, b in red]
+    n_buckets = len(step.buckets)
+    if any(differ):
+        raise AssertionError(f"dp train: replicas differ ({differ} leaves "
+                             "a step)")
+    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"dp train: loss {losses}, gnorm {gnorms}")
+    loss_err = abs(losses[0] - one_loss)
+    if not loss_err <= DP_LOSS_TOL * abs(one_loss):
+        raise AssertionError(f"dp train: step 1 loss {losses[0]} vs the "
+                             f"one-device step's {one_loss}")
+    launches = {k: v * (1 + TRAIN_TIMED) for k, v in want.items()}
+    del pr, orr, metrics, batch, batch0
+    torch.cuda.empty_cache()
+
+    # float32, CHECK_LAYERS layers, DP_CHECK_SHARDS shards vs one device
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    dev32 = place(DP_CHECK_SHARDS)
+    mesh32 = make_host_mesh(devices=dev32)
+    m32, one32, _, _ = steps.make_train_step(cfg32, dev32[0])
+    _, dp32, _, _ = steps.make_train_step(cfg32, mesh32)
+    p0 = m32.init(torch.Generator(device=dev32[0]).manual_seed(1))
+    o0 = adamw.init(p0)
+    b0 = _batch(torch, TokenPipeline(PipelineConfig(
+        cfg.vocab, CHECK_S, CHECK_B)), 0)
+    (p1, _, m1), g1 = _spied_step(torch, steps, adamw, one32, p0, o0, b0)
+    want32 = {"flash_attention_sm90": 0,
+              "flash_attention_simt": 2 * CHECK_LAYERS * DP_CHECK_SHARDS,
+              "flash_attention_bwd": CHECK_LAYERS * DP_CHECK_SHARDS,
+              "flash_attention_bwd_sm90": 0}
+    (pd, od, md), gd = _counted(fa, kv, lambda: _spied_step(
+        torch, steps, adamw, dp32, SH.replicate(p0, mesh32),
+        SH.replicate(o0, mesh32), b0), want32, "float32 dp step")
+    grad_err = max(float((a.to(b.device) - b).abs().max())
+                   / float(b.abs().max())
+                   for a, b in zip(adamw.leaves(gd), adamw.leaves(g1)))
+    param_err = max(float((a.to(b.device) - b).abs().max())
+                    for a, b in zip(adamw.leaves(pd[0]), adamw.leaves(p1)))
+    loss_err32 = abs(float(md["loss"]) - float(m1["loss"]))
+    differ32 = _replicas_differ(torch, SH, pd)
+    if (not grad_err <= 1e-5 or not param_err <= 1e-5
+            or not loss_err32 <= 1e-5 * abs(float(m1["loss"])) or differ32):
+        raise AssertionError(
+            f"float32 dp step != one-device step: gradients {grad_err} of "
+            f"a leaf's max, params {param_err}, loss {loss_err32}, "
+            f"{differ32} replica leaves differ")
+    del p0, o0, p1, g1, pd, od, gd
+    torch.cuda.empty_cache()
+    ntok = TRAIN_B * TRAIN_S
+    n_params = sum(t.numel() for t in adamw.leaves(p_shapes))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in adamw.leaves(p_shapes))
+    # what the step holds at once, from the shapes: the caller's replicas,
+    # the new ones AdamW makes, the gradients, one shard's fp32 logits
+    reckoning = {"replica_params": D * param_bytes,
+                 "replica_adam_m_and_v": D * 8 * n_params,
+                 "replica_grads": D * param_bytes,
+                 "new_params_and_moments": D * (param_bytes + 8 * n_params),
+                 "fp32_logits_a_shard": 4 * ntok // D * cfg.vocab,
+                 "fp32_logits_grad_a_shard": 4 * ntok // D * cfg.vocab}
+    emit({"phase": "lm_train_dp", "arch": LM_ARCH,
+          "call": f"repro_torch.launch.steps.make_train_step(ARCHS"
+                  f"['{LM_ARCH}'], make_host_mesh(devices="
+                  f"{[str(d) for d in devices]}))",
+          "shards": _shards_on(devices),
+          "label": (f"{D} shards of one card: shards run in turn, no copies "
+                    "between cards" if len(set(map(str, devices))) == 1
+                    else "one shard a card: the reduction copies between "
+                    "cards"),
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+          "B": TRAIN_B, "S": TRAIN_S, "tokens_per_step": ntok,
+          "launches_per_step": want, "step_s": step_s,
+          "tokens_per_s": [ntok / t for t in step_s],
+          "loss": losses, "gnorm": gnorms,
+          "one_device_step_1_loss": one_loss, "loss_abs_err": loss_err,
+          "buckets": n_buckets, "bucket_bytes": 32 << 20,
+          "reduce_ms": reduce_ms,
+          "replica_leaves_differing_per_step": differ,
+          "peak_memory_bytes": peak, "base_bytes": base,
+          "memory_reckoning_bytes": {**reckoning,
+                                     "total": sum(reckoning.values())},
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "shards": _shards_on(dev32),
+                         "launches": want32,
+                         "grad_err_over_leaf_max": grad_err,
+                         "param_max_abs_err": param_err,
+                         "loss_abs_err": loss_err32}})
+    return launches, want32
+
+
+def phase_lm_serve_dp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
+                      place=one_card):
+    """qwen3-0.6b at full width served data-parallel over DP_SHARDS
+    shards through ``make_serve_steps(cfg, mesh)``: ``lm_serve``'s params
+    (seed 0) and LM_BATCH prompts of LM_PROMPT tokens, replicated, a cache
+    for LM_CTX placed by ``cache_specs`` (``steps.shard_cache``), one
+    counted prefill (a ``flash_attention_sm90`` launch a layer a shard) and
+    LM_DECODE greedy steps in bf16, then a timed prefill and the decode
+    loop again. In float32 at CHECK_LAYERS layers over DP_CHECK_SHARDS
+    shards, on CHECK_B x CHECK_S tokens: the prefill's logits within 1e-4
+    of the one-device serve's and LM_GREEDY_CHECK greedy tokens equal.
+    Returns the bf16 run's ``flash_attention_sm90`` launches and the
+    float32 DP prefill's ``flash_attention_simt`` launches."""
+    cfg = ARCHS[LM_ARCH]
+    devices = place(DP_SHARDS)
+    mesh = make_host_mesh(devices=devices)
+    D = len(devices)
+    model, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(devices[0])
+    _reset_peak(torch, devices)
+    pr = SH.replicate(params, mesh)
+    del params
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(LM_BATCH, LM_CTX))
+    want = {"flash_attention_sm90": cfg.n_layers * D}
+
+    def run():
+        logits, c = prefill(pr, {"tokens": tokens}, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out = [tok]
+        for i in range(LM_DECODE):
+            tok, c = decode(pr, tok, c, LM_PROMPT + i)
+            out.append(tok)
+        return logits, torch.cat(out, 1)
+
+    _sync_all(torch)
+    t0 = time.perf_counter()
+    logits, gen = _counted(fa, kv, run, {
+        "flash_attention_sm90": want["flash_attention_sm90"],
+        "flash_attention_simt": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_sm90": 0}, "dp serve")
+    _sync_all(torch)
+    first_s = time.perf_counter() - t0
+    if (not bool(torch.isfinite(logits).all())
+            or logits.shape != (LM_BATCH, 1, cfg.vocab)
+            or gen.shape != (LM_BATCH, LM_DECODE + 1)
+            or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab):
+        raise AssertionError("dp serving gave non-finite logits or bad "
+                             "tokens")
+    _, prefill_s = _synced(torch, lambda: prefill(pr, {"tokens": tokens},
+                                                  cache))
+    tok = gen[:, :1]
+
+    def loop():
+        t = tok
+        for i in range(LM_DECODE):
+            t, _ = decode(pr, t, cache, LM_PROMPT + i)
+
+    _, decode_s = _synced(torch, loop)
+    peak = _peak(torch, devices)
+    del pr, cache, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    dev32 = place(DP_CHECK_SHARDS)
+    mesh32 = make_host_mesh(devices=dev32)
+    m1, pre1, dec1 = steps.make_serve_steps(cfg32, dev32[0])
+    _, pre_dp, dec_dp = steps.make_serve_steps(cfg32, mesh32)
+    p32 = m1.init(torch.Generator(device=dev32[0]).manual_seed(1))
+    toks32 = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (CHECK_B, CHECK_S))).to(dev32[0])
+    ctx32 = CHECK_S + LM_GREEDY_CHECK
+
+    def greedy(pre, dec, params, cache):
+        logits, cache = pre(params, {"tokens": toks32}, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out = [tok]
+        for i in range(LM_GREEDY_CHECK - 1):
+            tok, cache = dec(params, tok, cache, CHECK_S + i)
+            out.append(tok)
+        return logits, torch.cat(out, 1)
+
+    l1, t1 = greedy(pre1, dec1, p32, m1.make_cache(CHECK_B, ctx32))
+    fa.reset_counts()
+    ld, td = greedy(pre_dp, dec_dp, SH.replicate(p32, mesh32),
+                    steps.shard_cache(cfg32, mesh32,
+                                      m1.make_cache(CHECK_B, ctx32)))
+    launches32 = fa.COUNTS["flash_attention_simt"]
+    err = float((ld - l1).abs().max())
+    if (err > 1e-4 or not torch.equal(td, t1)
+            or launches32 != CHECK_LAYERS * DP_CHECK_SHARDS):
+        raise AssertionError(f"float32 dp serve != one-device serve: logits "
+                             f"{err}, tokens {td.tolist()} vs {t1.tolist()}, "
+                             f"{launches32} flash_attention_simt launches")
+    del p32
+    torch.cuda.empty_cache()
+    launches = want["flash_attention_sm90"]
+    emit({"phase": "lm_serve_dp", "arch": LM_ARCH,
+          "call": f"repro_torch.launch.steps.make_serve_steps(ARCHS"
+                  f"['{LM_ARCH}'], make_host_mesh(devices="
+                  f"{[str(d) for d in devices]}))",
+          "shards": _shards_on(devices),
+          "label": (f"{D} shards of one card: shards run in turn, no copies "
+                    "between cards" if len(set(map(str, devices))) == 1
+                    else "one shard a card"),
+          "B": LM_BATCH, "S": LM_PROMPT, "ctx": LM_CTX,
+          "decode_steps": LM_DECODE,
+          "flash_attention_sm90_launches_per_prefill": launches,
+          "first_run_s": first_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "decode_s": decode_s,
+          "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+          "peak_memory_bytes": peak,
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "shards": _shards_on(dev32),
+                         "flash_attention_simt_launches": launches32,
+                         "logits_max_abs_err": err,
+                         "greedy_tokens_equal": LM_GREEDY_CHECK}})
+    return launches, launches32
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2714,6 +3043,9 @@ def main() -> int:
         from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
         from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
         from repro_torch.launch import profile_serve, steps
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.distributed import overlap as OV
+        from repro_torch.distributed import sharding as SH
         from repro_torch.optim import adamw
         from repro_torch.runtime.checkpoint import CheckpointManager
         from repro_torch.models import layers as L
@@ -2781,6 +3113,11 @@ def main() -> int:
     train_launches, fp32_train_launches = phase_lm_train(
         torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
         PipelineConfig, CheckpointManager)
+    dp_launches, fp32_dp_launches = phase_lm_train_dp(
+        torch, fa, kv, steps, ARCHS, adamw, TokenPipeline, PipelineConfig,
+        SH, OV, make_host_mesh)
+    serve_dp_launches, serve_dp_fp32_launches = phase_lm_serve_dp(
+        torch, fa, kv, steps, ARCHS, SH, make_host_mesh)
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
@@ -2798,6 +3135,10 @@ def main() -> int:
           "flash_attention_bwd_fp32": bwd["float32"]["flash_attention_bwd"],
           "launches_on_fp32_train_check": fp32_train_launches,
           "launches_on_bf16_train_path": train_launches,
+          "launches_on_bf16_dp_train_path": dp_launches,
+          "launches_on_fp32_dp_train_check": fp32_dp_launches,
+          "sm90_launches_on_bf16_dp_serving_path": serve_dp_launches,
+          "simt_launches_on_fp32_dp_serving_check": serve_dp_fp32_launches,
           "seed_launches_on_seed_path": seed_launches,
           "b1_chunk_launches_on_machine_path": b1_launches,
           "sm90_launches_on_bf16_serving_path": sm90_launches,
@@ -2837,7 +3178,9 @@ def main() -> int:
                         "lm_serve_moe": moe_sm90_launches,
                         "lm_serve_encdec": encdec_sm90_launches,
                         "lm_serve_vlm": vlm_sm90_launches,
-                        "lm_train": train_launches["flash_attention_sm90"]}),
+                        "lm_train": train_launches["flash_attention_sm90"],
+                        "lm_train_dp": dp_launches["flash_attention_sm90"],
+                        "lm_serve_dp": serve_dp_launches}),
          "other_shapes": {
              name: {"launches": n, **{k: flash_encdec[name][k] for k in (
                  "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2856,7 +3199,10 @@ def main() -> int:
                         "lm_serve_encdec_fp32_check": encdec_fp32_launches,
                         "lm_serve_vlm_fp32_check": vlm_fp32_launches,
                         "lm_train_fp32_check":
-                        fp32_train_launches["flash_attention_simt"]}),
+                        fp32_train_launches["flash_attention_simt"],
+                        "lm_train_dp_fp32_check":
+                        fp32_dp_launches["flash_attention_simt"],
+                        "lm_serve_dp_fp32_check": serve_dp_fp32_launches}),
          "case": flash112["case"],
          "fp32": kernel_line("flash_attention_simt",
                              "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2871,7 +3217,9 @@ def main() -> int:
                     "XLA's autodiff of src/repro/models/layers.py:116 _sdpa",
                     train_launches["flash_attention_bwd_sm90"],
                     bwd["bfloat16"]["flash_attention_bwd_sm90"],
-                    {"lm_train": train_launches["flash_attention_bwd_sm90"]}),
+                    {"lm_train": train_launches["flash_attention_bwd_sm90"],
+                     "lm_train_dp":
+                     dp_launches["flash_attention_bwd_sm90"]}),
         kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "none: no TPU kernel is replaced; the gradient of "
@@ -2883,6 +3231,8 @@ def main() -> int:
                     bwd["float32"]["flash_attention_bwd"],
                     {"lm_train_fp32_check":
                      fp32_train_launches["flash_attention_bwd"],
+                     "lm_train_dp_fp32_check":
+                     fp32_dp_launches["flash_attention_bwd"],
                      "lm_train_bf16": train_launches["flash_attention_bwd"]})]
     print(json.dumps({"kernels": kernels}))
     print(smi)

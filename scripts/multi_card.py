@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s ``sharded`` and ``grid`` phases, one shard a card.
+"""``chip_smoke.py``'s ``sharded``, ``grid`` and ``lm_train_dp`` phases,
+one shard a card.
 
     python3 scripts/multi_card.py [--trace DIR]   # on 4 or more cards
 
@@ -9,7 +10,12 @@ runs the same cases with shard s on card s (D=1 on card 0, D=4 on cards
 0-3): each card runs its own launches, and the grid's exchange copies
 SEND values from card to card every Vcycle. Every case is held bit for bit
 against ``BatchedMachine`` or ``Machine`` on card 0, as in
-``chip_smoke.py``. Prints the card's name and power limit, one JSON line
+``chip_smoke.py``. ``lm_train_dp`` trains qwen3-0.6b at full width
+data-parallel with shard s on card s (its float32 check on cards 0-1):
+the bucketed gradient sum then copies between cards, and the phase holds
+it to ``chip_smoke.py``'s checks (launches, replicas bit-equal, the loss
+beside the one-device step's, float32 against the one-device step).
+Prints the card's name and power limit, one JSON line
 a phase, and ``{"ok": true, ...}`` last; exits non-zero, with no such
 line, when a phase fails or fewer than four cards are present. With
 ``--trace DIR`` it also writes a ``torch.profiler`` trace (Chrome format)
@@ -57,7 +63,15 @@ def main() -> int:
     import repro_torch.sim as sim
     from repro_torch.circuits import FINISH
     from repro_torch.core import bsp
+    from repro_torch.configs import ARCHS
     from repro_torch.core.grid import GridMachine
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed import overlap as OV
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import vcycle as kv
     from repro_torch.sim.engine import IsaEngine
@@ -90,8 +104,13 @@ def main() -> int:
         gm.run(gm.init_state(), n)
         trace(torch, args.trace / "grid_mc_b64_d4.json",
               lambda: gm.run(gm.init_state(), n))
+    dp, dp32 = cs.phase_lm_train_dp(torch, fa, kv, steps, ARCHS, adamw,
+                                    TokenPipeline, PipelineConfig, SH, OV,
+                                    make_host_mesh, place)
     cs.emit({"phase": "done", "chunk_launches_on_sharded_path": launches,
              "chunk_launches_on_grid_path": grid,
+             "launches_on_bf16_dp_train_path": dp,
+             "launches_on_fp32_dp_train_check": dp32,
              "seconds": time.perf_counter() - t0})
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,11 @@ The chunked Vcycle engine (``core.bsp``) runs the hand-written CUDA kernel
 PyTorch version. ``convert`` carries Programs, machine states and LM
 parameters across from the reference package as numpy arrays.
 
-The LM scaffold's serving path is ported for dense decoder-only configs:
-``launch.steps.make_serve_steps`` over ``models`` and ``configs``, with
-the prefill's attention on the kernels ``kernels/csrc/flash_attention_sm90.cu``
-(bf16, head dims 64 and 128, on the tensor cores) and
-``kernels/csrc/flash_attention.cu`` (float32 and the other head dims).
+The LM scaffold serves and trains: ``launch.steps.make_serve_steps`` and
+``make_train_step`` over ``models`` and ``configs``, with attention on
+the kernels ``kernels/csrc/flash_attention_sm90.cu`` (bf16, head dims 64
+and 128, on the tensor cores) and ``kernels/csrc/flash_attention.cu``
+(float32 and the other head dims) and their backward kernels, on one
+device or data-parallel over a mesh of devices (``distributed``,
+``launch.mesh``).
 """

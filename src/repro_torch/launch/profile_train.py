@@ -1,6 +1,6 @@
 """Where LM training spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--shards 4]
 
 Trains qwen3-0.6b at full width through ``make_train_step`` (random bf16
 weights from a seed, ``TokenPipeline`` batches of B=4 x S=2048 tokens) and
@@ -12,17 +12,23 @@ time of each kind of kernel (the backward flash kernels, wgmma and
 3xTF32, the forward flash kernels, matrix products, the rest) and of each
 flash kernel's entry function (the backward's passes apart), the
 kernels with the most device time, the aten ops the step dispatches,
-and the peak device memory. Needs a CUDA device.
+and the peak device memory. ``--shards D`` traces the data-parallel step
+over D shards of the card instead (``make_train_step(cfg, mesh)``, each
+shard B/D rows, the bucketed reduction, AdamW on every replica). Needs a
+CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 
 import torch
 
 from ..configs import ARCHS
 from ..data.pipeline import PipelineConfig, TokenPipeline
+from ..distributed.sharding import replicate
 from ..optim import adamw
+from .mesh import make_host_mesh
 from .profile_serve import _OpCount, _kernel_times, profile_phase
 from .steps import make_train_step
 
@@ -41,10 +47,17 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def profile(cfg, device, B: int, S: int) -> dict:
-    model, step, _, _ = make_train_step(cfg, device)
+def profile(cfg, device, B: int, S: int, shards: int = 1) -> dict:
+    """One step traced, on ``device`` or, with ``shards`` > 1, over that
+    many data shards of it."""
+    mesh = (make_host_mesh(devices=[device] * shards) if shards > 1
+            else None)
+    model, step, _, _ = make_train_step(cfg, mesh or device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     state = {"params": params, "opt": adamw.init(params)}
+    if mesh is not None:
+        state = {k: replicate(v, mesh) for k, v in state.items()}
+    del params
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, S, B))
 
     def one(i):
@@ -57,7 +70,7 @@ def profile(cfg, device, B: int, S: int) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    out = {"arch": cfg.name, "B": B, "S": S,
+    out = {"arch": cfg.name, "B": B, "S": S, "shards": shards,
            "step": profile_phase(device, lambda: one(1), top=12)}
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     with torch.profiler.profile(activities=acts) as prof:
@@ -82,8 +95,13 @@ def profile(cfg, device, B: int, S: int) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shards", type=int, default=1,
+                    help="data shards of the card (default: one device)")
+    args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = profile(ARCHS["qwen3-0.6b"], torch.device("cuda"), B, S)
+    out = profile(ARCHS["qwen3-0.6b"], torch.device("cuda", 0), B, S,
+                  args.shards)
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
 

@@ -1,11 +1,23 @@
-"""Step builders: train_step, prefill_step and decode_step on one card.
+"""Step builders: train_step, prefill_step and decode_step on one device
+or over the data shards of a mesh.
 
 Port of ``repro.launch.steps.make_train_step`` and ``make_serve_steps``.
-There is no mesh, no sharding and no ``jit``: the steps run eagerly, so
-the reference's parameter and optimizer specs (``p_specs``, ``o_specs``)
-and its ``lower_train``/``lower_serve`` have no counterpart. The serve
-steps run under ``torch.inference_mode()`` and update the cache in place,
-as the reference's donated cache lets XLA do.
+The steps run eagerly, with no ``jit``, so the reference's
+``lower_train``/``lower_serve`` (which drive XLA) have no counterpart.
+Given ``None`` or a device they run on that one device, as they always
+have. Given a ``distributed.ctx.Mesh`` they run data-parallel over its
+data axes (``pod`` x ``data``), each shard on its own device (a device may
+repeat): training by ``distributed.overlap.make_manual_dp_step`` (each
+shard's loss, one backward, the bucketed gradient sum, AdamW on every
+replica), serving by giving each shard its rows of the batch and of the
+cache. A ``model`` axis larger than 1 raises ``NotImplementedError``:
+tensor parallelism is ROADMAP A8.5b. On a mesh, params and optimizer
+state are replicated, one tree a data shard (``sharding.replicate``), and
+the cache is a tree of ``ShardedTensor`` placed by ``cache_specs``
+(``shard_cache``). A MoE layer then routes each shard's tokens alone: the
+reference's grouped dispatch (``_moe_groups``) with G = the shard count.
+The serve steps run under ``torch.inference_mode()`` and update the cache
+in place, as the reference's donated cache lets XLA do.
 """
 from __future__ import annotations
 
@@ -14,9 +26,30 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..device import resolve_device
+from ..distributed import sharding as SH
+from ..distributed.ctx import Mesh, batch_axes, mesh_context
+from ..distributed.overlap import dp_devices, make_manual_dp_step, split_batch
 from ..models.config import ModelConfig
 from ..models.model import build
 from ..optim import adamw
+
+
+def _data_axes(mesh: Mesh):
+    with mesh_context(mesh):
+        return batch_axes()
+
+
+def _optimizer(compress_grads: bool):
+    """``apply(params, grads, opt) -> (params, opt, gnorm)``: the int8
+    round trip with error feedback (when ``compress_grads`` and
+    ``opt.ef`` is set), then one ``adamw.apply``."""
+    def apply(params, grads, opt: adamw.AdamWState):
+        if compress_grads and opt.ef is not None:
+            q, s, ef = adamw.compress_grads(grads, opt.ef)
+            grads = adamw.tree_map(adamw.dequantize_int8, q, s)
+            opt = opt._replace(ef=ef)
+        return adamw.apply(params, grads, opt)
+    return apply
 
 
 def make_train_step(cfg: ModelConfig, device=None,
@@ -31,9 +64,16 @@ def make_train_step(cfg: ModelConfig, device=None,
     ``gnorm``. It returns new tensors and leaves ``params`` and ``opt`` as
     they are. A leaf the loss does not reach raises (every leaf of a dense
     or MoE decoder gets a gradient). ``p_shapes`` and ``opt_shapes`` are
-    meta-device tensors. Raises unless ``device`` is given or a CUDA
-    device is present (the step follows its inputs; ``device`` is where
-    ``model.init`` puts them by default). zamba2, xLSTM and the
+    meta-device tensors.
+
+    ``device`` is where it runs: None or a device, that one device (None:
+    the card, raising without one; the step follows its inputs, and the
+    device is where ``model.init`` puts them by default); a ``Mesh`` (the
+    reference's ``mesh`` argument), its data shards
+    (``make_manual_dp_step``): ``params`` and ``opt`` are then lists of one
+    replica a shard (``sharding.replicate``), the batch is split along B,
+    each metric is its mean over the shards, and the step returns the
+    replicas, bit-equal. zamba2, xLSTM and the
     encoder-decoder raise ``NotImplementedError``: they serve, and their
     training waits for ROADMAP A8.7 (zamba2, xLSTM) and A8.8 (whisper).
     A VLM's ``patches``, inputs and not parameters, go through the step
@@ -46,24 +86,27 @@ def make_train_step(cfg: ModelConfig, device=None,
         raise NotImplementedError(
             f"{cfg.name}: the port serves the encoder-decoder stack but does "
             "not train it yet (ROADMAP A8.8)")
-    model = build(cfg, resolve_device(device))
+    apply = _optimizer(compress_grads)
+    if isinstance(device, Mesh):
+        axes = _data_axes(device)
+        model = build(cfg, dp_devices(device, axes)[0])
+        train_step = make_manual_dp_step(model.loss, apply, device, axes)
+    else:
+        model = build(cfg, resolve_device(device))
+
+        def train_step(params, opt: adamw.AdamWState, batch: Dict):
+            leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(),
+                                    params)
+            loss, metrics = model.loss(leaves, batch)
+            loss.backward()
+            grads = adamw.tree_map(_grad, leaves)
+            params, opt, gnorm = apply(params, grads, opt)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return params, opt, dict(metrics, loss=loss.detach(),
+                                     gnorm=gnorm)
+
     p_shapes = model.abstract_params()
     opt_shapes = adamw.init(p_shapes, compress=compress_grads)
-
-    def train_step(params, opt: adamw.AdamWState, batch: Dict):
-        leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(),
-                                params)
-        loss, metrics = model.loss(leaves, batch)
-        loss.backward()
-        grads = adamw.tree_map(_grad, leaves)
-        if compress_grads and opt.ef is not None:
-            q, s, ef = adamw.compress_grads(grads, opt.ef)
-            grads = adamw.tree_map(adamw.dequantize_int8, q, s)
-            opt = opt._replace(ef=ef)
-        params, opt, gnorm = adamw.apply(params, grads, opt)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt, dict(metrics, loss=loss.detach(), gnorm=gnorm)
-
     return model, train_step, p_shapes, opt_shapes
 
 
@@ -74,6 +117,14 @@ def _grad(leaf: torch.Tensor) -> torch.Tensor:
     return leaf.grad
 
 
+def shard_cache(cfg: ModelConfig, mesh: Mesh, cache: Any) -> Any:
+    """``cache`` (from ``model.make_cache`` for the whole batch) as a tree
+    of ``ShardedTensor`` on ``mesh``, placed by ``cache_specs``: each data
+    shard holds its rows."""
+    return SH.shard_tree(cache, SH.to_named(
+        mesh, SH.cache_specs(cfg, mesh, cache)))
+
+
 def make_serve_steps(cfg: ModelConfig, device=None):
     """Returns (model, prefill_step, decode_step).
 
@@ -81,22 +132,56 @@ def make_serve_steps(cfg: ModelConfig, device=None):
     the prompt ``batch["tokens"]`` (after a VLM's ``batch["patches"]``;
     over a whisper batch's ``batch["frames"]``) and primes the cache;
     ``decode_step(params, tokens [B, 1], cache, pos) -> (next [B, 1] int32,
-    cache)`` takes one greedy step at position ``pos``. Raises unless
-    ``device`` is given or a CUDA device is present (the steps follow
-    their inputs; ``device`` is where ``model.init`` and
-    ``model.make_cache`` put theirs by default)."""
-    model = build(cfg, resolve_device(device))
+    cache)`` takes one greedy step at position ``pos``.
+
+    ``device`` is where they run: None or a device, that one device
+    (None: the card, raising without one; the steps follow their inputs,
+    and the device is where ``model.init`` and ``model.make_cache`` put
+    theirs by default); a ``Mesh`` (the reference's ``mesh`` argument),
+    its data shards: ``params`` is then a list of one replica a shard
+    (``sharding.replicate``) and ``cache`` a tree of ``ShardedTensor``
+    (``shard_cache``); each shard runs its rows of the batch on its block
+    of the cache, and the logits and tokens come back on shard 0's device
+    in row order."""
+    if not isinstance(device, Mesh):
+        model = build(cfg, resolve_device(device))
+
+        @torch.inference_mode()
+        def prefill_step(params, batch: Dict, cache: Any
+                         ) -> Tuple[torch.Tensor, Any]:
+            return model.prefill(params, batch, cache)
+
+        @torch.inference_mode()
+        def decode_step(params, tokens: torch.Tensor, cache: Any, pos: int
+                        ) -> Tuple[torch.Tensor, Any]:
+            logits, cache = model.decode_step(params, tokens, cache, pos)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            return nxt[:, None], cache
+
+        return model, prefill_step, decode_step
+
+    devices = dp_devices(device, _data_axes(device))
+    positions = SH.data_positions(device)
+    model = build(cfg, devices[0])
 
     @torch.inference_mode()
-    def prefill_step(params, batch: Dict, cache: Any
-                     ) -> Tuple[torch.Tensor, Any]:
-        return model.prefill(params, batch, cache)
+    def dp_prefill(params, batch: Dict, cache: Any
+                   ) -> Tuple[torch.Tensor, Any]:
+        logits = [model.prefill(p, part, SH.blocks_at(cache, pos))[0]
+                  for p, part, pos in zip(
+                      params, split_batch(batch, devices), positions)]
+        return torch.cat([x.to(devices[0]) for x in logits]), cache
 
     @torch.inference_mode()
-    def decode_step(params, tokens: torch.Tensor, cache: Any, pos: int
-                    ) -> Tuple[torch.Tensor, Any]:
-        logits, cache = model.decode_step(params, tokens, cache, pos)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
+    def dp_decode(params, tokens: torch.Tensor, cache: Any, pos: int
+                  ) -> Tuple[torch.Tensor, Any]:
+        out = []
+        for p, part, at in zip(params, split_batch({"tokens": tokens},
+                                                   devices), positions):
+            logits, _ = model.decode_step(p, part["tokens"],
+                                          SH.blocks_at(cache, at), pos)
+            out.append(torch.argmax(logits[:, -1], dim=-1).to(
+                devices[0], torch.int32))
+        return torch.cat(out)[:, None], cache
 
-    return model, prefill_step, decode_step
+    return model, dp_prefill, dp_decode

@@ -28,8 +28,12 @@ its gate (0 when dropped); the reference's ``REPRO_MOE_SCATTER`` branch of
 ``_moe_groups`` routes the same way, scattering the rows instead.
 ``moe_fwd_onehot`` is the reference's one-hot form, transcribed, which the
 tests hold ``moe_fwd`` against; nothing on the model's path calls it.
-Without a mesh the reference's ``_n_groups`` is 1, so ``_moe_groups`` and
-``REPRO_MOE_GROUPED`` have no counterpart.
+The reference's grouped dispatch (``_moe_groups`` under
+``REPRO_MOE_GROUPED=1``: each data-parallel group of tokens routed alone,
+with its own capacity and auxiliary loss, the loss taking their mean) is
+what the data-parallel steps do (``launch/steps.py`` on a mesh): each
+data shard runs ``moe_fwd`` on its own tokens, G = the shard count, and
+the step's loss is the mean of the shards'.
 
 Every op is out of place, so ``moe_fwd`` is differentiable (``Model.loss``
 runs through it); the gradient reaches x through the two gathers, and

@@ -18,12 +18,16 @@ bits, with ``"bfloat16"`` in the manifest; the bits move through torch
 (``view(torch.int16)``), so this module needs no ``ml_dtypes``.
 
 ``save`` copies every leaf to host memory before it returns, and a
-background thread writes the files (one save in flight at a time).
-``restore_tree(template, step, device)`` takes the place of the
-reference's ``shardings=``: each leaf goes to ``device`` (None: the
-template leaf's device), and a stored leaf whose shape or dtype differs
-from the template leaf's raises. There is one host, so the multi-host
-commit and the elastic reshard onto another mesh have no counterpart.
+background thread writes the files (one save in flight at a time). A
+checkpoint holds full logical arrays: a ``ShardedTensor`` leaf is
+gathered first. ``restore_tree(template, step, device, shardings)``
+puts each leaf on ``device`` (None: the template leaf's device), or,
+given ``shardings`` (a tree of ``distributed.sharding.Sharding`` shaped
+like ``template``), places it as a ``ShardedTensor`` on the mesh of its
+sharding, which may differ from the mesh that saved it (the elastic
+restart); a stored leaf whose shape or dtype differs from the template
+leaf's raises. There is one host, so the multi-host commit has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import ShardedTensor, shard_tree
 
 
 def _is_namedtuple(x) -> bool:
@@ -103,6 +109,8 @@ class CheckpointManager:
         host_arrays: Dict[str, np.ndarray] = {}
         manifest = {"step": int(step), "leaves": {}}
         for key, leaf in _flatten(tree):
+            if isinstance(leaf, ShardedTensor):
+                leaf = leaf.gather(torch.device("cpu"))
             arr, dtype = _encode(torch.as_tensor(leaf))
             host_arrays[key] = np.array(arr)     # a copy the step cannot touch
             manifest["leaves"][key] = {"shape": list(arr.shape),
@@ -161,11 +169,15 @@ class CheckpointManager:
         return step, arrays
 
     def restore_tree(self, template: Any, step: Optional[int] = None,
-                     device=None) -> Tuple[int, Any]:
+                     device=None, shardings: Any = None) -> Tuple[int, Any]:
         """Rebuild a tree shaped like ``template`` (dicts, NamedTuples,
-        tensors) on ``device`` (None: the template leaf's device). A
-        stored leaf must have the template leaf's shape and dtype: a
-        checkpoint of another configuration raises here."""
+        tensors) on ``device`` (None: the template leaf's device), or
+        with ``shardings`` as ``ShardedTensor``s on their mesh. A stored
+        leaf must have the template leaf's shape and dtype: a checkpoint
+        of another configuration raises here."""
+        if device is not None and shardings is not None:
+            raise TypeError("restore_tree: pass a device or shardings, "
+                            "not both")
         step, arrays = self.restore(step)
         leaves = {}
         for key, leaf in _flatten(template):
@@ -175,6 +187,10 @@ class CheckpointManager:
                     f"checkpoint step {step} in {self.dir}: leaf {key} is "
                     f"{t.dtype}{list(t.shape)}, the template's is "
                     f"{leaf.dtype}{list(leaf.shape)}")
-            dev = leaf.device if device is None else torch.device(device)
-            leaves[key] = t.to(dev)
-        return step, _unflatten(template, leaves)
+            if shardings is None:
+                t = t.to(leaf.device if device is None else device)
+            leaves[key] = t
+        tree = _unflatten(template, leaves)
+        if shardings is not None:
+            tree = shard_tree(tree, shardings)
+        return step, tree

@@ -1,13 +1,16 @@
-"""Elastic re-scaling of a running RTL simulation.
+"""Elastic scaling of the LM's training state and of a running RTL
+simulation.
 
-Port of the RTL side of ``repro.runtime.elastic``: a Manticore machine
-state migrates between two *compilations* of the same circuit (different
-core counts or grids). Architectural state is addressed by RTL register
-name and memory name, not by core, so the new partitioning is free to
-place it anywhere; the transfer is exact.
+Port of ``repro.runtime.elastic``. LM side: checkpoints are
+mesh-agnostic (full logical arrays), and ``reshard`` places a tree onto
+a new mesh's shardings, so a job that lost devices restarts on fewer
+with only a spec rebuild: the divisibility guard in
+``distributed.sharding`` re-derives legal specs for the new topology.
 
-The reference's LM side, ``reshard`` (placing a restored parameter tree on
-a new mesh's shardings), is JAX sharding and has no counterpart here.
+RTL side: a Manticore machine state migrates between two *compilations*
+of the same circuit (different core counts or grids). Architectural state
+is addressed by RTL register name and memory name, not by core, so the
+new partitioning is free to place it anywhere; the transfer is exact.
 """
 from __future__ import annotations
 
@@ -15,6 +18,13 @@ from typing import Any, Dict
 
 from ..core.bsp import Machine, MachineState, from_words
 from ..core.compile import Program
+from ..distributed.sharding import shard_tree
+
+
+def reshard(tree: Any, shardings: Any) -> Any:
+    """Every leaf (a tensor, or a ``ShardedTensor`` on any mesh) placed
+    on its new-mesh ``Sharding``, as a ``ShardedTensor``."""
+    return shard_tree(tree, shardings)
 
 
 def extract_state(prog: Program, state: MachineState) -> Dict[str, Any]:
