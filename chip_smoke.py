@@ -1462,7 +1462,7 @@ def _start(extra, S):
 
 
 def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
-           MOE=None, repeats=3, S=LM_PROMPT, extra=None):
+           MOE=None, repeats=3, S=LM_PROMPT, extra=None, keep=None):
     """``cfg`` in its bf16 through ``make_serve_steps`` on the card:
     parameters from a ``torch.Generator`` seeded ``seed`` (the init's peak
     bytes), LM_BATCH prompts of S tokens from a numpy seed (after a VLM's
@@ -1472,9 +1472,11 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     must launch the flash kernels ``want`` names as many times as it says
     ({kernel: launches}) and nothing else; then ``repeats`` synced
     prefills and the decode loop again, timed; with ``MOE`` a last
-    prefill recording each layer's dropped share. Returns (the prompts,
-    the numbers). Peak bytes are ``max_memory_allocated``, with what was
-    allocated before the init (``base_bytes``) beside them."""
+    prefill recording each layer's dropped share; with a list ``keep``
+    the counted prefill's logits appended to it (on the host). Returns
+    (the prompts, the numbers). Peak bytes are ``max_memory_allocated``,
+    with what was allocated before the init (``base_bytes``) beside
+    them."""
     model, prefill_step, decode_step = steps.make_serve_steps(cfg)
     tokens = torch.from_numpy(np.random.default_rng(seed + 13).integers(
         0, cfg.vocab, (LM_BATCH, S))).cuda()
@@ -1504,6 +1506,8 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
         out.append(tok)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    if keep is not None:
+        keep.append(logits.float().cpu())
     counts = dict(fa.COUNTS)
     if (counts != {**{k: 0 for k in counts}, **want}
             or any(kv.COUNTS.values())):
@@ -1633,6 +1637,7 @@ MOE_ARCH = "deepseek-moe-16b"
 MOE_DECODE = 32
 MOE_CTX = LM_PROMPT + MOE_DECODE
 MOE_CHECK_LAYERS = 2      # the float32 checks, as lm_train's
+MOE_SEED = 4              # deepseek's params; its prompts from MOE_SEED + 13
 MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_DECODE = "mixtral-8x7b", 16, 8
 
 
@@ -1719,7 +1724,8 @@ def _index_vs_onehot(torch, steps, MOE, cfg, tokens) -> dict:
     return res
 
 
-def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS):
+def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
+                       keep=None):
     """MoE serving through ``make_serve_steps`` on the card:
     deepseek-moe-16b at full width and depth (``_serve``: one prefill, one
     ``flash_attention_sm90`` launch a layer, MOE_DECODE greedy steps,
@@ -1730,11 +1736,13 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS):
     which at 1.25 would drop other pairs than prefill and decode do); then
     mixtral-8x7b at full width and MIXTRAL_LAYERS of its 32 layers (what
     one card holds), whose windowed prefill launches no flash kernel, and
-    MIXTRAL_DECODE steps. Returns the two flash kernels' launches."""
+    MIXTRAL_DECODE steps. With a list ``keep``, deepseek's prefill logits
+    are appended to it. Returns the two flash kernels' launches."""
     cfg = ARCHS[MOE_ARCH]
-    tokens, deepseek = _serve(torch, fa, kv, steps, cfg, 4, MOE_DECODE,
-                              MOE_CTX, {"flash_attention_sm90": cfg.n_layers},
-                              MOE)
+    tokens, deepseek = _serve(torch, fa, kv, steps, cfg, MOE_SEED,
+                              MOE_DECODE, MOE_CTX,
+                              {"flash_attention_sm90": cfg.n_layers}, MOE,
+                              keep=keep)
     onehot = _index_vs_onehot(torch, steps, MOE, cfg.scaled(
         n_layers=MOE_CHECK_LAYERS), tokens)
     cfg2 = cfg.scaled(n_layers=MOE_CHECK_LAYERS)
@@ -2471,6 +2479,357 @@ def phase_lm_serve_dp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
     return launches, launches32
 
 
+TP_SHARDS = 4              # lm_train_tp's and lm_serve_tp's model shards
+TP_TIMED = 2               # lm_train_tp's timed steps, after a warm-up
+TP_DECODE = 8              # lm_serve_tp's greedy steps
+
+
+def _blocks_differ(torch, SH, tree) -> int:
+    """Blocks of a tree of ``ShardedTensor`` that are not bit-equal to
+    the first block of the same slice of their leaf: the model replicas
+    of a leaf whole on the model axis, and the data replicas of each."""
+    n = 0
+    for t in SH.tree_leaves(tree):
+        first = {}
+        for pos in np.ndindex(t.blocks.shape):
+            key = tuple((s.start, s.stop)
+                        for s in t.sharding.block(t.shape, pos))
+            b = t.blocks[pos]
+            if key in first:
+                n += not torch.equal(first[key], b.to(first[key].device))
+            else:
+                first[key] = b
+    return n
+
+
+def _place_consuming(SH, tree, shardings):
+    """``SH.shard_tree(tree, shardings)``, each leaf dropped from
+    ``tree`` once placed, so that a placement holds the parameters once
+    plus one leaf."""
+    if isinstance(tree, dict):
+        return {k: _place_consuming(SH, tree.pop(k), shardings[k])
+                for k in list(tree)}
+    return SH.shard_tree(tree, shardings)
+
+
+def _whole_extra(p_specs, p_shapes, M) -> tuple:
+    """(elements, bytes) that the leaves the guard keeps whole on the
+    model axis add over M shards: M - 1 more copies of each."""
+    n = b = 0
+    for spec, t in zip(_leaves(p_specs), _leaves(p_shapes)):
+        if "model" not in tuple(spec):
+            n += (M - 1) * t.numel()
+            b += (M - 1) * t.numel() * t.element_size()
+    return n, b
+
+
+def phase_lm_train_tp(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+                      PipelineConfig, SH, TP, make_host_mesh,
+                      place=one_card):
+    """qwen3-0.6b at full width and depth trained tensor-parallel over
+    TP_SHARDS model shards (``place``: of card 0, or one a card), mesh
+    (1, TP_SHARDS), through ``make_train_step(cfg, mesh)``: ``lm_train``'s
+    params (seed 0) and batches, placed by ``train_specs``, a warm-up and
+    TP_TIMED timed steps. Each shard runs its 4 query and 2 KV heads, so a
+    step must launch TP_SHARDS x 56 ``flash_attention_sm90`` and
+    TP_SHARDS x 28 ``flash_attention_bwd_sm90`` and nothing else; the
+    model replicas of every leaf the guard keeps whole (the norms) stay
+    bit-equal; the model-axis sums and gathers are timed by CUDA events
+    (``tensor_parallel.timed_collectives``). Then in float32 at
+    CHECK_LAYERS layers on mesh (2, 2): the step against the one-device
+    step on the same params and CHECK_B x CHECK_S batch, the loss within
+    1e-5 of its size, every gradient leaf (joined from the blocks AdamW
+    was handed) within 1e-5 of its max, the params after AdamW within
+    1e-6, the data and model replicas bit-equal. Returns the bf16 run's
+    launches of each kernel and the float32 step's."""
+    from unittest import mock
+    cfg = ARCHS[LM_ARCH]
+    M = TP_SHARDS
+    devices = place(M)
+    mesh = make_host_mesh(M, devices)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
+    model, step, p_shapes, _ = steps.make_train_step(cfg, mesh)
+    p_specs, o_specs = steps.train_specs(cfg, mesh, p_shapes)
+    _reset_peak(torch, devices)
+    base = {str(d): torch.cuda.memory_allocated(d) for d in set(devices)}
+    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
+    pr = SH.shard_tree(params, SH.to_named(mesh, p_specs))
+    orr = SH.shard_tree(adamw.init(params), SH.to_named(mesh, o_specs))
+    del params
+    place_peak = _peak(torch, devices)
+    _reset_peak(torch, devices)
+    want = {"flash_attention_sm90": 2 * cfg.n_layers * M,
+            "flash_attention_simt": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_sm90": cfg.n_layers * M}
+    losses, gnorms, step_s, differ, colls = [], [], [], [], []
+    for i in range(1 + TP_TIMED):
+        batch = _batch(torch, pipe, i)
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        with TP.timed_collectives() as coll:
+            pr, orr, metrics = _counted(
+                fa, kv, lambda: step(pr, orr, batch), want,
+                f"tp train step {i + 1}")
+        _sync_all(torch)
+        step_s.append(time.perf_counter() - t0)
+        colls.append(coll)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+        differ.append(_blocks_differ(torch, SH, pr)
+                      + _blocks_differ(torch, SH, orr))
+    peak = _peak(torch, devices)
+    if any(differ):
+        raise AssertionError(f"tp train: replicas differ ({differ} blocks "
+                             "a step)")
+    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"tp train: loss {losses}, gnorm {gnorms}")
+    launches = {k: v * (1 + TP_TIMED) for k, v in want.items()}
+    del pr, orr, metrics, batch
+    torch.cuda.empty_cache()
+
+    # float32, CHECK_LAYERS layers, mesh (2, 2) vs one device
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    dev32 = place(4)
+    mesh32 = make_host_mesh(2, dev32)
+    m32, one32, _, _ = steps.make_train_step(cfg32, dev32[0])
+    _, tp32, s32, _ = steps.make_train_step(cfg32, mesh32)
+    ps32, os32 = steps.train_specs(cfg32, mesh32, s32)
+    p0 = m32.init(torch.Generator(device=dev32[0]).manual_seed(1))
+    o0 = adamw.init(p0)
+    b0 = _batch(torch, TokenPipeline(PipelineConfig(
+        cfg.vocab, CHECK_S, CHECK_B)), 0)
+    (p1, _, m1), g1 = _spied_step(torch, steps, adamw, one32, p0, o0, b0)
+    P32 = SH.shard_tree(p0, SH.to_named(mesh32, ps32))
+    O32 = SH.shard_tree(o0, SH.to_named(mesh32, os32))
+    seen, apply = [], adamw.apply
+
+    def spy(p, g, o, **kw):
+        seen.append(g)
+        return apply(p, g, o, **kw)
+
+    n_pos = mesh32.size
+    want32 = {"flash_attention_sm90": 0,
+              "flash_attention_simt": 2 * CHECK_LAYERS * n_pos,
+              "flash_attention_bwd": CHECK_LAYERS * n_pos,
+              "flash_attention_bwd_sm90": 0}
+    with mock.patch.object(adamw, "apply", spy):
+        pd, od, md = _counted(fa, kv, lambda: tp32(P32, O32, b0), want32,
+                              "float32 tp step")
+    flat = [p for row in TP.grid(mesh32) for p in row]
+    gd = SH.gather_tree(TP.assemble(P32, dict(zip(flat, seen))))
+    grad_err = max(float((a.to(b.device) - b).abs().max())
+                   / float(b.abs().max())
+                   for a, b in zip(adamw.leaves(gd), adamw.leaves(g1)))
+    param_err = max(float((a.to(b.device) - b).abs().max())
+                    for a, b in zip(adamw.leaves(SH.gather_tree(pd)),
+                                    adamw.leaves(p1)))
+    loss_err32 = abs(float(md["loss"]) - float(m1["loss"]))
+    differ32 = _blocks_differ(torch, SH, pd) + _blocks_differ(torch, SH, od)
+    if (not grad_err <= 1e-5 or not param_err <= 1e-6
+            or not loss_err32 <= 1e-5 * abs(float(m1["loss"])) or differ32):
+        raise AssertionError(
+            f"float32 tp step != one-device step: gradients {grad_err} of "
+            f"a leaf's max, params {param_err}, loss {loss_err32}, "
+            f"{differ32} replica blocks differ")
+    del p0, o0, p1, g1, P32, O32, pd, od, gd, seen
+    torch.cuda.empty_cache()
+    ntok = TRAIN_B * TRAIN_S
+    n_params = sum(t.numel() for t in adamw.leaves(p_shapes))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in adamw.leaves(p_shapes))
+    extra_n, extra_b = _whole_extra(p_specs, p_shapes, M)
+    # what the step holds at once, from the shapes (the leaves kept whole
+    # once a shard), at the larger of its two high points: the backward,
+    # beside the params and moments, holds the fp32 logits (a vocab block
+    # a shard), their exponentials saved for it and their gradient, and
+    # the gradients it fills; AdamW holds the gradients beside the
+    # caller's params and moments and the new ones it makes
+    held = {"params": param_bytes + extra_b,
+            "adam_m_and_v": 8 * (n_params + extra_n),
+            "grads": param_bytes + extra_b}
+    logits = 4 * ntok * cfg.vocab
+    backward = {**held, "fp32_logits": logits, "fp32_exp_logits": logits,
+                "fp32_logits_grad": logits}
+    optimizer = {**held, "new_params_and_moments": held["params"]
+                 + held["adam_m_and_v"]}
+    reckoning = {"backward": {**backward, "total": sum(backward.values())},
+                 "adamw": {**optimizer, "total": sum(optimizer.values())}}
+    reckoning["total"] = max(reckoning["backward"]["total"],
+                             reckoning["adamw"]["total"])
+    sums = [c.get("sum", {"calls": 0, "ms": 0.0}) for c in colls]
+    gathers = [c.get("gather", {"calls": 0, "ms": 0.0}) for c in colls]
+    emit({"phase": "lm_train_tp", "arch": LM_ARCH,
+          "call": f"repro_torch.launch.steps.make_train_step(ARCHS"
+                  f"['{LM_ARCH}'], make_host_mesh({M}, "
+                  f"{[str(d) for d in devices]}))",
+          "mesh": dict(mesh.shape), "shards": _shards_on(devices),
+          "label": (f"{M} model shards of one card: shards run in turn, no "
+                    "copies between cards" if len(set(map(str, devices)))
+                    == 1 else "one model shard a card"),
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+          "heads_a_shard": [cfg.n_heads // M, cfg.n_kv_heads // M],
+          "B": TRAIN_B, "S": TRAIN_S, "tokens_per_step": ntok,
+          "launches_per_step": want, "step_s": step_s,
+          "tokens_per_s": [ntok / t for t in step_s],
+          "loss": losses, "gnorm": gnorms,
+          "model_axis_sums_per_step": sums,
+          "model_axis_gathers_per_step": gathers,
+          "replica_blocks_differing_per_step": differ,
+          "peak_memory_bytes": peak, "placement_peak_bytes": place_peak,
+          "base_bytes": base,
+          "memory_reckoning_bytes": reckoning,
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "mesh": dict(mesh32.shape),
+                         "shards": _shards_on(dev32), "launches": want32,
+                         "grad_err_over_leaf_max": grad_err,
+                         "param_max_abs_err": param_err,
+                         "loss_abs_err": loss_err32}})
+    return launches, want32
+
+
+def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
+                      moe_logits, place=one_card):
+    """deepseek-moe-16b at full width and depth served expert-parallel
+    over TP_SHARDS model shards (mesh (1, TP_SHARDS); 16 experts, 4 query
+    and 4 KV heads, a quarter of the vocab, the shared experts' hidden and
+    the cache's KV heads a shard) through ``make_serve_steps(cfg, mesh)``:
+    ``lm_serve_moe``'s params (seed MOE_SEED, placed by ``param_specs``
+    leaf by leaf as the one-device tree is freed) and LM_BATCH prompts of
+    LM_PROMPT tokens, a counted prefill (a ``flash_attention_sm90`` launch
+    a layer a shard) and TP_DECODE greedy steps, then a timed prefill and
+    the decode loop again. The prefill's bf16 last-position logits beside
+    ``lm_serve_moe``'s (``moe_logits``). In float32 at CHECK_LAYERS layers
+    on the same mesh, CHECK_B x CHECK_S tokens: the prefill's logits
+    within 1e-4 of the one-device serve's and LM_GREEDY_CHECK greedy
+    tokens equal. Returns the bf16 run's ``flash_attention_sm90`` launches
+    and the float32 prefill's ``flash_attention_simt`` launches."""
+    cfg = ARCHS[MOE_ARCH]
+    M = TP_SHARDS
+    devices = place(M)
+    mesh = make_host_mesh(M, devices)
+    model, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    tokens = torch.from_numpy(np.random.default_rng(MOE_SEED + 13).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(devices[0])
+    _reset_peak(torch, devices)
+    base = {str(d): torch.cuda.memory_allocated(d) for d in set(devices)}
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=devices[0]).manual_seed(
+        MOE_SEED))
+    n_params = sum(t.numel() for t in _leaves(params))
+    pr = _place_consuming(SH, params, SH.to_named(
+        mesh, SH.param_specs(cfg, mesh, model.abstract_params())))
+    del params
+    ctx = LM_PROMPT + TP_DECODE
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(LM_BATCH, ctx))
+    _sync_all(torch)
+    init_s = time.perf_counter() - t0
+    init_peak = _peak(torch, devices)
+    _reset_peak(torch, devices)
+    want = {"flash_attention_sm90": cfg.n_layers * M,
+            "flash_attention_simt": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_sm90": 0}
+
+    def run():
+        logits, c = prefill(pr, {"tokens": tokens}, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out = [tok]
+        for i in range(TP_DECODE):
+            tok, c = decode(pr, tok, c, LM_PROMPT + i)
+            out.append(tok)
+        return logits, torch.cat(out, 1)
+
+    _sync_all(torch)
+    t0 = time.perf_counter()
+    logits, gen = _counted(fa, kv, run, want, "tp serve")
+    _sync_all(torch)
+    first_s = time.perf_counter() - t0
+    if (not bool(torch.isfinite(logits).all())
+            or logits.shape != (LM_BATCH, 1, cfg.vocab)
+            or gen.shape != (LM_BATCH, TP_DECODE + 1)
+            or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab):
+        raise AssertionError("tp serving gave non-finite logits or bad "
+                             "tokens")
+    vs_one = float((logits.float().cpu() - moe_logits).abs().max())
+    vs_one_scale = float(moe_logits.abs().max())
+    argmax_equal = int((torch.argmax(logits.float().cpu()[:, -1], -1)
+                        == torch.argmax(moe_logits[:, -1], -1)).sum())
+    _, prefill_s = _synced(torch, lambda: prefill(pr, {"tokens": tokens},
+                                                  cache))
+    tok = gen[:, :1]
+
+    def loop():
+        t = tok
+        for i in range(TP_DECODE):
+            t, _ = decode(pr, t, cache, LM_PROMPT + i)
+
+    _, decode_s = _synced(torch, loop)
+    peak = _peak(torch, devices)
+    del pr, cache, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    m1, pre1, dec1 = steps.make_serve_steps(cfg32, devices[0])
+    _, pre_tp, dec_tp = steps.make_serve_steps(cfg32, mesh)
+    p32 = m1.init(torch.Generator(device=devices[0]).manual_seed(1))
+    toks32 = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (CHECK_B, CHECK_S))).to(devices[0])
+    ctx32 = CHECK_S + LM_GREEDY_CHECK
+
+    def greedy(pre, dec, params, cache):
+        logits, cache = pre(params, {"tokens": toks32}, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out = [tok]
+        for i in range(LM_GREEDY_CHECK - 1):
+            tok, cache = dec(params, tok, cache, CHECK_S + i)
+            out.append(tok)
+        return logits, torch.cat(out, 1)
+
+    l1, t1 = greedy(pre1, dec1, p32, m1.make_cache(CHECK_B, ctx32))
+    p32_tp = SH.shard_tree(p32, SH.to_named(
+        mesh, SH.param_specs(cfg32, mesh, p32)))
+    fa.reset_counts()
+    lt, tt = greedy(pre_tp, dec_tp, p32_tp, steps.shard_cache(
+        cfg32, mesh, m1.make_cache(CHECK_B, ctx32)))
+    launches32 = fa.COUNTS["flash_attention_simt"]
+    err = float((lt - l1).abs().max())
+    if (err > 1e-4 or not torch.equal(tt, t1)
+            or launches32 != CHECK_LAYERS * M):
+        raise AssertionError(f"float32 tp serve != one-device serve: logits "
+                             f"{err}, tokens {tt.tolist()} vs {t1.tolist()}, "
+                             f"{launches32} flash_attention_simt launches")
+    del p32, p32_tp
+    torch.cuda.empty_cache()
+    launches = want["flash_attention_sm90"]
+    emit({"phase": "lm_serve_tp", "arch": MOE_ARCH,
+          "call": f"repro_torch.launch.steps.make_serve_steps(ARCHS"
+                  f"['{MOE_ARCH}'], make_host_mesh({M}, "
+                  f"{[str(d) for d in devices]}))",
+          "mesh": dict(mesh.shape), "shards": _shards_on(devices),
+          "experts_a_shard": cfg.n_experts // M,
+          "heads_a_shard": [cfg.n_heads // M, cfg.n_kv_heads // M],
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+          "B": LM_BATCH, "S": LM_PROMPT, "ctx": ctx,
+          "decode_steps": TP_DECODE,
+          "flash_attention_sm90_launches_per_prefill": launches,
+          "init_and_place_s": init_s, "init_peak_bytes": init_peak,
+          "first_run_s": first_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "decode_s": decode_s,
+          "decode_tokens_per_s": LM_BATCH * TP_DECODE / decode_s,
+          "peak_memory_bytes": peak, "base_bytes": base,
+          "bf16_logits_vs_lm_serve_moe": {
+              "max_abs_diff": vs_one, "max_abs_one_device": vs_one_scale,
+              "rows_with_the_same_argmax": argmax_equal},
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "mesh": dict(mesh.shape),
+                         "flash_attention_simt_launches": launches32,
+                         "logits_max_abs_err": err,
+                         "greedy_tokens_equal": LM_GREEDY_CHECK}})
+    return launches, launches32
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2688,7 +3047,7 @@ def time_flash_fp32(torch, fa, flash_ref):
             "tflops_per_s": flops / ms["flash_attention_simt"] * 1e-9}
 
 
-def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
+def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str, heads=(16, 8)):
     """The backward flash kernels at the qwen3-0.6b training shape (causal,
     GQA G=2) in ``dtype``, timed in one call in turns with the plain
     version and the backward of SDPA on the same inputs (kernels, plain,
@@ -2703,9 +3062,11 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str):
     cores for bf16, the CUDA cores for float32; for float32 also three
     TF32 products each at the TF32 rate, ``bound_3xtf32_ms``), against
     each input read and each output written once (lse's bytes too, for
-    the kernel that reads it). Returns {kernel name: its row}."""
+    the kernel that reads it). ``heads``: the query and KV heads a row
+    (qwen3-0.6b's 16 and 8; a model shard's 4 and 2 over TP_SHARDS).
+    Returns {kernel name: its row}."""
     import torch.nn.functional as F
-    BH, BHkv, S, dh = TRAIN_B * 16, TRAIN_B * 8, TRAIN_S, 128
+    BH, BHkv, S, dh = TRAIN_B * heads[0], TRAIN_B * heads[1], TRAIN_S, 128
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, dtype, 97)
     do = flash_inputs(torch, BH, BHkv, S, dh, dtype, 96)[0]
     sm90 = dtype == "bfloat16"
@@ -3046,6 +3407,7 @@ def main() -> int:
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.distributed import overlap as OV
         from repro_torch.distributed import sharding as SH
+        from repro_torch.distributed import tensor_parallel as TP
         from repro_torch.optim import adamw
         from repro_torch.runtime.checkpoint import CheckpointManager
         from repro_torch.models import layers as L
@@ -3102,8 +3464,9 @@ def main() -> int:
                                (("mc", s_main), ("bc", s_bc)))
     sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
                                                   steps, L, ARCHS)
+    moe_logits = []
     moe_sm90_launches, moe_simt_launches = phase_lm_serve_moe(
-        torch, fa, kv, flash_ref, steps, L, MOE, ARCHS)
+        torch, fa, kv, flash_ref, steps, L, MOE, ARCHS, keep=moe_logits)
     ssm_simt_launches, ssm_fp32_launches = phase_lm_serve_ssm(
         torch, fa, kv, flash_ref, steps, L, ARCHS, smi)
     encdec_sm90_launches, encdec_fp32_launches = phase_lm_serve_encdec(
@@ -3118,6 +3481,11 @@ def main() -> int:
         SH, OV, make_host_mesh)
     serve_dp_launches, serve_dp_fp32_launches = phase_lm_serve_dp(
         torch, fa, kv, steps, ARCHS, SH, make_host_mesh)
+    tp_launches, fp32_tp_launches = phase_lm_train_tp(
+        torch, fa, kv, steps, ARCHS, adamw, TokenPipeline, PipelineConfig,
+        SH, TP, make_host_mesh)
+    serve_tp_launches, serve_tp_fp32_launches = phase_lm_serve_tp(
+        torch, fa, kv, steps, ARCHS, SH, make_host_mesh, moe_logits[0])
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
@@ -3125,6 +3493,11 @@ def main() -> int:
     flash_encdec = time_flash_encdec(torch, fa, flash_ref)
     bwd = {dt: time_flash_bwd(torch, fa, flash_bwd_ref, dt)
            for dt in ("bfloat16", "float32")}
+    # a model shard's heads in lm_train_tp: 4 query and 2 KV heads a row
+    flash_tp = _time_flash_case(torch, fa, flash_ref, TRAIN_B * 4,
+                                TRAIN_B * 2, TRAIN_S, 128, True, 95)
+    bwd_tp = time_flash_bwd(torch, fa, flash_bwd_ref, "bfloat16", (4, 2))[
+        "flash_attention_bwd_sm90"]
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
           "flash_attention_simt_zamba2": flash112,
@@ -3133,6 +3506,12 @@ def main() -> int:
               "flash_attention_bwd_sm90"],
           "flash_attention_bwd": bwd["bfloat16"]["flash_attention_bwd"],
           "flash_attention_bwd_fp32": bwd["float32"]["flash_attention_bwd"],
+          "flash_attention_sm90_tp_shard": flash_tp,
+          "flash_attention_bwd_sm90_tp_shard": bwd_tp,
+          "launches_on_bf16_tp_train_path": tp_launches,
+          "launches_on_fp32_tp_train_check": fp32_tp_launches,
+          "sm90_launches_on_bf16_tp_serving_path": serve_tp_launches,
+          "simt_launches_on_fp32_tp_serving_check": serve_tp_fp32_launches,
           "launches_on_fp32_train_check": fp32_train_launches,
           "launches_on_bf16_train_path": train_launches,
           "launches_on_bf16_dp_train_path": dp_launches,
@@ -3180,13 +3559,20 @@ def main() -> int:
                         "lm_serve_vlm": vlm_sm90_launches,
                         "lm_train": train_launches["flash_attention_sm90"],
                         "lm_train_dp": dp_launches["flash_attention_sm90"],
-                        "lm_serve_dp": serve_dp_launches}),
+                        "lm_serve_dp": serve_dp_launches,
+                        "lm_train_tp": tp_launches["flash_attention_sm90"],
+                        "lm_serve_tp": serve_tp_launches}),
          "other_shapes": {
-             name: {"launches": n, **{k: flash_encdec[name][k] for k in (
+             name: {"launches": n, **{k: row[k] for k in (
                  "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")}}
-             for name, n in (("whisper_encoder", encdec_sm90_launches // 2),
-                             ("qwen2_vl_prefill", vlm_sm90_launches))}},
+             for name, n, row in (
+                 ("whisper_encoder", encdec_sm90_launches // 2,
+                  flash_encdec["whisper_encoder"]),
+                 ("qwen2_vl_prefill", vlm_sm90_launches,
+                  flash_encdec["qwen2_vl_prefill"]),
+                 ("tp_shard", tp_launches["flash_attention_sm90"],
+                  flash_tp))}},
         {**kernel_line("flash_attention_simt",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:33 "
@@ -3202,24 +3588,31 @@ def main() -> int:
                         fp32_train_launches["flash_attention_simt"],
                         "lm_train_dp_fp32_check":
                         fp32_dp_launches["flash_attention_simt"],
-                        "lm_serve_dp_fp32_check": serve_dp_fp32_launches}),
+                        "lm_serve_dp_fp32_check": serve_dp_fp32_launches,
+                        "lm_train_tp_fp32_check":
+                        fp32_tp_launches["flash_attention_simt"],
+                        "lm_serve_tp_fp32_check": serve_tp_fp32_launches}),
          "case": flash112["case"],
          "fp32": kernel_line("flash_attention_simt",
                              "src/repro_torch/kernels/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention.py:33 "
                              "_flash_kernel (float32)", simt_launches,
                              flash32)},
-        kernel_line("flash_attention_bwd_sm90",
-                    "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
-                    "none: no TPU kernel is replaced; the gradient of "
-                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
-                    "(bf16, dh 64 or 128), which the reference takes by "
-                    "XLA's autodiff of src/repro/models/layers.py:116 _sdpa",
-                    train_launches["flash_attention_bwd_sm90"],
-                    bwd["bfloat16"]["flash_attention_bwd_sm90"],
-                    {"lm_train": train_launches["flash_attention_bwd_sm90"],
-                     "lm_train_dp":
-                     dp_launches["flash_attention_bwd_sm90"]}),
+        {**kernel_line("flash_attention_bwd_sm90",
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+                   "none: no TPU kernel is replaced; the gradient of "
+                   "src/repro/kernels/flash_attention.py:33 _flash_kernel "
+                   "(bf16, dh 64 or 128), which the reference takes by "
+                   "XLA's autodiff of src/repro/models/layers.py:116 _sdpa",
+                   train_launches["flash_attention_bwd_sm90"],
+                   bwd["bfloat16"]["flash_attention_bwd_sm90"],
+                   {"lm_train": train_launches["flash_attention_bwd_sm90"],
+                    "lm_train_dp": dp_launches["flash_attention_bwd_sm90"],
+                    "lm_train_tp": tp_launches["flash_attention_bwd_sm90"]}),
+     "other_shapes": {"tp_shard": {
+         "launches": tp_launches["flash_attention_bwd_sm90"],
+         **{k: bwd_tp[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}}}},
         kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "none: no TPU kernel is replaced; the gradient of "
@@ -3233,6 +3626,8 @@ def main() -> int:
                      fp32_train_launches["flash_attention_bwd"],
                      "lm_train_dp_fp32_check":
                      fp32_dp_launches["flash_attention_bwd"],
+                     "lm_train_tp_fp32_check":
+                     fp32_tp_launches["flash_attention_bwd"],
                      "lm_train_bf16": train_launches["flash_attention_bwd"]})]
     print(json.dumps({"kernels": kernels}))
     print(smi)

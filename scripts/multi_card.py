@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s ``sharded``, ``grid`` and ``lm_train_dp`` phases,
-one shard a card.
+one shard a card; with ``--model-parallel``, its ``lm_train_tp`` phase,
+one model shard a card.
 
     python3 scripts/multi_card.py [--trace DIR]   # on 4 or more cards
+    python3 scripts/multi_card.py --model-parallel
 
 ``chip_smoke.py`` runs the multi-device engines on one and on four shards
 of one card, which tests their logic on a one-card machine. This script
@@ -21,7 +23,12 @@ line, when a phase fails or fewer than four cards are present. With
 ``--trace DIR`` it also writes a ``torch.profiler`` trace (Chrome format)
 of one ``sharded`` run (mc/full, B=510 over four cards, and over four
 shards of card 0) and one ``grid`` run (mc/full, B=64 over four cards) to
-``DIR``.
+``DIR``. ``--model-parallel`` runs only ``lm_train_tp``: qwen3-0.6b at
+full width trained tensor-parallel on mesh (1, 4) with model shard m on
+card m (its float32 check on mesh (2, 2) over cards 0-3), so every
+model-axis sum and gather copies between cards; held to
+``chip_smoke.py``'s checks (launches, replicas bit-equal, float32 against
+the one-device step), with the sums' and gathers' CUDA-event ms a step.
 """
 import argparse
 import json
@@ -54,6 +61,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=Path, default=None,
                     help="directory for the two runs' traces")
+    ap.add_argument("--model-parallel", action="store_true",
+                    help="run lm_train_tp only, one model shard a card")
     args = ap.parse_args()
     import torch
     if torch.cuda.device_count() < CARDS:
@@ -68,6 +77,7 @@ def main() -> int:
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.distributed import overlap as OV
     from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
@@ -82,6 +92,18 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = cs.phase_device(torch)
     kbuild.load()
+    if args.model_parallel:
+        tp, tp32 = cs.phase_lm_train_tp(
+            torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, SH, TP, make_host_mesh, place)
+        cs.emit({"phase": "done", "launches_on_bf16_tp_train_path": tp,
+                 "launches_on_fp32_tp_train_check": tp32,
+                 "seconds": time.perf_counter() - t0})
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     s = sim.compile("mc", scale="full", seeds=range(cs.MAIN_SEEDS),
                     device="cuda:0")
     results = s.run()

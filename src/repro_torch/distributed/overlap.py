@@ -12,8 +12,10 @@ reference's ``bucketed_psum`` and the division after it) and copying the
 mean back to every shard. The order is fixed, so every shard gets the same
 bits on every run, and the replicas stay bit-equal.
 
-Data-parallel only (params replicated per shard). Overlapping the
-reduction with the backward is later work.
+Data-parallel only (params replicated per shard); a ``model`` axis
+larger than 1 runs ``distributed.tensor_parallel``, whose data-axis mean
+is ``bucketed_mean`` per model block. Overlapping the reduction with the
+backward is later work.
 """
 from __future__ import annotations
 
@@ -99,16 +101,15 @@ def bucketed_mean(shard_grads: Sequence[Tree], buckets: List[List[str]]
 
 def dp_devices(mesh: Mesh, axis="data") -> List[torch.device]:
     """The devices of the shards along ``axis`` (a name or a tuple of
-    names), row-major; every other axis must have size 1."""
-    axes = axis if isinstance(axis, tuple) else (axis,)
-    wide = {a: n for a, n in mesh.shape.items() if a not in axes and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"axes {wide} besides the data axes {axes}: tensor parallelism "
-            "over the 'model' axis is ROADMAP A8.5b")
+    names), row-major, each at index 0 of every other axis: with a
+    ``model`` axis larger than 1, the device of each data shard's model
+    shard 0 (``distributed.tensor_parallel`` runs the rest). Raises
+    ``ValueError`` for a mesh with no devices."""
     if mesh.devices is None:
         raise ValueError(f"{mesh!r} has no devices to run on")
-    return list(mesh.devices.flat)
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    idx = tuple(slice(None) if a in axes else 0 for a in mesh.axis_names)
+    return list(mesh.devices[idx].flat)
 
 
 def split_batch(batch: Dict[str, torch.Tensor], devices
@@ -159,6 +160,12 @@ def make_manual_dp_step(loss_fn: Callable, optimizer_apply: Callable,
     other metrics shard 0's), ``loss``, and ``gnorm``. ``step.buckets``
     (the leaf paths a bucket, set at the first call) and
     ``step.devices`` say how it reduces."""
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    wide = {a: n for a, n in mesh.shape.items() if a not in axes and n > 1}
+    if wide:
+        raise ValueError(
+            f"axes {wide} besides the data axes {axes}: replicated params do "
+            "not run on them; tensor_parallel.make_train_step does")
     devices = dp_devices(mesh, axis)
     D = len(devices)
 

@@ -14,9 +14,10 @@ What jax's ``device_put`` does for the reference is here too:
 ``shard_tree`` gives each device of the mesh its block of each leaf (a
 ``ShardedTensor``), ``gather_tree`` joins the blocks back, ``data_shards``
 takes the blocks one data shard holds, and ``replicate`` puts a whole
-tree on every data shard. The steps compute only over the data axes
-(``launch/steps.py``); the ``model`` axis's specs are computed and placed
-so that a tree can be restored onto a mesh of any shape.
+tree on every data shard. The steps run over the data axes with
+replicated params where the ``model`` axis is 1, and tensor-parallel on
+the blocks these rules place where it is larger
+(``launch/steps.py``, ``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 

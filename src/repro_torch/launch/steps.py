@@ -1,32 +1,45 @@
 """Step builders: train_step, prefill_step and decode_step on one device
-or over the data shards of a mesh.
+or over a mesh.
 
 Port of ``repro.launch.steps.make_train_step`` and ``make_serve_steps``.
 The steps run eagerly, with no ``jit``, so the reference's
 ``lower_train``/``lower_serve`` (which drive XLA) have no counterpart.
 Given ``None`` or a device they run on that one device, as they always
-have. Given a ``distributed.ctx.Mesh`` they run data-parallel over its
-data axes (``pod`` x ``data``), each shard on its own device (a device may
-repeat): training by ``distributed.overlap.make_manual_dp_step`` (each
-shard's loss, one backward, the bucketed gradient sum, AdamW on every
-replica), serving by giving each shard its rows of the batch and of the
-cache. A ``model`` axis larger than 1 raises ``NotImplementedError``:
-tensor parallelism is ROADMAP A8.5b. On a mesh, params and optimizer
-state are replicated, one tree a data shard (``sharding.replicate``), and
-the cache is a tree of ``ShardedTensor`` placed by ``cache_specs``
-(``shard_cache``). A MoE layer then routes each shard's tokens alone: the
-reference's grouped dispatch (``_moe_groups``) with G = the shard count.
-The serve steps run under ``torch.inference_mode()`` and update the cache
-in place, as the reference's donated cache lets XLA do.
+have. Given a ``distributed.ctx.Mesh`` they run over it, each shard on its
+own device (a device may repeat):
+
+* a ``model`` axis of 1: data-parallel over the data axes (``pod`` x
+  ``data``). Training by ``distributed.overlap.make_manual_dp_step`` (each
+  shard's loss, one backward, the bucketed gradient sum, AdamW on every
+  replica), serving by giving each shard its rows of the batch and of the
+  cache. Params and optimizer state are replicated, one tree a data shard
+  (``sharding.replicate``).
+* a ``model`` axis larger than 1: tensor parallelism over it
+  (``distributed.tensor_parallel``) within each data shard, for the
+  attention decoders (dense, VLM, MoE). Params and optimizer state are
+  trees of ``ShardedTensor`` placed by ``param_specs`` (``shard_tree``;
+  ``train_specs`` gives the reference's ``p_specs`` and ``o_specs``), and
+  the steps return them placed the same way. zamba2, xLSTM and whisper,
+  and ``REPRO_KV_SHARD=seq`` (the reference's sequence-sharded cache),
+  raise ``NotImplementedError`` on such a mesh: ROADMAP A8.5c.
+
+The cache is a tree of ``ShardedTensor`` placed by ``cache_specs``
+(``shard_cache``). A MoE layer routes each data shard's tokens alone: the
+reference's grouped dispatch (``_moe_groups``) with G = the data-shard
+count. A mesh with no devices (the production meshes) raises
+``ValueError``. The serve steps run under ``torch.inference_mode()`` and
+update the cache in place, as the reference's donated cache lets XLA do.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Tuple
 
 import torch
 
 from ..device import resolve_device
 from ..distributed import sharding as SH
+from ..distributed import tensor_parallel as TP
 from ..distributed.ctx import Mesh, batch_axes, mesh_context
 from ..distributed.overlap import dp_devices, make_manual_dp_step, split_batch
 from ..models.config import ModelConfig
@@ -37,6 +50,34 @@ from ..optim import adamw
 def _data_axes(mesh: Mesh):
     with mesh_context(mesh):
         return batch_axes()
+
+
+def _refuse_model_axis(cfg: ModelConfig, mesh: Mesh, serve: bool) -> None:
+    """Raises ``NotImplementedError`` for what a ``model`` axis larger
+    than 1 does not run yet (ROADMAP A8.5c)."""
+    if TP.model_size(mesh) == 1:
+        return
+    if cfg.block != "attn" or cfg.enc_dec:
+        stack = "encoder-decoder" if cfg.enc_dec else cfg.block
+        raise NotImplementedError(
+            f"{cfg.name}: the {stack} stack on a model axis of "
+            f"{TP.model_size(mesh)} is ROADMAP A8.5c; the port runs it on "
+            "model axes of 1")
+    if serve and os.environ.get("REPRO_KV_SHARD") == "seq":
+        raise NotImplementedError(
+            "REPRO_KV_SHARD=seq (the cache's sequence on the model axis) is "
+            "ROADMAP A8.5c; unset it to split the cache by KV heads")
+
+
+def train_specs(cfg: ModelConfig, mesh: Mesh, p_shapes,
+                compress_grads: bool = False):
+    """The reference's ``(p_specs, o_specs)``: the params' specs, and the
+    optimizer state's (the moments and residuals like the params, the
+    step whole)."""
+    p_specs = SH.param_specs(cfg, mesh, p_shapes)
+    return p_specs, adamw.AdamWState(
+        step=SH.P(), m=p_specs, v=p_specs,
+        ef=p_specs if compress_grads else None)
 
 
 def _optimizer(compress_grads: bool):
@@ -69,15 +110,20 @@ def make_train_step(cfg: ModelConfig, device=None,
     ``device`` is where it runs: None or a device, that one device (None:
     the card, raising without one; the step follows its inputs, and the
     device is where ``model.init`` puts them by default); a ``Mesh`` (the
-    reference's ``mesh`` argument), its data shards
-    (``make_manual_dp_step``): ``params`` and ``opt`` are then lists of one
-    replica a shard (``sharding.replicate``), the batch is split along B,
-    each metric is its mean over the shards, and the step returns the
-    replicas, bit-equal. zamba2, xLSTM and the
-    encoder-decoder raise ``NotImplementedError``: they serve, and their
-    training waits for ROADMAP A8.7 (zamba2, xLSTM) and A8.8 (whisper).
-    A VLM's ``patches``, inputs and not parameters, go through the step
-    as the tokens do."""
+    reference's ``mesh`` argument) with a ``model`` axis of 1, its data
+    shards (``make_manual_dp_step``): ``params`` and ``opt`` are then
+    lists of one replica a shard (``sharding.replicate``), the batch is
+    split along B, each metric is its mean over the shards, and the step
+    returns the replicas, bit-equal; a ``Mesh`` with a larger ``model``
+    axis, tensor-parallel within each data shard
+    (``tensor_parallel.make_train_step``): ``params`` and ``opt`` are then
+    trees of ``ShardedTensor`` placed by ``train_specs``, and so are the
+    ones it returns. zamba2, xLSTM and the encoder-decoder raise
+    ``NotImplementedError``: they serve, and their training waits for
+    ROADMAP A8.7 (zamba2, xLSTM) and A8.8 (whisper). A VLM's ``patches``,
+    inputs and not parameters, go through the step as the tokens do."""
+    if isinstance(device, Mesh):
+        _refuse_model_axis(cfg, device, serve=False)
     if cfg.block in ("mamba2", "xlstm"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the {cfg.block} stack but does not "
@@ -87,7 +133,11 @@ def make_train_step(cfg: ModelConfig, device=None,
             f"{cfg.name}: the port serves the encoder-decoder stack but does "
             "not train it yet (ROADMAP A8.8)")
     apply = _optimizer(compress_grads)
-    if isinstance(device, Mesh):
+    if isinstance(device, Mesh) and TP.model_size(device) > 1:
+        model = build(cfg, TP.groups(device)[0].devices[0])
+        train_step = TP.make_train_step(model.loss_tp, device,
+                                        compress_grads)
+    elif isinstance(device, Mesh):
         axes = _data_axes(device)
         model = build(cfg, dp_devices(device, axes)[0])
         train_step = make_manual_dp_step(model.loss, apply, device, axes)
@@ -139,10 +189,15 @@ def make_serve_steps(cfg: ModelConfig, device=None):
     and the device is where ``model.init`` and ``model.make_cache`` put
     theirs by default); a ``Mesh`` (the reference's ``mesh`` argument),
     its data shards: ``params`` is then a list of one replica a shard
-    (``sharding.replicate``) and ``cache`` a tree of ``ShardedTensor``
-    (``shard_cache``); each shard runs its rows of the batch on its block
-    of the cache, and the logits and tokens come back on shard 0's device
-    in row order."""
+    (``sharding.replicate``), or where the ``model`` axis is larger than 1
+    a tree of ``ShardedTensor`` placed by ``param_specs`` (each data
+    shard's model shards then run it tensor-parallel), and ``cache`` a
+    tree of ``ShardedTensor`` (``shard_cache``); each data shard runs its
+    rows of the batch on its block of the cache, and the whole logits and
+    the tokens come back on shard 0's device in row order."""
+    if isinstance(device, Mesh) and TP.model_size(device) > 1:
+        _refuse_model_axis(cfg, device, serve=True)
+        return _tp_serve_steps(cfg, device)
     if not isinstance(device, Mesh):
         model = build(cfg, resolve_device(device))
 
@@ -185,3 +240,37 @@ def make_serve_steps(cfg: ModelConfig, device=None):
         return torch.cat(out)[:, None], cache
 
     return model, dp_prefill, dp_decode
+
+
+def _tp_serve_steps(cfg: ModelConfig, mesh: Mesh):
+    """The serve steps over ``mesh``'s data shards, each tensor-parallel
+    over its model shards."""
+    rows, gs = TP.grid(mesh), TP.groups(mesh)
+    heads = [g.devices[0] for g in gs]
+    model = build(cfg, heads[0])
+
+    def blocks(tree, row):
+        return [SH.blocks_at(tree, p) for p in row]
+
+    @torch.inference_mode()
+    def tp_prefill(params, batch: Dict, cache: Any
+                   ) -> Tuple[torch.Tensor, Any]:
+        out = [model.prefill_tp(g, blocks(params, row), part,
+                                blocks(cache, row))[0].to(heads[0])
+               for g, row, part in zip(gs, rows, split_batch(batch, heads))]
+        return torch.cat(out), cache
+
+    @torch.inference_mode()
+    def tp_decode(params, tokens: torch.Tensor, cache: Any, pos: int
+                  ) -> Tuple[torch.Tensor, Any]:
+        out = []
+        for g, row, part in zip(gs, rows,
+                                split_batch({"tokens": tokens}, heads)):
+            logits, _ = model.decode_step_tp(g, blocks(params, row),
+                                             part["tokens"],
+                                             blocks(cache, row), pos)
+            out.append(torch.argmax(logits[:, -1], dim=-1).to(
+                heads[0], torch.int32))
+        return torch.cat(out)[:, None], cache
+
+    return model, tp_prefill, tp_decode

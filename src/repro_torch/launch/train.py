@@ -1,27 +1,31 @@
-"""End-to-end training entry point, data-parallel over the devices given.
+"""End-to-end training entry point over the devices given.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
-      --smoke --steps 200 --seq 128 --batch 8 [--devices cpu,cpu]
+      --smoke --steps 200 --seq 128 --batch 8 [--devices cpu,cpu] \\
+      [--model-parallel 2]
 
 Port of ``repro.launch.train``: the same flags, plus ``--devices``, a
 comma list that may repeat (every card unless given; the CPU only when
 asked for: ``--devices cpu`` or ``--devices cpu,cpu``; ``--device X`` is
 ``--devices X``). The mesh is ``(n // model_parallel, model_parallel)``
-over them, as the reference builds it from ``jax.devices()``, and the
-step runs data-parallel over its data axis (``launch.steps``: each shard
-its rows of the batch, the bucketed gradient sum, AdamW on every
-replica). ``--model-parallel`` other than 1 raises ``NotImplementedError``:
-tensor parallelism is ROADMAP A8.5b. Checkpointing and deterministic
-resume are on: checkpoints hold full logical arrays, taken from replica
-0; the run resumes from the latest committed checkpoint in
-``--ckpt-dir`` onto this run's mesh, whatever the mesh that saved it,
-and the token pipeline is counter-based, so the resumed run sees the
-batches an uninterrupted run would. ``--compress-grads`` sends the
-gradient through the int8 round trip with error feedback. Dense and MoE
-archs train (``--arch mixtral-8x7b --smoke --devices cpu``; MoE routes
-each shard's tokens alone). zamba2, xLSTM and whisper serve
-(``launch.steps.make_serve_steps``) but do not train yet (ROADMAP A8.7,
-A8.8): these raise ``NotImplementedError``.
+over them, as the reference builds it from ``jax.devices()`` (a
+``--model-parallel`` that does not divide n raises ``ValueError``), and
+the step runs over it (``launch.steps``): data-parallel where the model
+axis is 1 (each data shard its rows of the batch, the bucketed gradient
+sum, AdamW on every replica), and tensor-parallel within each data shard
+where it is larger (params and moments split by ``param_specs``), for the
+attention decoders. Checkpointing and deterministic resume are on:
+checkpoints hold full logical arrays, gathered from the shards (taken
+from replica 0 on a model axis of 1); the run resumes from the latest
+committed checkpoint in ``--ckpt-dir`` onto this run's mesh, whatever the
+mesh that saved it, and the token pipeline is counter-based, so the
+resumed run sees the batches an uninterrupted run would.
+``--compress-grads`` sends the gradient through the int8 round trip with
+error feedback. Dense and MoE archs train (``--arch mixtral-8x7b --smoke
+--devices cpu``; MoE routes each data shard's tokens alone). zamba2,
+xLSTM and whisper serve (``launch.steps.make_serve_steps``) but do not
+train yet (ROADMAP A8.7, A8.8), nor run on a model axis larger than 1
+(A8.5c): these raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from ..configs import ARCHS, SMOKE
 from ..data.pipeline import PipelineConfig, TokenPipeline
 from ..distributed import sharding as SH
 from ..launch.mesh import make_host_mesh
-from ..launch.steps import make_train_step
+from ..launch.steps import make_train_step, train_specs
 from ..optim import adamw
 from ..runtime.checkpoint import CheckpointManager
 
@@ -59,11 +63,6 @@ def main(argv=None) -> None:
                     help="one torch device: --devices with one entry")
     args = ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: tensor parallelism "
-            "over the 'model' axis is ROADMAP A8.5b; the port trains "
-            "data-parallel only (--model-parallel 1)")
     if args.device is not None and args.devices is not None:
         raise ValueError("give --devices or --device, not both")
     devices = args.devices.split(",") if args.devices else None
@@ -84,23 +83,28 @@ def main(argv=None) -> None:
 
     mgr = CheckpointManager(args.ckpt_dir)
     start = 0
+    # on this run's mesh: the parameter specs, the moments like them
+    p_specs, o_specs = train_specs(cfg, mesh, p_shapes, args.compress_grads)
+    named = SH.to_named(mesh, {"params": p_specs, "opt": o_specs})
     if mgr.latest_step() is not None:
-        # onto this run's mesh: the parameter specs, the moments like them
-        p_specs = SH.param_specs(cfg, mesh, p_shapes)
-        o_specs = adamw.AdamWState(
-            step=SH.P(), m=p_specs, v=p_specs,
-            ef=p_specs if args.compress_grads else None)
-        start, restored = mgr.restore_tree(
-            {"params": params, "opt": opt},
-            shardings=SH.to_named(mesh, {"params": p_specs, "opt": o_specs}))
-        shards = SH.data_shards(restored, mesh)
+        start, state = mgr.restore_tree({"params": params, "opt": opt},
+                                        shardings=named)
         print(f"resumed from step {start}")
+    else:
+        state = SH.shard_tree({"params": params, "opt": opt}, named)
+    del params, opt
+    if args.model_parallel == 1:      # one replica a data shard
+        shards = SH.data_shards(state, mesh)
         params_r = [s["params"] for s in shards]
         opt_r = [s["opt"] for s in shards]
     else:
-        params_r, opt_r = (SH.replicate(params, mesh),
-                           SH.replicate(opt, mesh))
-    del params, opt
+        params_r, opt_r = state["params"], state["opt"]
+    del state
+
+    def saved():
+        if args.model_parallel == 1:
+            return {"params": params_r[0], "opt": opt_r[0]}
+        return {"params": params_r, "opt": opt_r}
 
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, args.seq, args.batch))
     t0 = time.time()
@@ -115,9 +119,8 @@ def main(argv=None) -> None:
                   f"{dt * 1e3:.0f} ms/step {tok_s:.0f} tok/s", flush=True)
             t0 = time.time()
         if (i + 1) % args.ckpt_every == 0:
-            mgr.save(i + 1, {"params": params_r[0], "opt": opt_r[0]})
-    mgr.save(args.steps, {"params": params_r[0], "opt": opt_r[0]},
-             blocking=True)
+            mgr.save(i + 1, saved())
+    mgr.save(args.steps, saved(), blocking=True)
     print("done")
 
 

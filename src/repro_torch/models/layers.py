@@ -21,7 +21,11 @@ What differs from the reference:
   that is causal attention, and it runs the kernel. ``_sdpa_chunked`` and
   ``REPRO_ATTN_CHUNK`` have no counterpart: the kernel replaces them.
 * ``attention_decode`` writes the new K/V into the cache in place.
-* There is no mesh, so ``shard_act`` has no counterpart.
+* ``shard_act`` has no counterpart. The ``tp_*`` functions (tensor
+  parallelism over the ``model`` axis) do what GSPMD does at its sites:
+  ``q`` split by heads, ``k`` and ``v`` gathered whole on every shard
+  (``layers.py:169-170`` of the reference), the MLP hidden split
+  (``:236``) and the vocab split (``:258``).
 * Initializers draw from an explicit ``torch.Generator`` on its own device
   and move the result to ``device``, scaling the fp32 draw in place (one
   fp32 copy of a leaf at a time); on the ``meta`` device they draw
@@ -30,7 +34,7 @@ What differs from the reference:
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,18 +129,29 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-         pos: Optional[torch.Tensor], rope: bool = True):
-    B, S, _ = x.shape
-    dh = cfg.d_head
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+def _proj(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """The Q, K and V projections ``[B, S, cols]`` (biases added), over
+    whatever columns ``p``'s leaves hold."""
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, dh)
-    k = k.reshape(B, S, cfg.n_kv_heads, dh)
-    v = v.reshape(B, S, cfg.n_kv_heads, dh)
+    return q, k, v
+
+
+def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+         pos: Optional[torch.Tensor], rope: bool = True):
+    return _heads(p, cfg, *_proj(p, cfg, x), pos, rope)
+
+
+def _heads(p: Dict, cfg: ModelConfig, q, k, v, pos: Optional[torch.Tensor],
+           rope: bool = True):
+    """Projections ``[B, S, n * dh]`` of whole heads, any number of them,
+    as heads ``[B, S, n, dh]``, normed and rotated."""
+    B, S, _ = q.shape
+    dh = cfg.d_head
+    q = q.reshape(B, S, -1, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     if cfg.qk_norm:
         q = rmsnorm(p["qnorm"], q, cfg.norm_eps)
         k = rmsnorm(p["knorm"], k, cfg.norm_eps)
@@ -240,13 +255,24 @@ def attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     Writes the new K/V into the caches in place and returns
     (out, cache_k, cache_v)."""
     q, k, v = _qkv(p, cfg, x, pos)
+    out = decode_attend(cfg, q, k, v, cache_k, cache_v, pos, window)
+    return out @ p["wo"], cache_k, cache_v
+
+
+def decode_attend(cfg: ModelConfig, q, k, v, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, pos: torch.Tensor,
+                  window: Optional[int] = None, kv=slice(None)
+                  ) -> torch.Tensor:
+    """Writes one token's ``k``, ``v`` (the cache's heads) into the caches
+    at ``pos``'s slot and attends ``q`` to the caches' KV heads ``kv`` (a
+    slice or an index list of the heads' axis) -> ``[B, 1, H_q * dh]``."""
     # M-RoPE positions are [3, B, 1]; the temporal section indexes the cache
     pos_t = pos[0] if pos.dim() == 3 else pos
     T = cache_k.shape[1]
     slot = pos_t[0, :1] % T  # ring buffer for windowed caches
     cache_k.index_copy_(1, slot, k)
     cache_v.index_copy_(1, slot, v)
-    kj = torch.arange(T, device=x.device)[None, :]
+    kj = torch.arange(T, device=q.device)[None, :]
     w = window if window else cfg.swa_window
     if w is not None and T <= w:
         # ring buffer: once pos >= T every slot is a valid in-window entry
@@ -254,8 +280,7 @@ def attention_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         valid = kj <= pos_t[:, :1]
     mask = valid[:, None, None, None, :]
-    out = _sdpa(q, cache_k, cache_v, mask, cfg)
-    return out @ p["wo"], cache_k, cache_v
+    return _sdpa(q, cache_k[:, :, kv], cache_v[:, :, kv], mask, cfg)
 
 
 # ------------------------------------------------------------------ mlp ----
@@ -297,3 +322,153 @@ def embed(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["out"]
     return x @ w
+
+
+# ------------------------------------------------------ tensor parallel ----
+# The functions below run one data shard's model shards in turn. ``ps``
+# holds each shard's blocks of the parameters (``sharding.param_specs``),
+# ``hs`` each shard's copy of a replicated activation, ``pos`` each shard's
+# positions, and ``tp`` (``distributed.tensor_parallel.Group``) moves
+# tensors between the shards. A leaf the rules split holds its block; one
+# the divisibility guard keeps whole holds every column on every shard,
+# which then computes the whole product itself. Which is which is read off
+# the block's shape.
+def block_cols(n: int, full: int, m: int) -> Tuple[int, int]:
+    """The range ``[lo, hi)`` of a ``full``-long dimension that shard m's
+    block of length ``n`` covers: all of it when the block is whole."""
+    return (0, full) if n == full else (m * n, (m + 1) * n)
+
+
+def _cols(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of a leaf: the leaf itself when it is that
+    block (or whole and the range is all of it), else its slice."""
+    return t if t.shape[-1] == hi - lo else t[..., lo:hi]
+
+
+def kv_heads(cfg: ModelConfig, h0: int, h1: int):
+    """The KV heads that query heads ``[h0, h1)`` use, as an index of the
+    heads' axis: a slice when the queries take whole, equal shares of
+    them (the group size then stays H / Hkv or smaller), else a list of
+    one KV head a query head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    idx = [h // G for h in range(h0, h1)]
+    uniq = sorted(set(idx))
+    n = len(idx) // len(uniq)
+    if idx == [e for e in uniq for _ in range(n)]:
+        return slice(uniq[0], uniq[-1] + 1)
+    return idx
+
+
+def cache_heads(cfg: ModelConfig, n: int, m: int) -> slice:
+    """The KV heads of shard m's cache block of ``n`` heads
+    (``cache_specs`` splits them on ``model`` when it can)."""
+    return slice(*block_cols(n, cfg.n_kv_heads, m))
+
+
+def _shift(kv, by: int):
+    if isinstance(kv, slice):
+        return slice(kv.start - by, kv.stop - by)
+    return [i - by for i in kv]
+
+
+def tp_qkv(tp, ps, cfg: ModelConfig, hs, pos) -> List[Tuple]:
+    """Each shard's ``(q, k, v, cols)``: ``k``, ``v`` ``[B, S, Hkv, dh]``,
+    every KV head (gathered where the rules split their columns, which may
+    cut a head), normed and rotated; ``q`` ``[B, S, n, dh]`` the query
+    heads that cover the columns ``cols = (lo, hi, h0)`` its ``wo`` rows
+    take, from head ``h0`` (gathered first where the block cuts a head)."""
+    H, dh = cfg.n_heads, cfg.d_head
+    proj = [_proj(p, cfg, h) for p, h in zip(ps, hs)]
+
+    def whole(i: int, full: int):
+        parts = [pr[i] for pr in proj]
+        return parts if parts[0].shape[-1] == full else tp.gather(parts)
+
+    ks = whole(1, cfg.n_kv_heads * dh)
+    vs = whole(2, cfg.n_kv_heads * dh)
+    q_all = None
+    out = []
+    for m, (p, pr) in enumerate(zip(ps, proj)):
+        lo, hi = block_cols(pr[0].shape[-1], H * dh, m)
+        h0, h1 = lo // dh, -(-hi // dh)
+        q = pr[0]
+        if lo % dh or hi % dh:
+            q_all = whole(0, H * dh) if q_all is None else q_all
+            q = q_all[m][..., h0 * dh:h1 * dh]
+        out.append(_heads(p, cfg, q, ks[m], vs[m], pos[m]) + ((lo, hi, h0),))
+    return out
+
+
+def _tp_out(p: Dict, cfg: ModelConfig, o: torch.Tensor, cols) -> torch.Tensor:
+    """A shard's attention output of heads from ``h0`` cut to the query
+    columns ``[lo, hi)`` its ``wo`` rows take, through ``wo``."""
+    lo, hi, h0 = cols
+    off = h0 * cfg.d_head
+    return o[..., lo - off:hi - off] @ p["wo"]
+
+
+def tp_attention_fwd(tp, ps, cfg: ModelConfig, hs, pos):
+    """Causal self-attention (training, prefill) of each shard's query
+    heads, on the flash kernel (the masked ``_sdpa`` under a window) ->
+    (outs, kvs, split): each shard's output through its ``wo`` rows,
+    partial sums when ``split`` (``wo`` split by rows) and the whole output
+    otherwise; ``kvs`` each shard's whole ``(k, v)`` for a prefill's
+    cache."""
+    outs, kvs = [], []
+    for p, (q, k, v, cols) in zip(ps, tp_qkv(tp, ps, cfg, hs, pos)):
+        kv = kv_heads(cfg, cols[2], cols[2] + q.shape[2])
+        if cfg.swa_window is None:
+            o = flash_sdpa(q, k[:, :, kv], v[:, :, kv])
+        else:
+            S = q.shape[1]
+            o = _sdpa(q, k[:, :, kv], v[:, :, kv],
+                      causal_mask(S, S, cfg.swa_window, device=q.device), cfg)
+        outs.append(_tp_out(p, cfg, o, cols))
+        kvs.append((k, v))
+    return outs, kvs, ps[0]["wo"].shape[0] < cfg.n_heads * cfg.d_head
+
+
+def tp_attention_decode(tp, ps, cfg: ModelConfig, hs, caches, pos):
+    """One-token decode: each shard writes its cache block's KV heads
+    (``caches[m] = (k, v)``, each ``[B, T, n, dh]``; all heads where the
+    cache is whole) and attends its query heads to them -> (outs,
+    split) as ``tp_attention_fwd``."""
+    outs = []
+    for m, (p, (q, k, v, cols), (ck, cv)) in enumerate(
+            zip(ps, tp_qkv(tp, ps, cfg, hs, pos), caches)):
+        c = cache_heads(cfg, ck.shape[2], m)
+        kv = _shift(kv_heads(cfg, cols[2], cols[2] + q.shape[2]), c.start)
+        o = decode_attend(cfg, q, k[:, :, c], v[:, :, c], ck, cv, pos[m],
+                          kv=kv)
+        outs.append(_tp_out(p, cfg, o, cols))
+    return outs, ps[0]["wo"].shape[0] < cfg.n_heads * cfg.d_head
+
+
+def tp_mlp(ps, cfg: ModelConfig, hs, d_ff: Optional[int] = None):
+    """``mlp_fwd`` on each shard over the hidden columns its ``wo`` rows
+    take (a whole ``wi`` or ``wg`` is cut to them) -> (outs, split)."""
+    f = d_ff or cfg.d_ff
+    outs = []
+    for m, (p, h) in enumerate(zip(ps, hs)):
+        lo, hi = block_cols(p["wo"].shape[0], f, m)
+        blk = {k: w if k == "wo" else _cols(w, lo, hi) for k, w in p.items()}
+        outs.append(mlp_fwd(blk, cfg, h))
+    return outs, ps[0]["wo"].shape[0] < f
+
+
+def tp_embed(ps, cfg: ModelConfig, tokens):
+    """Each shard's rows of ``tok`` for the tokens in its vocab range,
+    zero elsewhere (the whole lookup where ``tok`` is whole) -> (parts,
+    split); their sum has one non-zero term a token, so it is exact."""
+    parts = []
+    for m, (p, t) in enumerate(zip(ps, tokens)):
+        w = p["tok"]
+        n = w.shape[0]
+        if n == cfg.vocab:
+            parts.append(embed(p, t))
+            continue
+        t = t.to(w.device, torch.long) - m * n
+        rows = w[t.clamp(0, n - 1)]
+        inr = ((t >= 0) & (t < n))[..., None]
+        parts.append(torch.where(inr, rows, rows.new_zeros(())))
+    return parts, ps[0]["tok"].shape[0] < cfg.vocab

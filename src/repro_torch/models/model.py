@@ -32,6 +32,9 @@ embeddings, the positions run over all ``P + S``, and the loss drops the
 first P positions; a whisper batch's ``frames`` ``[B, n_frames, d]``
 (precomputed frame embeddings) get a sinusoid (``_sinusoid``) and go
 through the encoder.
+``loss_tp``, ``prefill_tp`` and ``decode_step_tp`` are ``loss``,
+``prefill`` and ``decode_step`` of the attention decoders over one data
+shard's model shards (``distributed/tensor_parallel.py``).
 ``abstract_params`` gives meta-device tensors (the reference's
 ``ShapeDtypeStruct``s) and ``input_specs`` ``(shape, dtype)`` pairs for
 every input.
@@ -148,10 +151,7 @@ class Model:
         labels = batch["labels"].to(logits.device, torch.long)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        nll = (logz - gold).mean()
-        zloss = 1e-4 * logz.square().mean()
-        total = nll + zloss + 1e-2 * aux
-        return total, {"nll": nll, "aux": aux, "zloss": zloss}
+        return _total(logz, gold, aux)
 
     # ---------------------------------------------------------- serving ----
     def make_cache(self, B: int, ctx: int, device=None) -> Any:
@@ -235,6 +235,97 @@ class Model:
                            enc_out=cache.get("enc_out"))
         return L.unembed(params["embed"], cfg, h).float(), cache
 
+    # -------------------------------------------------- tensor parallel ----
+    # The attention decoders over one data shard's model shards: ``tp`` a
+    # ``distributed.tensor_parallel.Group``, ``ps`` each shard's blocks of
+    # the parameters (placed by ``sharding.param_specs``), ``caches`` each
+    # shard's blocks of the cache (placed by ``cache_specs``); inputs on
+    # shard 0's device. They compute what ``loss``, ``prefill`` and
+    # ``decode_step`` compute, up to the order of the cross-shard sums.
+    def _embed_inputs_tp(self, tp, ps, batch: Dict):
+        """Each shard's (x, pos), and the label offset (a VLM's patch
+        count)."""
+        cfg = self.cfg
+        xs = tp.reduce(*L.tp_embed([p["embed"] for p in ps], cfg,
+                                   tp.copy(batch["tokens"])))
+        offset = 0
+        if cfg.family == "vlm" and "patches" in batch:
+            offset = batch["patches"].shape[1]
+            xs = [torch.cat([batch["patches"].to(x.device, x.dtype), x], 1)
+                  for x in xs]
+        B, S = xs[0].shape[:2]
+        pos = [_positions(B, S, m_rope=cfg.m_rope, device=x.device)
+               for x in xs]
+        return xs, pos, offset
+
+    def _vocab_split(self, ps) -> bool:
+        e = ps[0]["embed"]
+        n = e["tok"].shape[0] if self.cfg.tie_embeddings else \
+            e["out"].shape[-1]
+        return n < self.cfg.vocab
+
+    def _logits_tp(self, tp, ps, hs) -> torch.Tensor:
+        """The whole fp32 logits on shard 0's device: the shards' vocab
+        blocks joined, or shard 0's own where the vocab is whole."""
+        cfg = self.cfg
+        if not self._vocab_split(ps):
+            return L.unembed(ps[0]["embed"], cfg, hs[0]).float()
+        return torch.cat([L.unembed(p["embed"], cfg, h).float().to(
+            tp.devices[0]) for p, h in zip(ps, hs)], -1)
+
+    def loss_tp(self, tp, ps, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``loss`` over the model shards, on shard 0's device. Over a
+        split vocab the whole fp32 logits are never formed: the
+        logsumexp joins each shard's max and sum of exponentials, and the
+        gold logit comes from the shard that holds the label."""
+        cfg = self.cfg
+        xs, pos, offset = self._embed_inputs_tp(tp, ps, batch)
+        hs, aux = T.tp_decoder_fwd(cfg, tp, ps, xs, pos)
+        if offset:
+            hs = [h[:, offset:] for h in hs]
+        labels = batch["labels"]
+        if not self._vocab_split(ps):
+            logits = L.unembed(ps[0]["embed"], cfg, hs[0]).float()
+            labels = labels.to(logits.device, torch.long)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+            return _total(logz, gold, aux)
+        logits = [L.unembed(p["embed"], cfg, h).float()
+                  for p, h in zip(ps, hs)]
+        n = logits[0].shape[-1]
+        mx = torch.stack([lg.detach().amax(-1).to(tp.devices[0])
+                          for lg in logits]).amax(0)
+        sums, gold = [], []
+        for m, (lg, mxm) in enumerate(zip(logits, tp.copy(mx))):
+            sums.append(torch.exp(lg - mxm[..., None]).sum(-1))
+            t = labels.to(lg.device, torch.long) - m * n
+            g = torch.gather(lg, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+            gold.append(torch.where((t >= 0) & (t < n), g, g.new_zeros(())))
+        logz = mx + torch.log(tp.total(sums))
+        return _total(logz, tp.total(gold), aux)
+
+    def prefill_tp(self, tp, ps, batch: Dict, caches) -> Tuple:
+        """``prefill`` over the model shards -> (the whole last-token
+        logits ``[B, 1, V]`` on shard 0's device, caches)."""
+        xs, pos, _ = self._embed_inputs_tp(tp, ps, batch)
+        hs = T.tp_decoder_prefill(self.cfg, tp, ps, xs, pos,
+                                  [(c["k"], c["v"]) for c in caches])
+        return self._logits_tp(tp, ps, [h[:, -1:] for h in hs]), caches
+
+    def decode_step_tp(self, tp, ps, tokens: torch.Tensor, caches,
+                       pos_scalar: int) -> Tuple:
+        """``decode_step`` over the model shards -> (the whole logits
+        ``[B, 1, V]`` on shard 0's device, caches updated in place)."""
+        cfg = self.cfg
+        xs = tp.reduce(*L.tp_embed([p["embed"] for p in ps], cfg,
+                                   tp.copy(tokens)))
+        pos = [_decode_pos(tokens.shape[0], pos_scalar, cfg.m_rope,
+                           device=x.device) for x in xs]
+        hs, _ = T.tp_decoder_fwd(cfg, tp, ps, xs, pos,
+                                 [(c["k"], c["v"]) for c in caches])
+        return self._logits_tp(tp, ps, hs), caches
+
     # ------------------------------------------------------ input specs ----
     def input_specs(self, seq_len: int, global_batch: int,
                     mode: str = "train") -> Dict[str, Tuple]:
@@ -259,6 +350,16 @@ class Model:
         if cfg.enc_dec and mode in ("train", "prefill"):
             specs["frames"] = ((B, cfg.n_frames, cfg.d_model), dt)
         return specs
+
+
+def _total(logz: torch.Tensor, gold: torch.Tensor, aux: torch.Tensor
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss from each position's logsumexp and gold logit: the mean
+    nll, the z-loss ``1e-4 * mean(logz^2)`` and ``1e-2 * aux``."""
+    nll = (logz - gold).mean()
+    zloss = 1e-4 * logz.square().mean()
+    total = nll + zloss + 1e-2 * aux
+    return total, {"nll": nll, "aux": aux, "zloss": zloss}
 
 
 def _sinusoid(S: int, d: int, dtype: torch.dtype, device=None

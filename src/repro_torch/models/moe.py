@@ -33,7 +33,10 @@ The reference's grouped dispatch (``_moe_groups`` under
 with its own capacity and auxiliary loss, the loss taking their mean) is
 what the data-parallel steps do (``launch/steps.py`` on a mesh): each
 data shard runs ``moe_fwd`` on its own tokens, G = the shard count, and
-the step's loss is the mean of the shards'.
+the step's loss is the mean of the shards'. ``tp_moe_fwd`` runs one
+data shard's layer over its model shards, as GSPMD partitions the
+reference's at its ``shard_act`` sites (``moe.py:113,117,173-188``):
+the route once, then expert- or ffn-parallel by the sharding rules.
 
 Every op is out of place, so ``moe_fwd`` is differentiable (``Model.loss``
 runs through it); the gradient reaches x through the two gathers, and
@@ -41,7 +44,7 @@ the router through the gates and the auxiliary loss.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -134,14 +137,46 @@ def _experts(p: Dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wo"])
 
 
+def _shared_out(sh: Dict, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts on every token (fp32), over whatever hidden
+    columns ``sh``'s leaves hold."""
+    hs = F.silu(xt @ sh["wi"]) * (xt @ sh["wg"])
+    return (hs @ sh["wo"]).float()
+
+
 def _shared(p: Dict, cfg: ModelConfig, xt: torch.Tensor,
             y: torch.Tensor) -> torch.Tensor:
     """y plus the shared experts on every token (fp32)."""
     if not cfg.n_shared_experts:
         return y
-    sh = p["shared"]
-    hs = F.silu(xt @ sh["wi"]) * (xt @ sh["wg"])
-    return y + (hs @ sh["wo"]).float()
+    return y + _shared_out(p["shared"], xt)
+
+
+def _routed(p: Dict, cfg: ModelConfig, xt: torch.Tensor, r: Route,
+            e0: int = 0) -> torch.Tensor:
+    """The routed experts' output ``[T, d]`` (fp32): each kept pair that
+    landed on the experts ``[e0, e0 + n)`` that ``p`` holds (n its leading
+    dimension; all of them on one device) gathers its expert's output row
+    for its token, weighted by its gate; other pairs add nothing."""
+    T, d = xt.shape
+    K = cfg.moe_top_k
+    n = p["wi"].shape[0]
+    C = r.capacity
+    mine = r.keep
+    if n < cfg.n_experts:
+        mine = mine & (r.gate_idx >= e0) & (r.gate_idx < e0 + n)
+    row = (r.gate_idx - e0) * C + r.slot                  # [T, K]
+    # each expert row's token (T, a zero row, where no pair landed); the
+    # other pairs write one spare entry past n*C, which is cut off
+    dest = torch.where(mine, row, n * C).reshape(T * K)
+    tok = torch.arange(T, device=xt.device).repeat_interleave(K)
+    src_tok = torch.full((n * C + 1,), T, device=xt.device).scatter_(
+        0, dest, tok)[:n * C]
+    xe = F.pad(xt, (0, 0, 0, 1))[src_tok].view(n, C, d)
+    ye = _experts(p, xe).reshape(n * C, d)
+    src = torch.where(mine, row, 0).reshape(T * K)
+    w = r.gate_vals * mine                                # [T, K] fp32
+    return torch.bmm(w[:, None, :], ye[src].view(T, K, d).float())[:, 0]
 
 
 def moe_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -149,25 +184,69 @@ def moe_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y, aux_loss), routed by index."""
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.moe_top_k
-    T = B * S
-    xt = x.reshape(T, d)
+    xt = x.reshape(B * S, d)
     r = route(p, cfg, xt, capacity_factor)
-    C = r.capacity
-    row = r.gate_idx * C + r.slot                         # [T, K]
-    # each expert row's token (T, a zero row, where no pair landed); the
-    # dropped pairs write one spare entry past E*C, which is cut off
-    dest = torch.where(r.keep, row, E * C).reshape(T * K)
-    tok = torch.arange(T, device=x.device).repeat_interleave(K)
-    src_tok = torch.full((E * C + 1,), T, device=x.device).scatter_(
-        0, dest, tok)[:E * C]
-    xe = F.pad(xt, (0, 0, 0, 1))[src_tok].view(E, C, d)
-    ye = _experts(p, xe).reshape(E * C, d)
-    src = torch.where(r.keep, row, 0).reshape(T * K)
-    w = r.gate_vals * r.keep                              # [T, K] fp32
-    y = torch.bmm(w[:, None, :], ye[src].view(T, K, d).float())[:, 0]
-    y = _shared(p, cfg, xt, y)
+    y = _shared(p, cfg, xt, _routed(p, cfg, xt, r))
     return y.reshape(B, S, d).to(x.dtype), r.aux
+
+
+def tp_moe_fwd(tp, ps, cfg: ModelConfig, xs, capacity_factor: float = 1.25
+               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``moe_fwd`` over a data shard's model shards (``layers.py``'s
+    tensor-parallel section says how ``ps``, ``xs`` and ``tp`` are laid
+    out) -> (y on every shard, aux on shard 0's device). The route is
+    computed once, on shard 0 from its copy of the replicated router, and
+    copied to the others, so the drops are the one-device route's and aux
+    counts once. Expert-parallel (``E % M == 0``): each shard runs its
+    E / M experts on the rows that landed on them and combines those
+    pairs. Ffn-parallel (the rules split ``f``): each shard runs every
+    expert on its slice of ``f``. Either way the shards' fp32 outputs are
+    partial and summed in shard order; the shared experts are split as an
+    MLP is (``layers.tp_mlp``). A part the guard keeps whole runs whole
+    on every shard and joins after the sum."""
+    B, S, d = xs[0].shape
+    T, E = B * S, cfg.n_experts
+    f = cfg.d_ff_expert or cfg.d_ff
+    r = route(ps[0], cfg, xs[0].reshape(T, d), capacity_factor)
+    xts = [x.reshape(T, d) for x in xs]
+    routed = []
+    for m, (p, xt) in enumerate(zip(ps, xts)):
+        rm = Route(*(t.to(xt.device) if torch.is_tensor(t) else t
+                     for t in r))
+        n = p["wi"].shape[0]
+        routed.append(_routed(p, cfg, xt, rm, m * n if n < E else 0))
+    terms = [(routed, ps[0]["wi"].shape[0] < E
+              or ps[0]["wi"].shape[-1] < f)]
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        outs = []
+        for m, (p, xt) in enumerate(zip(ps, xts)):
+            sh = p["shared"]
+            lo, hi = L.block_cols(sh["wo"].shape[0], fs, m)
+            outs.append(_shared_out({k: w if k == "wo" else
+                                     L._cols(w, lo, hi)
+                                     for k, w in sh.items()}, xt))
+        terms.append((outs, ps[0]["shared"]["wo"].shape[0] < fs))
+    ys = _add_terms(tp, terms)
+    return [y.reshape(B, S, d).to(x.dtype) for y, x in zip(ys, xs)], r.aux
+
+
+def _add_terms(tp, terms) -> List[torch.Tensor]:
+    """The sum of (parts, split) terms on every shard: the split terms'
+    parts added on each shard and summed across the shards in shard
+    order, then each whole term's own part."""
+    part = whole = None
+    for vals, split in terms:
+        if split:
+            part = vals if part is None else [a + b
+                                              for a, b in zip(part, vals)]
+        else:
+            whole = vals if whole is None else [a + b
+                                                for a, b in zip(whole, vals)]
+    if part is None:
+        return whole
+    part = tp.sum(part)
+    return part if whole is None else [a + b for a, b in zip(part, whole)]
 
 
 def onehot_slots(gate_idx: torch.Tensor, E: int, C: int) -> torch.Tensor:

@@ -31,6 +31,11 @@ A MoE block (``cfg.is_moe``) runs ``moe.moe_fwd`` in place of the MLP and
 returns its auxiliary loss, which ``decoder_fwd`` sums over the layers as
 the reference's scan carry does.
 
+``tp_decoder_fwd`` and ``tp_decoder_prefill`` run the decoder over one
+data shard's model shards (tensor parallelism over the ``model`` axis):
+the same blocks, each shard on its blocks of the parameters, each
+row-parallel product summed across the shards before its residual add.
+
 The encoder's self-attention is ``attention_fwd(..., causal=False)`` with
 no positions (no RoPE), so it runs the flash kernel unmasked; the
 decoder's is causal with RoPE, on the flash kernel in a prefill and a
@@ -208,6 +213,122 @@ def decoder_prefill(cfg: ModelConfig, params: Params, x, pos,
         caches[0][i].copy_(_ring(k, S, Tw))
         caches[1][i].copy_(_ring(v, S, Tw))
     return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+# ------------------------------------------ decoder, tensor parallel ------
+# The decoder over a data shard's model shards: ``ps`` holds each shard's
+# blocks of the parameters, ``xs`` each shard's copy of the residual stream
+# (replicated), ``pos`` each shard's positions, ``tp`` the group
+# (``distributed.tensor_parallel.Group``); ``layers.py``'s tensor-parallel
+# section says how a shard reads its blocks. Each row-parallel product is
+# summed across the shards before its residual add.
+def _tp_ffn(cfg: ModelConfig, tp, ps, xs):
+    """The residual stream after the block's MoE or MLP: (xs, aux)."""
+    hs = [L.rmsnorm(p["ln2"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+    if cfg.is_moe:
+        ys, aux = MOE.tp_moe_fwd(tp, [p["moe"] for p in ps], cfg, hs)
+    elif cfg.d_ff:
+        ys, aux = tp.reduce(*L.tp_mlp([p["mlp"] for p in ps], cfg, hs)), None
+    else:
+        return xs, None
+    return [x + y for x, y in zip(xs, ys)], aux
+
+
+def tp_block_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None):
+    """``dense_block_fwd`` over the model shards -> (xs, aux); ``caches``
+    each shard's ``(k, v)`` block of a decode step's cache, updated in
+    place."""
+    hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+    attn = [p["attn"] for p in ps]
+    if caches is None:
+        a, _, split = L.tp_attention_fwd(tp, attn, cfg, hs, pos)
+    else:
+        a, split = L.tp_attention_decode(tp, attn, cfg, hs, caches, pos)
+    xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+    return _tp_ffn(cfg, tp, ps, xs)
+
+
+def _tp_layers(cfg: ModelConfig, ps) -> List[List[Params]]:
+    """Layer i's blocks, one a shard, for each layer."""
+    per = [_unstack(p["layers"], cfg.n_layers) for p in ps]
+    return [list(layer) for layer in zip(*per)]
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, (dict, list)):
+        vals = tree.values() if isinstance(tree, dict) else tree
+        return [t for v in vals for t in _tensors(v)]
+    return [tree]
+
+
+def _refill(tree, it):
+    """``tree`` with its tensors, in ``_tensors`` order, taken from
+    ``it``."""
+    if isinstance(tree, dict):
+        return {k: _refill(v, it) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_refill(v, it) for v in tree]
+    return next(it)
+
+
+def _tp_remat(cfg: ModelConfig, tp, lp, xs, pos):
+    """``tp_block_fwd`` under the reentrant ``torch.utils.checkpoint``,
+    the layer's inputs and its blocks of the parameters passed as tensors
+    (their gradients leave through the checkpoint). The non-reentrant one
+    recomputes a layer from whichever device's backward thread first
+    unpacks one of its saved tensors, and two cards' threads may do so at
+    once; the reentrant one recomputes inside its own backward node, once."""
+    n = len(xs)
+
+    def run(*args):
+        ys, aux = tp_block_fwd(cfg, tp, _refill(lp, iter(args[n:])),
+                               list(args[:n]), pos)
+        return tuple(ys) + (() if aux is None else (aux,))
+
+    out = checkpoint(run, *xs, *_tensors(lp), use_reentrant=True,
+                     preserve_rng_state=False)
+    return list(out[:n]), out[n] if len(out) > n else None
+
+
+def tp_decoder_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None):
+    """``decoder_fwd`` over the model shards: with grad enabled and no
+    caches each layer runs under ``torch.utils.checkpoint`` (``_tp_remat``);
+    ``caches`` each shard's ``(k [L, B, T, n, dh], v)`` blocks, updated in
+    place by a decode step. Returns (each shard's normed hidden states,
+    the MoE auxiliary loss on shard 0's device)."""
+    remat = caches is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for i, lp in enumerate(_tp_layers(cfg, ps)):
+        if remat:
+            xs, a = _tp_remat(cfg, tp, lp, xs, pos)
+        else:
+            xs, a = tp_block_fwd(cfg, tp, lp, xs, pos, None if caches is None
+                                 else [(k[i], v[i]) for k, v in caches])
+        if a is not None:
+            aux = aux + a
+    return [L.rmsnorm(p["lnf"], x, cfg.norm_eps)
+            for p, x in zip(ps, xs)], aux
+
+
+def tp_decoder_prefill(cfg: ModelConfig, tp, ps, xs, pos, caches):
+    """``decoder_prefill`` over the model shards: each shard fills its
+    block of the ring caches ``caches[m] = (k, v)``, each ``[L, B, Tw, n,
+    dh]`` (its KV heads where ``cache_specs`` splits them, all of them
+    where the cache is whole). Returns each shard's normed hidden
+    states."""
+    S = xs[0].shape[1]
+    Tw = caches[0][0].shape[2]
+    for i, lp in enumerate(_tp_layers(cfg, ps)):
+        hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+        a, kvs, split = L.tp_attention_fwd(tp, [p["attn"] for p in lp], cfg,
+                                           hs, pos)
+        xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+        xs, _ = _tp_ffn(cfg, tp, lp, xs)
+        for m, ((k, v), (ck, cv)) in enumerate(zip(kvs, caches)):
+            c = L.cache_heads(cfg, ck.shape[3], m)
+            ck[i].copy_(_ring(k[:, :, c], S, Tw))
+            cv[i].copy_(_ring(v[:, :, c], S, Tw))
+    return [L.rmsnorm(p["lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
 
 
 # ----------------------------------------------------------- zamba2 --------

@@ -67,9 +67,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
 
 
-def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 quantization."""
-    scale = torch.clamp_min(g.abs().max(), 1e-8) / 127.0
+def quantize_int8(g: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization; ``amax`` the tensor's
+    largest magnitude when ``g`` is one block of it (default ``g``'s)."""
+    if amax is None:
+        amax = g.abs().max()
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
     q = torch.clip(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -96,13 +100,16 @@ def _unzip(tree, n: int):
 
 
 def apply(params, grads, state: AdamWState, *, lr=None, b1=0.9, b2=0.95,
-          eps=1e-8, weight_decay=0.1, clip=1.0):
+          eps=1e-8, weight_decay=0.1, clip=1.0, gnorm=None):
     """One AdamW update. Grads may be lower precision; math is fp32.
-    Returns (new params, new state, the grads' global norm)."""
+    ``gnorm`` is the global norm to clip by when ``grads`` are blocks of
+    a gradient split across devices (default ``global_norm(grads)``).
+    Returns (new params, new state, the global norm)."""
     step = state.step + 1
     if lr is None:
         lr = cosine_lr(step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(clip / (gnorm + 1e-9), 1.0)
     c1 = 1 - b1 ** step
     c2 = 1 - b2 ** step

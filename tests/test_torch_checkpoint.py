@@ -202,7 +202,7 @@ def test_train_cli_resumes_exactly(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    with pytest.raises(ValueError, match="does not divide"):
         train.main([*CLI, "--model-parallel", "2", "--ckpt-dir",
                     str(tmp_path)])
     with pytest.raises(NotImplementedError):

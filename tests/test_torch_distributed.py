@@ -475,15 +475,28 @@ def test_shard_routing_is_reference_grouped_dispatch(D):
 
 @pytest.mark.parametrize("maker", [steps.make_train_step,
                                    steps.make_serve_steps])
-def test_model_axis_raises_not_implemented(maker):
-    with pytest.raises(NotImplementedError, match="A8.5b"):
-        maker(SMOKE["qwen3-0.6b"], MESH.make_host_mesh(2, CPU4))
+def test_model_axis_raises_not_implemented(maker, monkeypatch):
+    """A model axis > 1 runs the attention decoders (tensor-parallel,
+    ``tests/test_torch_tensor_parallel.py``); zamba2, xLSTM, whisper and
+    the serve steps under ``REPRO_KV_SHARD=seq`` still refuse it, naming
+    ROADMAP A8.5c."""
+    mesh = MESH.make_host_mesh(2, CPU4)
+    for name in ("zamba2-7b", "xlstm-125m", "whisper-medium"):
+        with pytest.raises(NotImplementedError, match="A8.5c"):
+            maker(SMOKE[name], mesh)
+    monkeypatch.setenv("REPRO_KV_SHARD", "seq")
+    if maker is steps.make_serve_steps:
+        with pytest.raises(NotImplementedError, match="A8.5c"):
+            maker(SMOKE["qwen3-0.6b"], mesh)
+    else:
+        maker(SMOKE["qwen3-0.6b"], mesh)     # no cache: nothing to refuse
 
 
 def test_production_mesh_cannot_run_a_step():
     mesh = MESH.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="A8.5b"):
-        steps.make_train_step(SMOKE["qwen3-0.6b"], mesh)
+    for maker in (steps.make_train_step, steps.make_serve_steps):
+        with pytest.raises(ValueError, match="no devices"):
+            maker(SMOKE["qwen3-0.6b"], mesh)
 
 
 # ------------------------------------------------- serving on a mesh ----
@@ -662,6 +675,12 @@ def test_train_cli_resumes_onto_another_mesh(tmp_path, capsys):
 
 
 def test_train_cli_refuses_model_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8.5b"):
-        train.main([*CLI, "--model-parallel", "2", "--devices", "cpu,cpu",
+    """``--model-parallel`` runs (``tests/test_torch_tensor_parallel.py``)
+    where it divides the devices and the stack has a model axis; the rest
+    still raises."""
+    with pytest.raises(ValueError, match="does not divide"):
+        train.main([*CLI, "--model-parallel", "3", "--devices", "cpu,cpu",
                     "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="A8.5c"):
+        train.main([*CLI, "--arch", "zamba2-7b", "--model-parallel", "2",
+                    "--devices", "cpu,cpu", "--ckpt-dir", str(tmp_path)])
