@@ -99,6 +99,17 @@ launch counts set to 0 just before and read just after:
   ``flash_attention_bwd``) the step's gradients equal the same step on
   ``flash_ref`` under autograd, and 2 steps, a checkpoint, a restore and
   1 step equal 3 steps bit for bit;
+* training the other stacks, ``make_train_step`` in bf16: whisper-medium
+  whole (``lm_train_encdec``; 4 x 224 tokens over 1500 frames, a warm-up
+  and three timed steps, each 96 ``flash_attention_sm90`` launches, the
+  encoder's 48 not causal, and 48 ``flash_attention_bwd_sm90``), then
+  xlstm-125m whole (no flash launch) and zamba2-7b at 9 of its 81 layers
+  (``lm_train_ssm``; 4 x 2048 tokens, a warm-up and a timed step each;
+  zamba2's shared attention 2 ``flash_attention_simt`` and 1
+  ``flash_attention_bwd`` launches a step), every leaf with a gradient,
+  the peak beside a reckoning; in float32 at 2 + 2 layers (whisper) and
+  9 (zamba2) the step's gradients on the 3xTF32 pair equal the same on
+  ``flash_ref`` under autograd;
 * the LM scaffold across devices, qwen3-0.6b at full width on a mesh of
   four shards of the card (``launch.mesh.make_host_mesh(devices=
   ["cuda:0"] * 4)``): ``lm_train_dp``, ``make_train_step(cfg, mesh)``
@@ -123,8 +134,11 @@ whisper-medium's encoder shape and qwen2-vl-72b's prefill shape, each
 against the plain version and SDPA in turns, the 3xTF32 kernel with and
 without lse, the plain version and SDPA in turns in float32, and in bf16
 both backward kernels, the plain version and SDPA's backward in turns,
-in float32 the 3xTF32 one with and without lse; the float32 rows give
-the fp32 CUDA-core bound and the 3xTF32 tensor-core bound). Each Vcycle
+in float32 the 3xTF32 one with and without lse, and the backward
+kernels at the new training shapes, the wgmma one not causal at
+whisper's encoder and the 3xTF32 one in bf16 at zamba2's dh 112; the
+float32 rows give the fp32 CUDA-core bound and the 3xTF32 tensor-core
+bound). Each Vcycle
 case of the timing also reports what bounds the kernel: the
 busiest core's rows a Vcycle (``busy_rows``), the kernel's ns per such row
 (``ns_per_busy_row``), the bytes of code rows it reads a launch
@@ -2015,6 +2029,88 @@ def _counted(fa, kv, fn, want, tag):
     return out
 
 
+def _loss_grads(torch, adamw, model, params, batch):
+    """(loss, gradients) of ``model.loss`` by ``backward()``: what a
+    ``make_train_step`` step hands AdamW, without AdamW's new state."""
+    leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss(leaves, batch)
+    loss.backward()
+    return float(loss.detach()), adamw.tree_map(lambda p: p.grad, leaves)
+
+
+def _grad_err(torch, adamw, got, want) -> float:
+    """max |got - want| over each leaf's max |want|, the worst leaf."""
+    return max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(adamw.leaves(got), adamw.leaves(want)))
+
+
+def _train_reckoning(adamw, p_shapes) -> dict:
+    """Bytes a bf16 step holds at its high point, from the shapes: the
+    caller's params and moments, the gradients, and AdamW's new params
+    and moments (fp32 m and v a parameter)."""
+    n = sum(t.numel() for t in adamw.leaves(p_shapes))
+    p = sum(t.numel() * t.element_size() for t in adamw.leaves(p_shapes))
+    out = {"params": p, "grads": p, "adam_m_and_v": 8 * n,
+           "new_params_and_moments": p + 8 * n}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _train_model(torch, fa, kv, steps, adamw, cfg, batch_at, want, n_timed,
+                 tag):
+    """``make_train_step(cfg)`` on the card in the config's bf16, weights
+    random from a seed: step 1 (the warm-up) with its gradients, every
+    leaf's finite and nonzero and every leaf but the norm scales moved
+    (step 1's lr is 3e-6: a scale of 1.0 cannot move in bf16), then
+    ``n_timed`` steps timed to a synchronize; each step launches the
+    flash kernels ``want`` times (``_counted``). Returns the run's
+    numbers."""
+    model, step, p_shapes, _ = steps.make_train_step(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch = batch_at(0)
+    t0 = time.perf_counter()
+    (new, opt, metrics), grads = _counted(fa, kv, lambda: _spied_step(
+        torch, steps, adamw, step, params, opt, batch), want, f"{tag} step 1")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _check_grads(torch, adamw, grads, f"{tag} bf16 step 1")
+    unmoved = _unmoved(torch, params, new)
+    if any(not p.endswith("/scale") for p in unmoved):
+        raise AssertionError(f"{tag} step 1: leaves did not move: {unmoved}")
+    n_leaves = len(list(adamw.leaves(params)))
+    del grads, params
+    params = new
+    losses, gnorms = [float(metrics["loss"])], [float(metrics["gnorm"])]
+    step_s = []
+    for i in range(1, 1 + n_timed):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = _counted(
+            fa, kv, lambda: step(params, opt, batch), want,
+            f"{tag} step {i + 1}")
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"{tag}: loss {losses}, gnorm {gnorms}")
+    del params, opt, metrics, batch, new
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "params": sum(t.numel() for t in adamw.leaves(p_shapes)),
+            "leaves": n_leaves, "leaves_not_moved_at_step_1": unmoved,
+            "launches_per_step": want, "first_step_s": first_s,
+            "step_s": step_s, "loss": losses, "gnorm": gnorms,
+            "peak_memory_bytes": peak,
+            "memory_reckoning_bytes": _train_reckoning(adamw, p_shapes)}
+
+
 def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
                    TokenPipeline, PipelineConfig, CheckpointManager):
     """qwen3-0.6b at full width trained through ``make_train_step`` in the
@@ -2036,51 +2132,14 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     run's launches of each flash kernel, and the counted float32 step's."""
     from unittest import mock
     cfg = ARCHS[LM_ARCH]
-    model, step, p_shapes, opt_shapes = steps.make_train_step(cfg)
-    n_params = sum(t.numel() for t in adamw.leaves(p_shapes))
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    opt = adamw.init(params)
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
     want = {"flash_attention_sm90": 2 * cfg.n_layers,
             "flash_attention_simt": 0, "flash_attention_bwd": 0,
             "flash_attention_bwd_sm90": cfg.n_layers}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # step 1: the warm-up, with its gradients
-    batch = _batch(torch, pipe, 0)
-    t0 = time.perf_counter()
-    (new, opt, metrics), grads = _counted(fa, kv, lambda: _spied_step(
-        torch, steps, adamw, step, params, opt, batch), want, "train step 1")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    _check_grads(torch, adamw, grads, "bf16 step 1")
-    # step 1's lr is 3e-6 (cosine_lr's warm-up): a norm scale of 1.0 cannot
-    # move in bf16 (its spacing there is 2^-8), a weight matrix must
-    unmoved = _unmoved(torch, params, new)
-    if any(not p.endswith("/scale") for p in unmoved):
-        raise AssertionError(f"bf16 step 1: leaves did not move: {unmoved}")
-    n_leaves = len(list(adamw.leaves(params)))
-    del grads, params
-    params = new
-    losses, gnorms = [float(metrics["loss"])], [float(metrics["gnorm"])]
-    step_s = []
-    for i in range(1, 1 + TRAIN_TIMED):
-        batch = _batch(torch, pipe, i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, metrics = _counted(
-            fa, kv, lambda: step(params, opt, batch), want,
-            f"train step {i + 1}")
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["gnorm"]))
-    peak = torch.cuda.max_memory_allocated()
-    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
-        raise AssertionError(f"train: loss {losses}, gnorm {gnorms}")
+    res = _train_model(torch, fa, kv, steps, adamw, cfg,
+                       lambda i: _batch(torch, pipe, i), want, TRAIN_TIMED,
+                       "train")
     launches = {k: v * (1 + TRAIN_TIMED) for k, v in want.items()}
-    del params, opt, metrics, batch
-    torch.cuda.empty_cache()
 
     # float32 at full width, CHECK_LAYERS layers
     cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
@@ -2098,10 +2157,7 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     with mock.patch.object(L, "flash_attention", flash_ref):
         (pp, _, mp), gp = _spied_step(torch, steps, adamw, step32, p0, o0,
                                       b0)
-    grad_err = 0.0
-    for a, b in zip(adamw.leaves(gk), adamw.leaves(gp)):
-        grad_err = max(grad_err, float((a - b).abs().max())
-                       / float(b.abs().max()))
+    grad_err = _grad_err(torch, adamw, gk, gp)
     if not grad_err <= 1e-4:
         raise AssertionError(f"float32 step: kernel gradients != flash_ref "
                              f"under autograd ({grad_err} of a leaf's max)")
@@ -2141,30 +2197,180 @@ def phase_lm_train(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     del p, o, p0, o0, straight, restored, pairs
     torch.cuda.empty_cache()
     ntok = TRAIN_B * TRAIN_S
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in adamw.leaves(p_shapes))
     # what the step holds at once, from the shapes, against the peak
+    param_bytes = res["memory_reckoning_bytes"]["params"]
     reckoning = {"params": param_bytes, "grads": param_bytes,
-                 "adam_m_and_v": 8 * n_params,
+                 "adam_m_and_v": 8 * res["params"],
                  "fp32_logits": 4 * ntok * cfg.vocab,
                  "fp32_logits_grad": 4 * ntok * cfg.vocab}
     emit({"phase": "lm_train", "arch": LM_ARCH,
           "call": f"repro_torch.launch.steps.make_train_step(ARCHS"
-                  f"['{LM_ARCH}'])",
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "params": n_params, "dtype": cfg.dtype,
+                  f"['{LM_ARCH}'])", **res, "vocab": cfg.vocab,
           "B": TRAIN_B, "S": TRAIN_S, "tokens_per_step": ntok,
-          "launches_per_step": want, "first_step_s": first_s,
-          "step_s": step_s, "tokens_per_s": [ntok / t for t in step_s],
-          "loss": losses, "gnorm": gnorms, "peak_memory_bytes": peak,
+          "tokens_per_s": [ntok / t for t in res["step_s"]],
           "memory_reckoning_bytes": reckoning,
-          "leaves": n_leaves, "leaves_not_moved_at_step_1": unmoved,
           "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
                          "S": CHECK_S, "launches": want32,
                          "grad_err_over_leaf_max": grad_err,
                          "loss_abs_err": loss_err,
                          "resume_bit_equal_leaves": n_pairs}})
     return launches, want32
+
+
+ENCDEC_TRAIN_TIMED = 3      # lm_train_encdec's timed steps
+ENCDEC_CHECK_LAYERS = 2     # its float32 check: 2 encoder + 2 decoder
+SSM_TRAIN_TIMED = 1         # lm_train_ssm's timed steps a model
+
+
+def _fp32_train_check(torch, fa, kv, flash_ref, steps, L, adamw, cfg32,
+                      batch, want32, tag):
+    """``cfg32`` (float32, full width) on the card, weights random from a
+    seed: the step's gradients (``Model.loss``'s backward) with its
+    attention on the kernels (``want32`` launches) against the same on
+    ``flash_ref`` under autograd, within 1e-4 of each leaf's max, every
+    leaf's finite and nonzero. Returns the check's numbers."""
+    from unittest import mock
+    model = steps.make_train_step(cfg32)[0]
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    loss_k, gk = _counted(fa, kv, lambda: _loss_grads(
+        torch, adamw, model, params, batch), want32, f"{tag} float32")
+    _check_grads(torch, adamw, gk, f"{tag} float32")
+    with mock.patch.object(L, "flash_attention", flash_ref):
+        loss_p, gp = _loss_grads(torch, adamw, model, params, batch)
+    err = _grad_err(torch, adamw, gk, gp)
+    if not err <= 1e-4:
+        raise AssertionError(f"{tag} float32: kernel gradients != flash_ref "
+                             f"under autograd ({err} of a leaf's max)")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg32.n_layers, "n_enc_layers": cfg32.n_enc_layers,
+            "launches": want32, "grad_err_over_leaf_max": err,
+            "loss_abs_err": abs(loss_k - loss_p)}
+
+
+def phase_lm_train_encdec(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
+                          TokenPipeline, PipelineConfig, smi, profile_serve):
+    """whisper-medium whole (24 + 24 layers) trained through
+    ``make_train_step`` on the card in bf16: LM_BATCH x ENCDEC_S tokens
+    and labels from ``TokenPipeline`` over ``_frontend``'s 1500 frames
+    (``lm_serve_encdec``'s shape), a warm-up and ENCDEC_TRAIN_TIMED timed
+    steps (``_train_model``). Each step launches 96
+    ``flash_attention_sm90`` (the forward and its recompute under each
+    layer's checkpoint: 24 not causal at BH 64, S 1500, dh 64 and 24
+    causal at S 224, twice; read by a spy on ``layers.flash_attention``)
+    and 48 ``flash_attention_bwd_sm90``, nothing else; the
+    cross-attention's backward is ``_sdpa``'s under autograd. Then at
+    full width with ENCDEC_CHECK_LAYERS + ENCDEC_CHECK_LAYERS layers in
+    float32 (CHECK_B rows) ``_fp32_train_check``. Returns the bf16 run's
+    launches of each flash kernel and the float32 check's."""
+    cfg = ARCHS[ENCDEC_ARCH]
+    frames = _frontend(torch, profile_serve, cfg, 16)["frames"]
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, ENCDEC_S, LM_BATCH))
+    n = cfg.n_enc_layers + cfg.n_layers
+    want = {"flash_attention_sm90": 2 * n, "flash_attention_simt": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_sm90": n}
+    BH, dh = LM_BATCH * cfg.n_heads, cfg.d_head
+    enc = ((BH, cfg.n_frames, dh),) * 2 + (False,)
+    dec = ((BH, ENCDEC_S, dh),) * 2 + (True,)
+    calls, spy = _spy_flash(L)
+    with spy:
+        res = _train_model(
+            torch, fa, kv, steps, adamw, cfg,
+            lambda i: {**_batch(torch, pipe, i), "frames": frames}, want,
+            ENCDEC_TRAIN_TIMED, "lm_train_encdec")
+    runs = 1 + ENCDEC_TRAIN_TIMED
+    if (calls.count(enc) != 2 * cfg.n_enc_layers * runs
+            or calls.count(dec) != 2 * cfg.n_layers * runs
+            or len(calls) != 2 * n * runs):
+        raise AssertionError(f"lm_train_encdec: flash_attention calls "
+                             f"{calls[:4]}... ({len(calls)})")
+    cfg32 = cfg.scaled(n_layers=ENCDEC_CHECK_LAYERS,
+                       n_enc_layers=ENCDEC_CHECK_LAYERS, dtype="float32")
+    pipe32 = TokenPipeline(PipelineConfig(cfg.vocab, ENCDEC_S, CHECK_B))
+    n32 = 2 * ENCDEC_CHECK_LAYERS
+    want32 = {"flash_attention_sm90": 0, "flash_attention_simt": 2 * n32,
+              "flash_attention_bwd": n32, "flash_attention_bwd_sm90": 0}
+    check = _fp32_train_check(
+        torch, fa, kv, flash_ref, steps, L, adamw, cfg32,
+        {**_batch(torch, pipe32, 0), "frames": frames[:CHECK_B]}, want32,
+        "lm_train_encdec")
+    del frames
+    ntok = LM_BATCH * ENCDEC_S
+    emit({"phase": "lm_train_encdec", "card": smi,
+          "call": f"repro_torch.launch.steps.make_train_step(ARCHS"
+                  f"['{ENCDEC_ARCH}'])", **res,
+          "n_enc_layers": cfg.n_enc_layers, "n_frames": cfg.n_frames,
+          "B": LM_BATCH, "S": ENCDEC_S, "tokens_per_step": ntok,
+          "tokens_per_s": [ntok / t for t in res["step_s"]],
+          "frames_per_s": [LM_BATCH * cfg.n_frames / t
+                           for t in res["step_s"]],
+          "flash_calls_per_step": {
+              "encoder": {"q": enc[0], "causal": False,
+                          "n": 2 * cfg.n_enc_layers},
+              "decoder": {"q": dec[0], "causal": True,
+                          "n": 2 * cfg.n_layers}},
+          "fp32_check": {**check, "B": CHECK_B, "S": ENCDEC_S}})
+    return ({k: v * runs for k, v in want.items()}, want32)
+
+
+def phase_lm_train_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
+                       TokenPipeline, PipelineConfig, smi):
+    """The recurrent stacks trained through ``make_train_step`` on the card
+    in bf16 on TRAIN_B x TRAIN_S tokens from ``TokenPipeline`` (a warm-up
+    and SSM_TRAIN_TIMED timed steps each, ``_train_model``; each layer
+    checkpointed, each scan in checkpointed chunks of ``SCAN_CHUNK``
+    steps): xlstm-125m whole, which launches no flash kernel, then
+    zamba2-7b at full width and SSM_CHECK_LAYERS of its 81 layers (one
+    group of six with its shared attention, and a three-layer tail: every
+    kind of leaf), whose shared attention (bf16 at dh 112, S 2048 under
+    its 4096 window) launches ``flash_attention_simt`` twice a group (the
+    forward and its recompute) and ``flash_attention_bwd`` once. Then
+    zamba2's float32 check at the same depth (CHECK_B x CHECK_S,
+    ``_fp32_train_check``). Returns the bf16 runs' launches of each flash
+    kernel and the float32 check's."""
+    from repro_torch.models import ssm as SSM
+    pipe = TokenPipeline(PipelineConfig(ARCHS[XLSTM_ARCH].vocab, TRAIN_S,
+                                        TRAIN_B))
+    none = {"flash_attention_sm90": 0, "flash_attention_simt": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0}
+    xlstm = _train_model(torch, fa, kv, steps, adamw, ARCHS[XLSTM_ARCH],
+                         lambda i: _batch(torch, pipe, i), none,
+                         SSM_TRAIN_TIMED, "lm_train_ssm xlstm")
+    full = ARCHS[SSM_ARCH]
+    cfg = full.scaled(n_layers=SSM_CHECK_LAYERS)
+    groups = cfg.n_layers // cfg.attn_every
+    want = {**none, "flash_attention_simt": 2 * groups,
+            "flash_attention_bwd": groups}
+    call = ((TRAIN_B * cfg.n_heads, TRAIN_S, cfg.d_head),) * 2 + (True,)
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
+    calls, spy = _spy_flash(L)
+    with spy:
+        zamba = _train_model(torch, fa, kv, steps, adamw, cfg,
+                             lambda i: _batch(torch, pipe, i), want,
+                             SSM_TRAIN_TIMED, "lm_train_ssm zamba2")
+    runs = 1 + SSM_TRAIN_TIMED
+    if calls != [call] * 2 * groups * runs:
+        raise AssertionError(f"lm_train_ssm zamba2: flash_attention calls "
+                             f"{calls[:4]}... ({len(calls)})")
+    want32 = {**none, "flash_attention_simt": 2 * groups,
+              "flash_attention_bwd": groups}
+    pipe32 = TokenPipeline(PipelineConfig(cfg.vocab, CHECK_S, CHECK_B))
+    check = _fp32_train_check(torch, fa, kv, flash_ref, steps, L, adamw,
+                              cfg.scaled(dtype="float32"),
+                              _batch(torch, pipe32, 0), want32,
+                              "lm_train_ssm zamba2")
+    ntok = TRAIN_B * TRAIN_S
+    for res in (xlstm, zamba):
+        res["tokens_per_s"] = [ntok / t for t in res["step_s"]]
+    zamba.update(layers_of=full.n_layers, groups=groups,
+                 tail=cfg.n_layers % cfg.attn_every,
+                 flash_call={"q": call[0], "causal": True},
+                 fp32_check={**check, "B": CHECK_B, "S": CHECK_S})
+    emit({"phase": "lm_train_ssm", "card": smi,
+          "call": "repro_torch.launch.steps.make_train_step(cfg)",
+          "B": TRAIN_B, "S": TRAIN_S, "tokens_per_step": ntok,
+          "scan_chunk": SSM.SCAN_CHUNK, "xlstm": xlstm, "zamba2": zamba})
+    return ({k: v * runs for k, v in want.items()}, want32)
 
 
 DP_SHARDS = 4               # lm_train_dp's and lm_serve_dp's data shards
@@ -3158,6 +3364,97 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str, heads=(16, 8)):
     return res
 
 
+def _time_flash_bwd_case(torch, fa, flash_bwd_ref, BH, BHkv, S, dh, causal,
+                         seed):
+    """The backward kernel that ``FlashAttention`` runs for bf16 at
+    ``dh`` (``flash_attention_bwd_sm90`` after ``flash_attention_sm90``,
+    else ``flash_attention_bwd`` after ``flash_attention_simt``), given
+    the lse its forward saves, at (BH, BHkv, S, dh, causal), timed in one
+    call in turns with its plain version ``flash_bwd_ref(lse=)`` and the
+    backward of SDPA on the same inputs (kernel, plain, SDPA, then in
+    reverse): CUDA-event ms, and the bound at the bf16 tensor-core rate
+    (the gradient's products: 2.5x the forward's 2 BH S^2 dh
+    multiply-adds, halved when causal) against each input read and each
+    output written once, lse's bytes too."""
+    import torch.nn.functional as F
+    fwd = fa.route(torch.bfloat16, dh)
+    kernel = ("flash_attention_bwd_sm90" if fwd == "flash_attention_sm90"
+              else "flash_attention_bwd")
+    q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", seed)
+    do = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", seed + 1)[0]
+    o, lse = getattr(fa, fwd)(q, k, v, causal, return_lse=True)
+    B = TRAIN_B
+    q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh).detach()
+                  .requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                        enable_gqa=BH != BHkv)
+    do4 = do.view(B, BH // B, S, dh)
+    out = {}
+
+    def run():
+        if kernel == "flash_attention_bwd_sm90":
+            out["kernel"] = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse,
+                                                        causal)
+        else:
+            out["kernel"] = fa.flash_attention_bwd(q, k, v, o, do, causal,
+                                                   lse=lse)
+
+    def plain():
+        out["plain"] = flash_bwd_ref(q, k, v, o, do, causal, lse=lse)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    fast = kernel == "flash_attention_bwd_sm90"
+    fns = {"kernel": (run, 20 if fast else 5, 3 if fast else 1),
+           "plain": (plain, 3, 1), "library": (sdpa_bwd, 10, 2)}
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, n, warm = fns[name]
+            turns[name].append(cuda_ms(torch, fn, n, warm))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    errs = [(float((a.float() - b.float()).abs().max()),
+             float(b.float().abs().max()))
+            for a, b in zip(out["kernel"], out["plain"])]
+    rel = max(e / m for e, m in errs)
+    tag = (f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 "
+           f"{'causal' if causal else 'not causal'}")
+    if rel > FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"timed {kernel} at {tag} != plain ({rel} of "
+                             "an output's max)")
+    nbytes = 2 * (4 * BH + 4 * BHkv) * S * dh + 4 * BH * S
+    flops = (5 if causal else 10) * BH * S * S * dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"case": tag, "kernel": kernel, "forward": fwd,
+            "ms": ms["kernel"], "ms_turns": turns["kernel"],
+            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+            "library_ms": ms["library"], "library_ms_turns": turns["library"],
+            "library": "backward of scaled_dot_product_attention(is_causal="
+            f"{causal}{', enable_gqa' if BH != BHkv else ''}) in bfloat16",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "max_abs_err": max(e for e, _ in errs), "err_over_max": rel,
+            "tflops_per_s": flops / ms["kernel"] * 1e-9}
+
+
+def time_flash_bwd_stacks(torch, fa, flash_bwd_ref):
+    """The backward kernels at the new training paths' shapes, by
+    ``_time_flash_bwd_case``: ``flash_attention_bwd_sm90`` not causal at
+    whisper-medium's encoder (BH = BHkv = 64, S = 1500, dh = 64;
+    ``lm_train_encdec``) and ``flash_attention_bwd`` at zamba2-7b's
+    shared attention (BH = BHkv = 128, S = 2048, dh = 112, causal;
+    ``lm_train_ssm``)."""
+    return {"whisper_encoder": _time_flash_bwd_case(
+                torch, fa, flash_bwd_ref, TRAIN_B * 16, TRAIN_B * 16, 1500,
+                64, False, 93),
+            "zamba2": _time_flash_bwd_case(
+                torch, fa, flash_bwd_ref, TRAIN_B * 32, TRAIN_B * 32,
+                TRAIN_S, 112, True, 91)}
+
+
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
     """Milliseconds per call of ``fn`` by CUDA events over ``n`` calls
     after ``warm`` warm-up calls."""
@@ -3476,6 +3773,13 @@ def main() -> int:
     train_launches, fp32_train_launches = phase_lm_train(
         torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
         PipelineConfig, CheckpointManager)
+    encdec_train_launches, fp32_encdec_train_launches = \
+        phase_lm_train_encdec(torch, fa, kv, flash_ref, steps, L, ARCHS,
+                              adamw, TokenPipeline, PipelineConfig, smi,
+                              profile_serve)
+    ssm_train_launches, fp32_ssm_train_launches = phase_lm_train_ssm(
+        torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
+        PipelineConfig, smi)
     dp_launches, fp32_dp_launches = phase_lm_train_dp(
         torch, fa, kv, steps, ARCHS, adamw, TokenPipeline, PipelineConfig,
         SH, OV, make_host_mesh)
@@ -3498,6 +3802,7 @@ def main() -> int:
                                 TRAIN_B * 2, TRAIN_S, 128, True, 95)
     bwd_tp = time_flash_bwd(torch, fa, flash_bwd_ref, "bfloat16", (4, 2))[
         "flash_attention_bwd_sm90"]
+    bwd_stacks = time_flash_bwd_stacks(torch, fa, flash_bwd_ref)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
           "flash_attention_simt_zamba2": flash112,
@@ -3508,6 +3813,13 @@ def main() -> int:
           "flash_attention_bwd_fp32": bwd["float32"]["flash_attention_bwd"],
           "flash_attention_sm90_tp_shard": flash_tp,
           "flash_attention_bwd_sm90_tp_shard": bwd_tp,
+          "flash_attention_bwd_sm90_whisper_encoder":
+          bwd_stacks["whisper_encoder"],
+          "flash_attention_bwd_zamba2": bwd_stacks["zamba2"],
+          "launches_on_bf16_encdec_train_path": encdec_train_launches,
+          "launches_on_fp32_encdec_train_check": fp32_encdec_train_launches,
+          "launches_on_bf16_ssm_train_path": ssm_train_launches,
+          "launches_on_fp32_ssm_train_check": fp32_ssm_train_launches,
           "launches_on_bf16_tp_train_path": tp_launches,
           "launches_on_fp32_tp_train_check": fp32_tp_launches,
           "sm90_launches_on_bf16_tp_serving_path": serve_tp_launches,
@@ -3558,6 +3870,8 @@ def main() -> int:
                         "lm_serve_encdec": encdec_sm90_launches,
                         "lm_serve_vlm": vlm_sm90_launches,
                         "lm_train": train_launches["flash_attention_sm90"],
+                        "lm_train_encdec":
+                        encdec_train_launches["flash_attention_sm90"],
                         "lm_train_dp": dp_launches["flash_attention_sm90"],
                         "lm_serve_dp": serve_dp_launches,
                         "lm_train_tp": tp_launches["flash_attention_sm90"],
@@ -3579,6 +3893,12 @@ def main() -> int:
                        "_flash_kernel (float32, other head dims)",
                        ssm_simt_launches, flash112,
                        {"lm_serve_ssm": ssm_simt_launches,
+                        "lm_train_ssm":
+                        ssm_train_launches["flash_attention_simt"],
+                        "lm_train_encdec_fp32_check":
+                        fp32_encdec_train_launches["flash_attention_simt"],
+                        "lm_train_ssm_fp32_check":
+                        fp32_ssm_train_launches["flash_attention_simt"],
                         "lm_serve_fp32_check": simt_launches,
                         "lm_serve_moe_fp32_check": moe_simt_launches,
                         "lm_serve_ssm_fp32_check": ssm_fp32_launches,
@@ -3607,13 +3927,20 @@ def main() -> int:
                    train_launches["flash_attention_bwd_sm90"],
                    bwd["bfloat16"]["flash_attention_bwd_sm90"],
                    {"lm_train": train_launches["flash_attention_bwd_sm90"],
+                    "lm_train_encdec":
+                    encdec_train_launches["flash_attention_bwd_sm90"],
                     "lm_train_dp": dp_launches["flash_attention_bwd_sm90"],
                     "lm_train_tp": tp_launches["flash_attention_bwd_sm90"]}),
-     "other_shapes": {"tp_shard": {
-         "launches": tp_launches["flash_attention_bwd_sm90"],
-         **{k: bwd_tp[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}}}},
-        kernel_line("flash_attention_bwd",
+     "other_shapes": {name: {
+         "launches": n,
+         **{k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}}
+         for name, n, row in (
+             ("tp_shard", tp_launches["flash_attention_bwd_sm90"], bwd_tp),
+             ("whisper_encoder",
+              encdec_train_launches["flash_attention_bwd_sm90"] // 2,
+              bwd_stacks["whisper_encoder"]))}},
+        {**kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "none: no TPU kernel is replaced; the gradient of "
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
@@ -3622,13 +3949,23 @@ def main() -> int:
                     "_sdpa",
                     fp32_train_launches["flash_attention_bwd"],
                     bwd["float32"]["flash_attention_bwd"],
-                    {"lm_train_fp32_check":
+                    {"lm_train_ssm": ssm_train_launches["flash_attention_bwd"],
+                     "lm_train_fp32_check":
                      fp32_train_launches["flash_attention_bwd"],
+                     "lm_train_encdec_fp32_check":
+                     fp32_encdec_train_launches["flash_attention_bwd"],
+                     "lm_train_ssm_fp32_check":
+                     fp32_ssm_train_launches["flash_attention_bwd"],
                      "lm_train_dp_fp32_check":
                      fp32_dp_launches["flash_attention_bwd"],
                      "lm_train_tp_fp32_check":
                      fp32_tp_launches["flash_attention_bwd"],
-                     "lm_train_bf16": train_launches["flash_attention_bwd"]})]
+                     "lm_train_bf16": train_launches["flash_attention_bwd"]}),
+         "other_shapes": {"zamba2_train": {
+             "launches": ssm_train_launches["flash_attention_bwd"],
+             **{k: bwd_stacks["zamba2"][k] for k in (
+                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")}}}}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -103,9 +103,13 @@ def make_train_step(cfg: ModelConfig, device=None,
     (when ``compress_grads`` and ``opt.ef`` is set), and applies one
     ``adamw.apply``; ``metrics`` holds the loss's parts, ``loss`` and
     ``gnorm``. It returns new tensors and leaves ``params`` and ``opt`` as
-    they are. A leaf the loss does not reach raises (every leaf of a dense
-    or MoE decoder gets a gradient). ``p_shapes`` and ``opt_shapes`` are
-    meta-device tensors.
+    they are. A leaf the loss does not reach raises (every leaf of every
+    stack gets a gradient). ``p_shapes`` and ``opt_shapes`` are
+    meta-device tensors. Every config trains, as the reference's
+    ``make_train_step`` takes ``value_and_grad`` of any model's loss:
+    the dense, MoE and VLM decoders, zamba2 and xLSTM (their scans in
+    checkpointed chunks, ``models/ssm.py``) and whisper (its batch holds
+    ``frames`` beside the tokens).
 
     ``device`` is where it runs: None or a device, that one device (None:
     the card, raising without one; the step follows its inputs, and the
@@ -118,20 +122,12 @@ def make_train_step(cfg: ModelConfig, device=None,
     axis, tensor-parallel within each data shard
     (``tensor_parallel.make_train_step``): ``params`` and ``opt`` are then
     trees of ``ShardedTensor`` placed by ``train_specs``, and so are the
-    ones it returns. zamba2, xLSTM and the encoder-decoder raise
-    ``NotImplementedError``: they serve, and their training waits for
-    ROADMAP A8.7 (zamba2, xLSTM) and A8.8 (whisper). A VLM's ``patches``,
-    inputs and not parameters, go through the step as the tokens do."""
+    ones it returns; zamba2, xLSTM and the encoder-decoder raise
+    ``NotImplementedError`` there (ROADMAP A8.5c). A VLM's ``patches`` and
+    whisper's ``frames``, inputs and not parameters, go through the step
+    as the tokens do."""
     if isinstance(device, Mesh):
         _refuse_model_axis(cfg, device, serve=False)
-    if cfg.block in ("mamba2", "xlstm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves the {cfg.block} stack but does not "
-            "train it yet (ROADMAP A8.7)")
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves the encoder-decoder stack but does "
-            "not train it yet (ROADMAP A8.8)")
     apply = _optimizer(compress_grads)
     if isinstance(device, Mesh) and TP.model_size(device) > 1:
         model = build(cfg, TP.groups(device)[0].devices[0])

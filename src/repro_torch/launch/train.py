@@ -21,11 +21,15 @@ committed checkpoint in ``--ckpt-dir`` onto this run's mesh, whatever the
 mesh that saved it, and the token pipeline is counter-based, so the
 resumed run sees the batches an uninterrupted run would.
 ``--compress-grads`` sends the gradient through the int8 round trip with
-error feedback. Dense and MoE archs train (``--arch mixtral-8x7b --smoke
---devices cpu``; MoE routes each data shard's tokens alone). zamba2,
-xLSTM and whisper serve (``launch.steps.make_serve_steps``) but do not
-train yet (ROADMAP A8.7, A8.8), nor run on a model axis larger than 1
-(A8.5c): these raise ``NotImplementedError``.
+error feedback. Dense, MoE, zamba2 and xLSTM archs train (``--arch
+mixtral-8x7b --smoke --devices cpu``; MoE routes each data shard's tokens
+alone; ``--arch zamba2-7b`` or ``--arch xlstm-125m`` run their scans in
+checkpointed chunks); zamba2, xLSTM and whisper on a model axis larger
+than 1 raise ``NotImplementedError`` (ROADMAP A8.5c). whisper trains
+through ``launch.steps.make_train_step`` on batches that hold its
+``frames``; the token pipeline gives none, so ``--arch whisper-medium``
+raises ``ValueError`` naming them (the reference's CLI fails on the same
+missing input).
 """
 from __future__ import annotations
 
@@ -69,6 +73,12 @@ def main(argv=None) -> None:
     if args.device is not None:
         devices = [args.device]
     cfg = (SMOKE if args.smoke else ARCHS)[args.arch]
+    if cfg.enc_dec:
+        raise ValueError(
+            f"{cfg.name} trains on 'frames' [B, {cfg.n_frames}, "
+            f"{cfg.d_model}] beside its tokens; the token pipeline gives "
+            "tokens and labels only (train it through "
+            "launch.steps.make_train_step with a batch that holds frames)")
     mesh = make_host_mesh(args.model_parallel, devices)
     print(f"arch={cfg.name} mesh={dict(mesh.shape)} "
           f"devices={[str(d) for d in mesh.devices.flat]}")

@@ -21,10 +21,10 @@ recurrent states (fp32) beside zamba2's shared-attention K/V, as the
 reference's ``make_cache`` lays them out; ``prefill`` writes every leaf.
 An encoder-decoder cache also holds the encoder's output ``enc_out``,
 which ``prefill`` writes and every decode step's cross-attention reads.
-``loss`` is the reference's, and differentiable: its attention runs
-``FlashAttention`` under grad, and a MoE stack adds its auxiliary loss.
-(zamba2, xLSTM and whisper take the loss's value; ``launch.steps`` does
-not train them yet.)
+``loss`` is the reference's, and differentiable for every stack: its
+attention runs ``FlashAttention`` under grad, its layers and scans run
+checkpointed (``transformer.py``, ``ssm.py``), and a MoE stack adds its
+auxiliary loss.
 
 The stubbed frontends are the reference's: a VLM batch's ``patches``
 ``[B, P, d]`` (precomputed patch embeddings) go before the token

@@ -18,7 +18,14 @@ What differs from the reference:
   in place, ``h.mul_(decay).addcmul_(b, x)`` and one contraction: three
   kernels a step, which read and write the state about three times
   rather than five. With grad enabled they run out of place, as autograd
-  needs.
+  needs, in chunks of ``SCAN_CHUNK`` steps, each under
+  ``torch.utils.checkpoint`` (non-reentrant) from its start state: the
+  forward keeps one state a chunk (S / ``SCAN_CHUNK`` of them) and the
+  chunk's outputs, and the backward recomputes one chunk's steps at a
+  time, so a layer's backward holds one chunk's states, not S of them
+  (the reference's scan is rematerialised by its layer's ``_remat``
+  alone). The chunks nest inside the layer's own checkpoint
+  (``models/transformer.py``); the last chunk takes what is left of S.
 * ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus`` is
   (``F.softplus`` switches to ``x`` past a threshold of 20), computed in
   the dtype the reference computes it in: mLSTM's input gate in the
@@ -31,15 +38,36 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import _dtype, dense_init, rmsnorm, rmsnorm_init
+
+# sequence steps a checkpointed chunk of a scan runs under grad
+SCAN_CHUNK = 128
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` in x's dtype."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
                                           device=x.device))
+
+
+def _scan(steps, state, seqs):
+    """``steps(state, *seqs) -> (state, ys)`` over the sequence axis (1) of
+    ``seqs``. With grad disabled, in one call; with grad enabled, in
+    chunks of ``SCAN_CHUNK`` steps, each under the non-reentrant
+    ``checkpoint`` from the state the chunk before it returned, the ys
+    joined along axis 1."""
+    if not torch.is_grad_enabled():
+        return steps(state, *seqs)
+    S, ys = seqs[0].shape[1], []
+    for i in range(0, S, SCAN_CHUNK):
+        state, y = checkpoint(steps, state,
+                              *(s[:, i:i + SCAN_CHUNK] for s in seqs),
+                              use_reentrant=False)
+        ys.append(y)
+    return state, torch.cat(ys, 1)
 
 
 # ---------------------------------------------------------------- mamba2 ----
@@ -60,21 +88,11 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     }
 
 
-def _mamba2_scan(xh, Bm, Cm, dtv, A, h0):
-    """Sequential SSD recurrence. xh: [B,S,H,P]; Bm/Cm: [B,S,N]; dtv:
-    [B,S,H]; h0: [B,H,N,P] fp32 or None (zeros). Returns (the final state
-    [B,H,N,P], a view of the scan's own; y [B,S,H,P]).
-
-    The scan keeps the state as [B,N,H,P], so that y_t = C_t h_t is one
-    ``bmm`` of [B,1,N] by [B,N,H*P]: a step is three kernels (decay,
-    outer-product add, contraction), the first two in place with grad
-    disabled."""
-    B, S, H, P = xh.shape
-    N = Bm.shape[-1]
-    decay = torch.exp(-torch.exp(A)[None, None, :] * _softplus(dtv))
-    h = torch.zeros((B, N, H, P), dtype=torch.float32, device=xh.device)
-    if h0 is not None:
-        h.copy_(h0.transpose(1, 2))
+def _mamba2_steps(h, decay, Bm, xh, Cm):
+    """The SSD recurrence over the steps of its inputs from h [B,N,H,P]
+    fp32 (the scan's layout): decay [B,s,H], Bm/Cm [B,s,N], xh [B,s,H,P].
+    Returns (h, y [B,s,H*P]); with grad disabled h is updated in place."""
+    B, N, H, P = h.shape
     inplace = not torch.is_grad_enabled()
     steps = zip(decay[:, :, None, :, None].unbind(1),    # [B,1,H,1]
                 Bm[:, :, :, None, None].unbind(1),       # [B,N,1,1]
@@ -87,7 +105,27 @@ def _mamba2_scan(xh, Bm, Cm, dtv, A, h0):
         else:
             h = h * dc + b_t * x_t
         ys.append(torch.bmm(c_t, h.view(B, N, H * P)))   # [B,1,H*P]
-    return h.transpose(1, 2), torch.stack(ys, 1).view(B, S, H, P)
+    return h, torch.cat(ys, 1)
+
+
+def _mamba2_scan(xh, Bm, Cm, dtv, A, h0):
+    """Sequential SSD recurrence. xh: [B,S,H,P]; Bm/Cm: [B,S,N]; dtv:
+    [B,S,H]; h0: [B,H,N,P] fp32 or None (zeros). Returns (the final state
+    [B,H,N,P], a view of the scan's own; y [B,S,H,P]).
+
+    The scan keeps the state as [B,N,H,P], so that y_t = C_t h_t is one
+    ``bmm`` of [B,1,N] by [B,N,H*P]: a step is three kernels (decay,
+    outer-product add, contraction), the first two in place with grad
+    disabled; with grad enabled ``_scan`` runs it in checkpointed
+    chunks."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    decay = torch.exp(-torch.exp(A)[None, None, :] * _softplus(dtv))
+    h = torch.zeros((B, N, H, P), dtype=torch.float32, device=xh.device)
+    if h0 is not None:
+        h.copy_(h0.transpose(1, 2))
+    h, y = _scan(_mamba2_steps, h, (decay, Bm, xh, Cm))
+    return h.transpose(1, 2), y.view(B, S, H, P)
 
 
 def mamba2_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -125,6 +163,26 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     }
 
 
+def _mlstm_steps(Cn, fg, ik, v1, q):
+    """The mLSTM recurrence over the steps of its inputs from ``[C | n]``
+    [B,H,dh,dh+1] fp32: fg [B,s,H], ik = i k [B,s,H,dh], v1 = [v | 1]
+    [B,s,H,dh+1], q [B,s,H,dh]. Returns (Cn, q [C | n] [B,s,H,dh+1]);
+    with grad disabled Cn is updated in place."""
+    inplace = not torch.is_grad_enabled()
+    steps = zip(fg[..., None, None].unbind(1),              # [B,H,1,1]
+                ik[..., None].unbind(1),                    # [B,H,dh,1]
+                v1[:, :, :, None].unbind(1),                # [B,H,1,dh+1]
+                q.transpose(0, 1).contiguous()[:, :, :, None])  # [B,H,1,dh]
+    outs = []
+    for f_t, ik_t, v_t, q_t in steps:
+        if inplace:
+            Cn.mul_(f_t).addcmul_(ik_t, v_t)
+        else:
+            Cn = f_t * Cn + ik_t * v_t
+        outs.append(torch.matmul(q_t, Cn))                  # [B,H,1,dh+1]
+    return Cn, torch.stack(outs, 1)[:, :, :, 0]
+
+
 def mlstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               state: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
     """Matrix-memory LSTM. state = (C [B,H,dh,dh], n [B,H,dh]), fp32."""
@@ -145,19 +203,7 @@ def mlstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         Cn[..., :dh].copy_(state[0])
         Cn[..., dh].copy_(state[1])
     v1 = torch.cat([v, v.new_ones((B, S, H, 1))], -1)      # [B,S,H,dh+1]
-    inplace = not torch.is_grad_enabled()
-    steps = zip(fg[..., None, None].unbind(1),              # [B,H,1,1]
-                (ig[..., None] * k)[..., None].unbind(1),    # [B,H,dh,1]
-                v1[:, :, :, None].unbind(1),                # [B,H,1,dh+1]
-                q.transpose(0, 1).contiguous()[:, :, :, None])  # [B,H,1,dh]
-    outs = []
-    for f_t, ik_t, v_t, q_t in steps:
-        if inplace:
-            Cn.mul_(f_t).addcmul_(ik_t, v_t)
-        else:
-            Cn = f_t * Cn + ik_t * v_t
-        outs.append(torch.matmul(q_t, Cn))                  # [B,H,1,dh+1]
-    out = torch.stack(outs, 1)[:, :, :, 0]                  # [B,S,H,dh+1]
+    Cn, out = _scan(_mlstm_steps, Cn, (fg, ig[..., None] * k, v1, q))
     y = out[..., :dh] / out[..., dh:].abs().clamp_min(1.0)
     y = y.reshape(B, S, d).to(x.dtype)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
@@ -175,6 +221,18 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
         "proj": dense_init(gen, d, d, dt, device),
         "norm": rmsnorm_init(d, dt, device),
     }
+
+
+def _slstm_steps(cn, fg, add):
+    """The sLSTM recurrence over the steps of its inputs from ``(c, n)``
+    [B,2,d] fp32, out of place, one kernel a step: (c, n) <- f (c, n) +
+    (i z, i), fg [B,s,d], add [B,s,2,d]. Returns (cn, every step's
+    [B,s,2,d])."""
+    cns = []
+    for f_t, a_t in zip(fg[:, :, None].unbind(1), add.unbind(1)):
+        cn = torch.addcmul(a_t, cn, f_t)
+        cns.append(cn)
+    return cn, torch.stack(cns, 1)
 
 
 def slstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -195,11 +253,7 @@ def slstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         cn[:, 0].copy_(state[0])
         cn[:, 1].copy_(state[1])
     add = torch.stack([ig * z, ig], 2)                      # [B,S,2,d]
-    cns = []
-    for f_t, a_t in zip(fg[:, :, None].unbind(1), add.unbind(1)):
-        cn = torch.addcmul(a_t, cn, f_t)
-        cns.append(cn)
-    cns = torch.stack(cns, 1)                               # [B,S,2,d]
+    cn, cns = _scan(_slstm_steps, cn, (fg, add))            # [B,S,2,d]
     y = (og * cns[:, :, 0] / cns[:, :, 1].clamp_min(1.0)).to(x.dtype)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     return y @ p["proj"], (cn[:, 0], cn[:, 1])

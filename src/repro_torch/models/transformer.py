@@ -12,11 +12,12 @@ and the encoder-decoder stack (``encdec_init``, ``encoder_fwd``,
 leaves; a group of zamba2 or xLSTM (the reference's super-layer) is a
 loop over its inner layers.
 ``_remat``'s counterpart: with grad enabled, ``decoder_fwd``,
-``encoder_fwd`` and ``encdec_fwd`` run each layer under
-``torch.utils.checkpoint`` (non-reentrant), which saves the layer's input
-and recomputes the rest in the backward pass (the reference's
-``REPRO_REMAT=min``; its default policy also saves the matrix products,
-and ``REPRO_REMAT`` has no counterpart).
+``encoder_fwd``, ``encdec_fwd``, ``zamba2_fwd`` and ``xlstm_fwd`` run each
+layer (and zamba2's shared attention) under ``torch.utils.checkpoint``
+(non-reentrant), which saves the layer's input and recomputes the rest in
+the backward pass (the reference's ``REPRO_REMAT=min``; its default
+policy also saves the matrix products, and ``REPRO_REMAT`` has no
+counterpart).
 
 One departure from the reference: ``decoder_prefill``, zamba2's prefill
 and ``encdec_prefill`` fill caches of the length ``Tw`` the caller
@@ -51,8 +52,10 @@ decode keeps ``attention_decode(..., window=ZAMBA_WINDOW)``. The zamba2
 and xLSTM forwards take ``cache=None`` for a full forward, a cache for a
 prefill (from the initial state; every state leaf and K/V slot of the
 cache is written) or, with ``decode=True``, a decode step from the
-cache's state, written back in place. There is no remat: these stacks
-serve but do not train yet.
+cache's state, written back in place. Under grad a full forward runs
+each of their layers, and each group's shared attention, under
+``torch.utils.checkpoint``, and each scan inside a layer in checkpointed
+chunks of its own (``ssm.SCAN_CHUNK``).
 
 ``_stack_init`` allocates each stacked leaf once and fills layer i in
 place as it is drawn, so an init holds the parameters plus one layer (for
@@ -382,15 +385,28 @@ def _mamba_layer_fwd(cfg: ModelConfig, p: Params, x, state):
 
 
 def _mamba_layers(cfg: ModelConfig, stacked: Params, n: int, x, states,
-                  decode: bool):
+                  decode: bool, remat: bool = False):
     """n Mamba layers from stacked ``[n, ...]`` leaves. ``states``, a
     ``[n, B, H, N, P]`` cache leaf or None, receives each layer's final
-    state; a decode step starts from it."""
+    state; a decode step starts from it. With ``remat`` (a full forward
+    under grad) each layer runs under ``torch.utils.checkpoint``."""
     for i, p in enumerate(_unstack(stacked, n)):
+        if remat:
+            x = checkpoint(_mamba_layer_fwd, cfg, p, x, None,
+                           use_reentrant=False)[0]
+            continue
         x, s = _mamba_layer_fwd(cfg, p, x, states[i] if decode else None)
         if states is not None:
             states[i].copy_(s)
     return x
+
+
+def _shared_attention(cfg: ModelConfig, ln: Params, attn: Params, x, pos):
+    """zamba2's shared attention block in a full forward: x plus the
+    windowed attention of its norm."""
+    a, _, _ = L.windowed_attention(attn, cfg, L.rmsnorm(ln, x, cfg.norm_eps),
+                                   pos, ZAMBA_WINDOW)
+    return x + a
 
 
 def zamba2_fwd(cfg: ModelConfig, params: Params, x, pos,
@@ -400,15 +416,24 @@ def zamba2_fwd(cfg: ModelConfig, params: Params, x, pos,
     Hkv, dh]}, or None for a full forward. A prefill (``decode`` False)
     runs from the zero state and writes every leaf of the cache (K/V by
     ``_ring``, all Tw slots); a decode step runs from the cache and
-    updates it in place."""
+    updates it in place. A full forward under grad runs each Mamba layer,
+    and each group's shared attention, under ``torch.utils.checkpoint``
+    (the reference remats each group); the shared attention's leaves
+    then take one gradient a group, summed."""
     inner = cfg.attn_every
     n_super, _ = _groups(cfg, inner)
     S = x.shape[1]
+    remat = cache is None and torch.is_grad_enabled()
     ssm = None if cache is None else cache["ssm"]
     for g, pg in enumerate(_unstack(params["super"], n_super)):
         x = _mamba_layers(cfg, pg, inner, x,
-                          None if ssm is None else ssm[g], decode)
+                          None if ssm is None else ssm[g], decode, remat)
         # shared attention block (weights shared across groups)
+        if remat:
+            x = checkpoint(_shared_attention, cfg, params["shared_ln"],
+                           params["shared_attn"], x, pos,
+                           use_reentrant=False)
+            continue
         hn = L.rmsnorm(params["shared_ln"], x, cfg.norm_eps)
         if decode:
             a, _, _ = L.attention_decode(params["shared_attn"], cfg, hn,
@@ -426,7 +451,7 @@ def zamba2_fwd(cfg: ModelConfig, params: Params, x, pos,
         nt = params["tail"]["ln1"]["scale"].shape[0]
         x = _mamba_layers(cfg, params["tail"], nt, x,
                           None if cache is None else cache["tail_ssm"],
-                          decode)
+                          decode, remat)
     return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
 
 
@@ -455,23 +480,36 @@ def _xl_layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
+def _xl_layer_fwd(cfg: ModelConfig, fwd, p: Params, x, state):
+    """An mLSTM or sLSTM layer (``fwd``) with its residual -> (x, the
+    final state)."""
+    y, state = fwd(p["core"], cfg, L.rmsnorm(p["ln"], x, cfg.norm_eps),
+                   state)
+    return x + y, state
+
+
 def xlstm_fwd(cfg: ModelConfig, params: Params, x, pos,
               cache: Optional[Dict] = None, decode: bool = False):
     """Returns the normed hidden states. ``cache``: {"mC": [n_super, inner,
     B,H,dh,dh], "mn": [n_super, inner, B,H,dh], "sc"/"sn": [n_super, B,
     d]}, or None for a full forward; a prefill writes the final states
     into it, a decode step starts from them and updates them in place.
-    ``pos`` is unused: these layers have no positions."""
+    ``pos`` is unused: these layers have no positions. A full forward
+    under grad runs each layer under ``torch.utils.checkpoint``."""
     inner = cfg.slstm_every - 1
     n_super, _ = _groups(cfg, cfg.slstm_every)
+    remat = cache is None and torch.is_grad_enabled()
 
     def run(fwd, p, h, keys, idx):
+        if remat:
+            return checkpoint(_xl_layer_fwd, cfg, fwd, p, h, None,
+                              use_reentrant=False)[0]
         s0 = tuple(cache[k][idx] for k in keys) if decode else None
-        y, s = fwd(p["core"], cfg, L.rmsnorm(p["ln"], h, cfg.norm_eps), s0)
+        h, s = _xl_layer_fwd(cfg, fwd, p, h, s0)
         if cache is not None:
             for k, v in zip(keys, s):
                 cache[k][idx].copy_(v)
-        return h + y
+        return h
 
     for g, pg in enumerate(_unstack(params["super"], n_super)):
         for i, p in enumerate(_unstack(pg["m"], inner)):

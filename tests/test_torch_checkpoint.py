@@ -2,6 +2,8 @@
 the CPU: the reference's own tests (``tests/test_runtime.py``) on the
 port, checkpoints across the two packages bit for bit, and the CLI
 interrupted and resumed against an uninterrupted run."""
+from unittest import mock
+
 import jax
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from repro_torch.configs import SMOKE
 from repro_torch.convert import opt_state_to_numpy
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.launch import train
+from repro_torch.models import ssm as SSM
 from repro_torch.models.model import build
 from repro_torch.optim import adamw
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -185,13 +188,13 @@ CLI = ["--smoke", "--seq", "32", "--batch", "4", "--ckpt-every", "3",
        "--device", "cpu"]
 
 
-def test_train_cli_resumes_exactly(tmp_path, capsys):
+def _resumes_exactly(tmp_path, capsys, cli):
     """``--steps 6`` in one run against ``--steps 3`` then ``--steps 6``
     from its checkpoint: the step-6 checkpoints are equal bit for bit."""
-    train.main([*CLI, "--steps", "6", "--ckpt-dir", str(tmp_path / "a")])
-    train.main([*CLI, "--steps", "3", "--ckpt-dir", str(tmp_path / "b")])
+    train.main([*cli, "--steps", "6", "--ckpt-dir", str(tmp_path / "a")])
+    train.main([*cli, "--steps", "3", "--ckpt-dir", str(tmp_path / "b")])
     assert CheckpointManager(tmp_path / "b").latest_step() == 3
-    train.main([*CLI, "--steps", "6", "--ckpt-dir", str(tmp_path / "b")])
+    train.main([*cli, "--steps", "6", "--ckpt-dir", str(tmp_path / "b")])
     assert "resumed from step 3" in capsys.readouterr().out
     (sa, a), (sb, b) = (CheckpointManager(tmp_path / d).restore()
                         for d in ("a", "b"))
@@ -201,10 +204,29 @@ def test_train_cli_resumes_exactly(tmp_path, capsys):
         assert np.array_equal(bits(a[k]), bits(b[k])), k
 
 
+def test_train_cli_resumes_exactly(tmp_path, capsys):
+    _resumes_exactly(tmp_path, capsys, CLI)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_train_cli_resumes_exactly_on_the_ssm_stacks(tmp_path, capsys, arch):
+    """The same for the recurrent stacks' SMOKE configs, their scans in
+    checkpointed chunks (``SCAN_CHUNK`` patched to 5 of the 32 steps)."""
+    with mock.patch.object(SSM, "SCAN_CHUNK", 5):
+        _resumes_exactly(tmp_path, capsys, [*CLI, "--arch", arch])
+    ckpt = CheckpointManager(tmp_path / "a").restore()[1]
+    assert any(k.startswith("params/super/") for k in ckpt)
+
+
 def test_train_cli_refuses_what_it_cannot_run(tmp_path):
     with pytest.raises(ValueError, match="does not divide"):
         train.main([*CLI, "--model-parallel", "2", "--ckpt-dir",
                     str(tmp_path)])
-    with pytest.raises(NotImplementedError):
-        train.main([*CLI, "--arch", "zamba2-7b", "--ckpt-dir",
+    one = CLI[:CLI.index("--device")]
+    with pytest.raises(NotImplementedError, match="A8.5c"):
+        train.main([*one, "--arch", "zamba2-7b", "--model-parallel", "2",
+                    "--devices", "cpu,cpu", "--ckpt-dir", str(tmp_path)])
+    # the token pipeline gives whisper no frames
+    with pytest.raises(ValueError, match="'frames'"):
+        train.main([*CLI, "--arch", "whisper-medium", "--ckpt-dir",
                     str(tmp_path)])

@@ -358,7 +358,7 @@ def test_vlm_train_step_with_patches_matches_reference_gradients():
 def test_whisper_loss_backward_reaches_every_leaf():
     """Under grad (each layer of both stacks checkpointed) the loss's
     backward gives every parameter leaf a finite gradient. (Held against
-    ``jax.value_and_grad`` by ROADMAP A8.8, which trains whisper.)"""
+    ``jax.value_and_grad`` by ``tests/test_torch_train_stacks.py``.)"""
     c = case(WHISPER)
     leaves = jax.tree.map(lambda p: p.detach().clone().requires_grad_(),
                           c.params)
@@ -525,8 +525,3 @@ def test_prefill_refuses_a_cache_of_another_frame_count():
     cache["enc_out"] = cache["enc_out"][:, :-1]
     with pytest.raises(ValueError, match="enc_out"):
         c.model.prefill(c.params, c.tbatch(c.tokens), cache)
-
-
-def test_make_train_step_refuses_whisper():
-    with pytest.raises(NotImplementedError, match="A8.8"):
-        make_train_step(SMOKE[WHISPER], device="cpu")

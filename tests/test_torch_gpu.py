@@ -872,6 +872,111 @@ def test_lm_train_step_on_card_gives_every_leaf_a_gradient(cuda):
             b.abs().max())
 
 
+def _train_batch(cfg, rng, B=2, S=100):
+    """Tokens and labels (and whisper's frames, x0.02) from a numpy
+    seed, on the CPU."""
+    from repro_torch.launch.profile_serve import frontend_inputs
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+             for k in ("tokens", "labels")}
+    batch.update({k: torch.from_numpy(v) for k, v in
+                  frontend_inputs(cfg, B, rng).items()})
+    return batch
+
+
+def _attention_layers(cfg) -> int:
+    """Flash calls a forward pass: zamba2's one a group, whisper's one a
+    layer of each stack, none for xLSTM."""
+    if cfg.block == "mamba2":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.block == "xlstm":
+        return 0
+    return cfg.n_layers + cfg.n_enc_layers
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "zamba2-7b",
+                                  "xlstm-125m"])
+def test_stack_train_step_on_card_matches_cpu(cuda, name):
+    """The SMOKE configs of the three stacks that are not plain decoders
+    in float32, one ``make_train_step`` step on the card (each layer and
+    zamba2's shared attention checkpointed, the scans in checkpointed
+    chunks): two ``flash_attention_simt`` launches an attention call (the
+    forward and its recompute) and one ``flash_attention_bwd``, none for
+    xLSTM; every leaf's gradient finite and nonzero; the loss and norm
+    within 1e-4 of the same step on the CPU and every gradient leaf
+    within 1e-4 of that leaf's max there."""
+    from unittest import mock
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SMOKE[name].scaled(dtype="float32")
+    batch = _train_batch(cfg, np.random.default_rng(2))
+    n = _attention_layers(cfg)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, step, _, _ = steps.make_train_step(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        grads, apply = [], adamw.apply
+
+        def spy(p, g, o, **kw):
+            grads.append(g)
+            return apply(p, g, o, **kw)
+
+        fa.reset_counts()
+        with mock.patch.object(steps.adamw, "apply", spy):
+            _, _, metrics = step(params, adamw.init(params),
+                                 {k: t.to(dev) for k, t in batch.items()})
+        want = {"flash_attention_sm90": 0, "flash_attention_simt": 0,
+                "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0}
+        if dev is cuda:
+            want.update(flash_attention_simt=2 * n, flash_attention_bwd=n)
+        assert fa.COUNTS == want
+        for g in adamw.leaves(grads[0]):
+            assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+        outs.append((metrics, grads[0]))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = outs
+    for key in ("loss", "gnorm"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    for a, b in zip(adamw.leaves(g_gpu), adamw.leaves(g_cpu)):
+        assert a.shape == b.shape
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
+def test_whisper_bf16_train_step_runs_the_sm90_pair(cuda):
+    """whisper-medium's SMOKE config in bf16 at dh 64 (the full config's):
+    each layer of both stacks on ``flash_attention_sm90`` twice (the
+    encoder's not causal) and on ``flash_attention_bwd_sm90`` once, never
+    the 3xTF32 kernels; every leaf's gradient finite and nonzero."""
+    from unittest import mock
+    from repro_torch.configs import SMOKE
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    cfg = SMOKE["whisper-medium"].scaled(dtype="bfloat16", d_head=64)
+    batch = {k: t.to(cuda) for k, t in
+             _train_batch(cfg, np.random.default_rng(3)).items()}
+    model, step, _, _ = steps.make_train_step(cfg, device=cuda)
+    params = model.init(torch.Generator().manual_seed(0))
+    grads, apply = [], adamw.apply
+
+    def spy(p, g, o, **kw):
+        grads.append(g)
+        return apply(p, g, o, **kw)
+
+    fa.reset_counts()
+    with mock.patch.object(steps.adamw, "apply", spy):
+        step(params, adamw.init(params), batch)
+    n = _attention_layers(cfg)
+    assert fa.COUNTS == {"flash_attention_sm90": 2 * n,
+                         "flash_attention_simt": 0, "flash_attention_bwd": 0,
+                         "flash_attention_bwd_sm90": n}
+    for g in adamw.leaves(grads[0]):
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+
+
 def _serve(device, plan=None):
     """Eight mixed mc+bc small requests at 5x5 through ``SimServer`` on
     ``device``; seed 13 poisoned by ``plan`` bisects its batch into odd

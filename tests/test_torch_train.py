@@ -44,9 +44,6 @@ from repro_torch.optim import adamw
 # the dense decoder-only configs; qwen2-vl-72b on its text path (M-RoPE)
 DENSE = ("qwen3-0.6b", "qwen3-1.7b", "starcoder2-3b", "qwen1.5-110b",
          "qwen2-vl-72b")
-# not trained by the port yet (the MoE configs train since MoE was
-# ported: tests/test_torch_moe.py)
-NOT_DENSE = ("zamba2-7b", "xlstm-125m", "whisper-medium")
 B, S = 2, 16
 
 
@@ -307,9 +304,3 @@ def test_abstract_params_and_input_specs_match_reference(case):
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in ref.items()} \
             == {k: (s, str(d).replace("torch.", ""))
                 for k, (s, d) in got.items()}
-
-
-@pytest.mark.parametrize("name", NOT_DENSE)
-def test_non_dense_archs_raise(name):
-    with pytest.raises(NotImplementedError):
-        make_train_step(SMOKE[name], device="cpu")
