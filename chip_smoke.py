@@ -2,6 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --phases lm_tp_stacks,lm_serve_seq
+                                     # the build, then those LM phases
+                                     # and the ones they read (LM_NEEDS)
 
 Builds every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc -c``
 per source, all in parallel, linked into one library) and holds each
@@ -125,6 +128,21 @@ launch counts set to 0 just before and read just after:
   tokens a shard each (4 x 28 launches a prefill) and 32 greedy steps,
   in float32 at two layers over two shards the logits and greedy tokens
   of the one-device serve;
+* tensor parallelism on mesh (1, 4) of the card: ``lm_train_tp``
+  (qwen3-0.6b trained, 4 query and 2 KV heads a shard), ``lm_serve_tp``
+  (deepseek-moe-16b served expert-parallel, with the share of MoE routes
+  it picks otherwise than ``lm_serve_moe``'s prefill and its logits with
+  those routes forced), ``lm_tp_stacks`` (zamba2-7b at 9 layers and
+  xlstm-125m whole on 4 x 512 tokens, whisper-medium whole on 4 x 224
+  over 1500 frames, each trained a warm-up and a timed step and served a
+  prefill and 8 greedy steps, each shard on its heads or channels, the
+  flash launches counted; float32 train and serve checks, the
+  one-device and the tensor-parallel run each against the same
+  function evaluated in float64, and the float64 runs against each
+  other at the CPU tests' tolerances) and ``lm_serve_seq`` (qwen3-0.6b served under
+  ``REPRO_KV_SHARD=seq``: each shard every KV head of a quarter of the
+  slots, the decode's partial softmaxes joined on shard 0; float32 at
+  two layers with every cache block checked);
 
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
@@ -154,6 +172,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import multiprocessing as mp
 import os
 import re
@@ -1475,8 +1494,23 @@ def _start(extra, S):
                 else 0)
 
 
+def _spy_routes(MOE, out):
+    """A patch of ``MOE.route`` appending each route it gives to
+    ``out`` (on the card, no sync)."""
+    from unittest import mock
+    inner = MOE.route
+
+    def spy(*a, **kw):
+        r = inner(*a, **kw)
+        out.append(r)
+        return r
+
+    return mock.patch.object(MOE, "route", spy)
+
+
 def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
-           MOE=None, repeats=3, S=LM_PROMPT, extra=None, keep=None):
+           MOE=None, repeats=3, S=LM_PROMPT, extra=None, keep=None,
+           routes=None):
     """``cfg`` in its bf16 through ``make_serve_steps`` on the card:
     parameters from a ``torch.Generator`` seeded ``seed`` (the init's peak
     bytes), LM_BATCH prompts of S tokens from a numpy seed (after a VLM's
@@ -1487,7 +1521,9 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     ({kernel: launches}) and nothing else; then ``repeats`` synced
     prefills and the decode loop again, timed; with ``MOE`` a last
     prefill recording each layer's dropped share; with a list ``keep``
-    the counted prefill's logits appended to it (on the host). Returns
+    the counted prefill's logits appended to it (on the host), with a
+    list ``routes`` each of its MoE layers' route (``_spy_routes``).
+    Returns
     (the prompts, the numbers). Peak bytes are ``max_memory_allocated``,
     with what was allocated before the init (``base_bytes``) beside
     them."""
@@ -1512,7 +1548,9 @@ def _serve(torch, fa, kv, steps, cfg, seed, n_decode, ctx, want,
     fa.reset_counts()
     kv.reset_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, batch, cache)
+    with (contextlib.nullcontext() if routes is None
+          else _spy_routes(MOE, routes)):
+        logits, cache = prefill_step(params, batch, cache)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     out = [tok]
     for i in range(n_decode):
@@ -1630,15 +1668,16 @@ def _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens, ctx,
             "fp32_first_decode_vs_full_forward_max_abs_err": err_b}
 
 
-def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS):
+def phase_lm_serve(torch, fa, kv, flash_ref, steps, L, ARCHS, keep=None):
     """qwen3-0.6b at full width through ``make_serve_steps`` (``_serve``:
     one prefill, one ``flash_attention_sm90`` launch a layer, and LM_DECODE
     greedy steps in bf16; prefill and decode tokens/s), then
-    ``_fp32_checks`` at all 28 layers. Returns the two kernels' launches
-    on their paths."""
+    ``_fp32_checks`` at all 28 layers. With a list ``keep``, the prefill's
+    logits are appended to it. Returns the two kernels' launches on their
+    paths."""
     cfg = ARCHS[LM_ARCH]
     tokens, res = _serve(torch, fa, kv, steps, cfg, 0, LM_DECODE, LM_CTX,
-                         {"flash_attention_sm90": cfg.n_layers})
+                         {"flash_attention_sm90": cfg.n_layers}, keep=keep)
     checks = _fp32_checks(torch, fa, flash_ref, steps, L, cfg, tokens,
                           LM_CTX)
     launches = res["launches_per_run"]["flash_attention_sm90"]
@@ -1739,7 +1778,7 @@ def _index_vs_onehot(torch, steps, MOE, cfg, tokens) -> dict:
 
 
 def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
-                       keep=None):
+                       keep=None, routes=None):
     """MoE serving through ``make_serve_steps`` on the card:
     deepseek-moe-16b at full width and depth (``_serve``: one prefill, one
     ``flash_attention_sm90`` launch a layer, MOE_DECODE greedy steps,
@@ -1751,12 +1790,13 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
     mixtral-8x7b at full width and MIXTRAL_LAYERS of its 32 layers (what
     one card holds), whose windowed prefill launches no flash kernel, and
     MIXTRAL_DECODE steps. With a list ``keep``, deepseek's prefill logits
-    are appended to it. Returns the two flash kernels' launches."""
+    are appended to it, with a list ``routes`` each of its layers' route
+    in that prefill. Returns the two flash kernels' launches."""
     cfg = ARCHS[MOE_ARCH]
     tokens, deepseek = _serve(torch, fa, kv, steps, cfg, MOE_SEED,
                               MOE_DECODE, MOE_CTX,
                               {"flash_attention_sm90": cfg.n_layers}, MOE,
-                              keep=keep)
+                              keep=keep, routes=routes)
     onehot = _index_vs_onehot(torch, steps, MOE, cfg.scaled(
         n_layers=MOE_CHECK_LAYERS), tokens)
     cfg2 = cfg.scaled(n_layers=MOE_CHECK_LAYERS)
@@ -2894,8 +2934,39 @@ def phase_lm_train_tp(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
     return launches, want32
 
 
+def _route_flips(torch, MOE, prefill, pr, tokens, cache, one_routes,
+                 moe_logits) -> dict:
+    """The routes a tensor-parallel prefill picks against the one-device
+    prefill's (``one_routes``, on the same prompts and params): each
+    layer's share of (token, k) routes that differ (``MOE.route_flips``);
+    then the prefill again with every layer's route forced to the
+    one-device one, and its logits' max difference from the one-device
+    logits ``moe_logits``."""
+    from unittest import mock
+    tp_routes = []
+    with _spy_routes(MOE, tp_routes):
+        prefill(pr, {"tokens": tokens}, cache)
+    if len(tp_routes) != len(one_routes):
+        raise AssertionError(f"route flips: {len(tp_routes)} routes vs "
+                             f"{len(one_routes)}")
+    pairs = one_routes[0].gate_idx.numel()
+    share = [MOE.route_flips(a, b) / pairs
+             for a, b in zip(tp_routes, one_routes)]
+    forced = iter(one_routes)
+    with mock.patch.object(MOE, "route", lambda *a, **kw: next(forced)):
+        lf, _ = prefill(pr, {"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    return {"pairs_a_layer": pairs, "flipped_share_by_layer": share,
+            "flipped_share": sum(share) / len(share),
+            "first_layer_with_a_flip": next(
+                (i for i, x in enumerate(share) if x > 0), None),
+            "forced_routes_logits_max_abs_diff": float(
+                (lf.float().cpu() - moe_logits).abs().max())}
+
+
 def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
-                      moe_logits, place=one_card):
+                      moe_logits, MOE=None, moe_routes=None,
+                      place=one_card):
     """deepseek-moe-16b at full width and depth served expert-parallel
     over TP_SHARDS model shards (mesh (1, TP_SHARDS); 16 experts, 4 query
     and 4 KV heads, a quarter of the vocab, the shared experts' hidden and
@@ -2908,8 +2979,11 @@ def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
     ``lm_serve_moe``'s (``moe_logits``). In float32 at CHECK_LAYERS layers
     on the same mesh, CHECK_B x CHECK_S tokens: the prefill's logits
     within 1e-4 of the one-device serve's and LM_GREEDY_CHECK greedy
-    tokens equal. Returns the bf16 run's ``flash_attention_sm90`` launches
-    and the float32 prefill's ``flash_attention_simt`` launches."""
+    tokens equal. Given ``lm_serve_moe``'s routes (``moe_routes``), the
+    share of routes the tensor-parallel prefill picks otherwise, and its
+    logits with the one-device routes forced (``_route_flips``). Returns
+    the bf16 run's ``flash_attention_sm90`` launches and the float32
+    prefill's ``flash_attention_simt`` launches."""
     cfg = ARCHS[MOE_ARCH]
     M = TP_SHARDS
     devices = place(M)
@@ -2971,6 +3045,8 @@ def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
 
     _, decode_s = _synced(torch, loop)
     peak = _peak(torch, devices)
+    flips = None if moe_routes is None else _route_flips(
+        torch, MOE, prefill, pr, tokens, cache, moe_routes, moe_logits)
     del pr, cache, logits
     torch.cuda.empty_cache()
 
@@ -3028,10 +3104,641 @@ def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
           "bf16_logits_vs_lm_serve_moe": {
               "max_abs_diff": vs_one, "max_abs_one_device": vs_one_scale,
               "rows_with_the_same_argmax": argmax_equal},
+          "route_flips_vs_lm_serve_moe": flips,
           "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
                          "S": CHECK_S, "mesh": dict(mesh.shape),
                          "flash_attention_simt_launches": launches32,
                          "logits_max_abs_err": err,
+                         "greedy_tokens_equal": LM_GREEDY_CHECK}})
+    return launches, launches32
+
+
+STACKS_S = 512             # lm_tp_stacks' zamba2 and xLSTM tokens a row
+STACKS_DECODE = 8          # its greedy steps a model
+SEQ_DECODE = 8             # lm_serve_seq's greedy steps
+
+
+def _kernels(**launches) -> dict:
+    """Each flash kernel's launches: those named, 0 for the rest."""
+    return {"flash_attention_sm90": 0, "flash_attention_simt": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
+            **launches}
+
+
+def _tp_greedy(torch, prefill, decode, params, batch, cache, n, start):
+    """The prefill's logits and ``n`` greedy tokens after them."""
+    logits, cache = prefill(params, batch, cache)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    out = [tok]
+    for i in range(n - 1):
+        tok, cache = decode(params, tok, cache, start + i)
+        out.append(tok)
+    return logits, torch.cat(out, 1)
+
+
+def _tp_train_reckoning(adamw, p_specs, p_shapes, M) -> dict:
+    """``_train_reckoning`` over M model shards: the leaves the guard
+    keeps whole once a shard more (``_whole_extra``)."""
+    n = sum(t.numel() for t in adamw.leaves(p_shapes))
+    p = sum(t.numel() * t.element_size() for t in adamw.leaves(p_shapes))
+    extra_n, extra_b = _whole_extra(p_specs, p_shapes, M)
+    out = {"params": p + extra_b, "grads": p + extra_b,
+           "adam_m_and_v": 8 * (n + extra_n),
+           "new_params_and_moments": p + extra_b + 8 * (n + extra_n)}
+    out["total"] = sum(out.values())
+    return out
+
+
+FP32_GRAD_VS_F64 = 1e-2    # a float32 gradient leaf from float64's, of its max
+FP32_LOGITS_VS_F64 = 1e-3  # float32 logits from float64's, of their max
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    b = b.to(a.device)
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def _f64_tree(torch, tree):
+    """``tree`` (params or a batch) with every float leaf in float64."""
+    if isinstance(tree, dict):
+        return {k: _f64_tree(torch, v) for k, v in tree.items()}
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def _tp_fp32_train(torch, fa, kv, steps, adamw, SH, TP, cfg32, mesh, batch,
+                   want_one, want_tp, tag) -> dict:
+    """``cfg32`` (float32) trained one step over ``mesh`` against one
+    device on the same params (seed 1) and ``batch``, with the float64
+    evaluation of the same function as the yardstick
+    (``models/float64.in_float64``: every float32 of the model code in
+    float64, attention on its plain version, no kernel launched):
+
+    * float64: the tensor-parallel loss and gradients (``TP.shard_grads``)
+      against one device's, at the CPU tests' tolerances: the loss within
+      rtol 1e-5, gnorm 1e-4, every gradient leaf within 1e-4 of its max.
+      This holds the sharded math at full width.
+    * float32, counted (``want_one``, ``want_tp`` flash launches): the
+      one-device gradients and the tensor-parallel step's (joined from the
+      blocks AdamW was handed) each within FP32_GRAD_VS_F64 of a leaf's
+      max of the float64 gradients, gnorm likewise; the loss within rtol
+      1e-5 of one device's, the params after the step within 1e-6 of
+      ``adamw.apply`` of its gradients, the replicas bit-equal. (At full
+      width the recurrent stacks amplify float32's rounding to 1e-3 of a
+      leaf's max, so two float32 runs cannot meet 1e-4 of each other;
+      each is held to float64 instead.)
+
+    The gradients wait on the host, and each tree is freed as soon as it
+    is used, so that zamba2's 9 layers fit."""
+    from unittest import mock
+    from repro_torch.models.float64 import in_float64
+    from repro_torch.models.model import build
+    dev = mesh.devices.flat[0]
+    m32, _, s32, _ = steps.make_train_step(cfg32, dev)
+    p0 = m32.init(torch.Generator(device=dev).manual_seed(1))
+    loss1, g1 = _counted(fa, kv, lambda: _loss_grads(
+        torch, adamw, m32, p0, batch), want_one, f"{tag} one device")
+
+    def norm(leaves):
+        return math.sqrt(sum(float(x.double().square().sum())
+                             for x in leaves))
+
+    gn1 = norm(adamw.leaves(g1))
+    g1 = adamw.tree_map(lambda g: g.cpu(), g1)
+
+    cfg64 = cfg32.scaled(dtype="float64")
+    m64, b64 = build(cfg64, dev), _f64_tree(torch, batch)
+    with in_float64():
+        p64 = _f64_tree(torch, p0)
+        loss64, g64 = _counted(fa, kv, lambda: _loss_grads(
+            torch, adamw, m64, p64, b64), _kernels(), f"{tag} float64")
+        gn64 = norm(adamw.leaves(g64))
+        g64 = adamw.tree_map(lambda g: g.cpu(), g64)
+        P64 = _place_consuming(SH, p64, SH.to_named(mesh, SH.param_specs(
+            cfg64, mesh, m64.abstract_params())))
+        _, losses, _, gr = _counted(fa, kv, lambda: TP.shard_grads(
+            m64.loss_tp, mesh, P64, b64), _kernels(), f"{tag} float64 tp")
+        row = TP.grid(mesh)[0]
+        gt64 = TP.assemble(P64, dict(zip(row, gr[0])))
+        del P64, gr
+        loss_err64 = abs(float(losses[0].detach()) - loss64) / abs(loss64)
+        gnorm_err64 = abs(norm(t.gather() for t in SH.tree_leaves(gt64))
+                          - gn64) / gn64
+        grad_err64 = max(_rel(t.gather(), w) for t, w in zip(
+            SH.tree_leaves(gt64), adamw.leaves(g64)))
+        del gt64, losses
+    torch.cuda.empty_cache()
+    one_err = max(_rel(g.to(dev), w) for g, w in zip(adamw.leaves(g1),
+                                                     adamw.leaves(g64)))
+    _, tp32, s32, _ = steps.make_train_step(cfg32, mesh)
+    ps32, os32 = steps.train_specs(cfg32, mesh, s32)
+    O32 = SH.shard_tree(adamw.init(p0), SH.to_named(mesh, os32))
+    P32 = _place_consuming(SH, p0, SH.to_named(mesh, ps32))
+    del p0
+    torch.cuda.empty_cache()
+    seen, apply = [], adamw.apply
+
+    def spy(p, g, o, **kw):
+        seen.append(g)
+        return apply(p, g, o, **kw)
+
+    with mock.patch.object(adamw, "apply", spy):
+        pd, od, md = _counted(fa, kv, lambda: tp32(P32, O32, batch),
+                              want_tp, f"{tag} tensor-parallel")
+    differ = _blocks_differ(torch, SH, pd) + _blocks_differ(torch, SH, od)
+    del O32, od
+    flat = [p for row in TP.grid(mesh) for p in row]
+    gd = TP.assemble(P32, dict(zip(flat, seen)))
+    del seen
+    tp_err = vs_one = param_err = 0.0
+    gnorm = md["gnorm"]
+    for g_t, g_one, g_64, p_old, p_new in zip(
+            SH.tree_leaves(gd), adamw.leaves(g1), adamw.leaves(g64),
+            SH.tree_leaves(P32), SH.tree_leaves(pd)):
+        g = g_t.gather()
+        tp_err = max(tp_err, _rel(g.double(), g_64))
+        vs_one = max(vs_one, _rel(g, g_one))
+        old = p_old.gather()
+        want, _, _ = apply({"x": old}, {"x": g}, adamw.init({"x": old}),
+                           gnorm=gnorm.to(old.device))
+        param_err = max(param_err, float(
+            (p_new.gather() - want["x"]).abs().max()))
+        del g, old, want
+    loss_err = abs(float(md["loss"]) - loss1) / abs(loss1)
+    gnorm_one = abs(gn1 - gn64) / gn64
+    gnorm_tp = abs(float(gnorm) - gn64) / gn64
+    del P32, pd, gd, g1, g64
+    torch.cuda.empty_cache()
+    if (not loss_err64 <= 1e-5 or not gnorm_err64 <= 1e-4
+            or not grad_err64 <= 1e-4):
+        raise AssertionError(
+            f"{tag} float64 tensor-parallel gradients != one device's: "
+            f"loss {loss_err64}, gnorm {gnorm_err64}, gradients "
+            f"{grad_err64} of a leaf's max")
+    if (not loss_err <= 1e-5 or not max(one_err, tp_err) <= FP32_GRAD_VS_F64
+            or not max(gnorm_one, gnorm_tp) <= FP32_GRAD_VS_F64
+            or not param_err <= 1e-6 or differ):
+        raise AssertionError(
+            f"{tag} float32 step off: loss {loss_err} from one device's; "
+            f"gradients {one_err} (one device) and {tp_err} "
+            f"(tensor-parallel) of a leaf's max from float64's, gnorm "
+            f"{gnorm_one} and {gnorm_tp} (bound {FP32_GRAD_VS_F64}); params "
+            f"{param_err}; {differ} replica blocks differ")
+    return {"n_layers": cfg32.n_layers,
+            "float64_tp_vs_one_device": {
+                "loss_rel_err": loss_err64, "gnorm_rel_err": gnorm_err64,
+                "grad_err_over_leaf_max": grad_err64},
+            "float32_vs_float64": {
+                "one_device_grad_err_over_leaf_max": one_err,
+                "tp_grad_err_over_leaf_max": tp_err,
+                "one_device_gnorm_rel_err": gnorm_one,
+                "tp_gnorm_rel_err": gnorm_tp, "bound": FP32_GRAD_VS_F64},
+            "float32_tp_vs_one_device": {
+                "loss_rel_err": loss_err, "grad_err_over_leaf_max": vs_one},
+            "param_max_abs_err_vs_adamw_of_its_grads": param_err,
+            "launches": {"one_device": want_one, "tensor_parallel": want_tp}}
+
+
+def _tp_fp32_serve(torch, fa, kv, steps, adamw, SH, cfg32, mesh, batch,
+                   n_attn, tag) -> dict:
+    """``cfg32`` (float32) served over ``mesh`` against one device on the
+    same params (seed 1) and ``batch``, with the float64 evaluation as
+    the yardstick (``_tp_fp32_train``): in float64 the tensor-parallel
+    prefill's logits within 1e-5 of one device's max and LM_GREEDY_CHECK
+    greedy tokens equal (the CPU tests' tolerance); in float32 the
+    one-device and the tensor-parallel logits each within
+    FP32_LOGITS_VS_F64 of float64's max, and their greedy tokens equal.
+    The float32 tensor-parallel prefill launches ``flash_attention_simt``
+    ``n_attn`` times a model shard; the float64 runs launch nothing."""
+    from repro_torch.models.float64 import in_float64
+    dev = mesh.devices.flat[0]
+    M = mesh.shape["model"]
+    S = batch["tokens"].shape[1]
+    ctx = S + LM_GREEDY_CHECK
+    B = batch["tokens"].shape[0]
+    m1, pre1, dec1 = steps.make_serve_steps(cfg32, dev)
+    p32 = m1.init(torch.Generator(device=dev).manual_seed(1))
+    l1, t1 = _tp_greedy(torch, pre1, dec1, p32, batch, m1.make_cache(B, ctx),
+                        LM_GREEDY_CHECK, S)
+    cfg64 = cfg32.scaled(dtype="float64")
+    b64 = _f64_tree(torch, batch)
+    with in_float64():
+        m64, pre64, dec64 = steps.make_serve_steps(cfg64, dev)
+        p64 = _f64_tree(torch, p32)
+        l64, t64 = _counted(fa, kv, lambda: _tp_greedy(
+            torch, pre64, dec64, p64, b64, m64.make_cache(B, ctx),
+            LM_GREEDY_CHECK, S), _kernels(), f"{tag} float64")
+        _, pre, dec = steps.make_serve_steps(cfg64, mesh)
+        P64 = _place_consuming(SH, p64, SH.to_named(
+            mesh, SH.param_specs(cfg64, mesh, m64.abstract_params())))
+        lt64, tt64 = _counted(fa, kv, lambda: _tp_greedy(
+            torch, pre, dec, P64, b64, steps.shard_cache(
+                cfg64, mesh, m64.make_cache(B, ctx)), LM_GREEDY_CHECK, S),
+            _kernels(), f"{tag} float64 tp")
+        del P64
+    err64 = _rel(lt64, l64)
+    _, pre, dec = steps.make_serve_steps(cfg32, mesh)
+    P = _place_consuming(SH, p32, SH.to_named(
+        mesh, SH.param_specs(cfg32, mesh, m1.abstract_params())))
+    del p32
+    fa.reset_counts()
+    lt, tt = _tp_greedy(torch, pre, dec, P, batch, steps.shard_cache(
+        cfg32, mesh, m1.make_cache(B, ctx)), LM_GREEDY_CHECK, S)
+    launches = dict(fa.COUNTS)
+    one_err, tp_err = _rel(l1.double(), l64), _rel(lt.double(), l64)
+    del P
+    torch.cuda.empty_cache()
+    if (err64 > 1e-5 or not torch.equal(tt64, t64)
+            or max(one_err, tp_err) > FP32_LOGITS_VS_F64
+            or not torch.equal(tt, t1)
+            or launches != _kernels(flash_attention_simt=n_attn * M)):
+        raise AssertionError(
+            f"{tag} tensor-parallel serve off: float64 logits {err64} of "
+            f"one device's max, tokens {tt64.tolist()} vs {t64.tolist()}; "
+            f"float32 logits {one_err} (one device) and {tp_err} "
+            f"(tensor-parallel) of float64's max (bound "
+            f"{FP32_LOGITS_VS_F64}), tokens {tt.tolist()} vs "
+            f"{t1.tolist()}; launches {launches}")
+    return {"n_layers": cfg32.n_layers, "B": B, "S": S,
+            "float64_tp_logits_err_over_max": err64,
+            "float32_one_device_logits_err_over_f64_max": one_err,
+            "float32_tp_logits_err_over_f64_max": tp_err,
+            "greedy_tokens_equal": LM_GREEDY_CHECK, "launches": launches}
+
+
+def _tp_stack(torch, fa, kv, steps, adamw, SH, TP, mesh, devices, cfg, S,
+              batch_at, extra, n_attn, fwd, bwd, tag) -> dict:
+    """``cfg`` (bf16, weights from seed 0) on ``mesh``: the one-device loss
+    of batch 0, then through ``make_train_step(cfg, mesh)`` a warm-up and
+    a timed step (each must launch ``fwd`` 2 x ``n_attn`` and ``bwd``
+    ``n_attn`` times a model shard: each attention's forward and its
+    recompute under the layer's checkpoint, and its backward), the model
+    and data replicas bit-equal after each; then the trained params served
+    through ``make_serve_steps(cfg, mesh)``: a prefill of batch 0's
+    prompts (``n_attn`` ``fwd`` launches a shard) and STACKS_DECODE greedy
+    steps, timed. Returns the numbers."""
+    M = mesh.shape["model"]
+    model, step, p_shapes, _ = steps.make_train_step(cfg, mesh)
+    p_specs, o_specs = steps.train_specs(cfg, mesh, p_shapes)
+    _reset_peak(torch, devices)
+    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
+    batches = [{**batch_at(i), **extra} for i in range(2)]
+    with torch.no_grad():
+        one_loss = float(model.loss(params, batches[0])[0])
+    orr = SH.shard_tree(adamw.init(params), SH.to_named(mesh, o_specs))
+    pr = _place_consuming(SH, params, SH.to_named(mesh, p_specs))
+    del params
+    torch.cuda.empty_cache()
+    place_peak = _peak(torch, devices)
+    _reset_peak(torch, devices)
+    want = _kernels(**({fwd: 2 * n_attn * M, bwd: n_attn * M}
+                       if n_attn else {}))
+    losses, gnorms, step_s, differ, colls = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        with TP.timed_collectives() as coll:
+            pr, orr, metrics = _counted(fa, kv, lambda: step(pr, orr, batch),
+                                        want, f"{tag} train step {i + 1}")
+        _sync_all(torch)
+        step_s.append(time.perf_counter() - t0)
+        colls.append(coll)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+        differ.append(_blocks_differ(torch, SH, pr)
+                      + _blocks_differ(torch, SH, orr))
+    train_peak = _peak(torch, devices)
+    if any(differ):
+        raise AssertionError(f"{tag}: replicas differ ({differ} blocks)")
+    if not all(np.isfinite(losses + gnorms)) or min(gnorms) <= 0:
+        raise AssertionError(f"{tag}: loss {losses}, gnorm {gnorms}")
+    del orr, metrics
+    torch.cuda.empty_cache()
+    _reset_peak(torch, devices)
+    _, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    B = batches[0]["tokens"].shape[0]
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(
+        B, S + STACKS_DECODE))
+    prompt = {k: v for k, v in batches[0].items() if k != "labels"}
+    want_serve = _kernels(**({fwd: n_attn * M} if n_attn else {}))
+
+    def serve():
+        (logits, c), pre_s = _synced(torch, lambda: prefill(pr, prompt,
+                                                            cache))
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+
+        def loop():
+            t = tok
+            for i in range(STACKS_DECODE):
+                t, _ = decode(pr, t, c, S + i)
+            return t
+        last, dec_s = _synced(torch, loop)
+        return logits, last, pre_s, dec_s
+
+    logits, last, prefill_s, decode_s = _counted(fa, kv, serve, want_serve,
+                                                 f"{tag} serve")
+    serve_peak = _peak(torch, devices)
+    if (not bool(torch.isfinite(logits).all())
+            or int(last.min()) < 0 or int(last.max()) >= cfg.vocab):
+        raise AssertionError(f"{tag}: serving gave non-finite logits or "
+                             "bad tokens")
+    del pr, cache, logits
+    torch.cuda.empty_cache()
+    ntok = B * S
+    zero = {"calls": 0, "ms": 0.0}
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype,
+            "params": sum(t.numel() for t in adamw.leaves(p_shapes)),
+            "B": B, "S": S, "tokens_per_step": ntok,
+            "launches_per_step": want,
+            "launches_from_code": {
+                "attention_calls_a_forward_a_shard": n_attn,
+                "train_step": f"{fwd}: 2 x {n_attn} x {M}, "
+                              f"{bwd}: {n_attn} x {M}" if n_attn else "none",
+                "prefill": f"{fwd}: {n_attn} x {M}" if n_attn else "none"},
+            "step_s": step_s, "tokens_per_s": [ntok / t for t in step_s],
+            "loss": losses, "gnorm": gnorms,
+            "one_device_loss_step_1": one_loss,
+            "model_axis_sums_per_step": [c.get("sum", zero) for c in colls],
+            "model_axis_gathers_per_step": [c.get("gather", zero)
+                                            for c in colls],
+            "replica_blocks_differing_per_step": differ,
+            "placement_peak_bytes": place_peak,
+            "train_peak_bytes": train_peak,
+            "memory_reckoning_bytes": _tp_train_reckoning(
+                adamw, p_specs, p_shapes, M),
+            "prefill_launches": want_serve, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": ntok / prefill_s,
+            "decode_steps": STACKS_DECODE, "decode_s": decode_s,
+            "decode_tokens_per_s": B * STACKS_DECODE / decode_s,
+            "serve_peak_bytes": serve_peak}
+
+
+def phase_lm_tp_stacks(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+                       PipelineConfig, SH, TP, make_host_mesh, smi,
+                       profile_serve, place=one_card):
+    """zamba2, xLSTM and whisper tensor-parallel over TP_SHARDS model
+    shards (mesh (1, TP_SHARDS); ``place``: of card 0, or one a card),
+    train and serve, at full width (``_tp_stack``): zamba2-7b at
+    SSM_CHECK_LAYERS of its 81 layers (a group of six with its shared
+    attention, on ``flash_attention_simt`` at dh 112 over 8 of its 32
+    heads a shard, and a tail of three) and xlstm-125m whole (one of its
+    4 heads a shard, no kernel), each on TRAIN_B x STACKS_S tokens (not
+    2048: each shard runs its own scans' host loop, so a step launches
+    about M times the one-device step's kernels at the same tokens);
+    whisper-medium whole on ``lm_train_encdec``'s shape (LM_BATCH x
+    ENCDEC_S tokens over 1500 frames; 4 of its 16 heads a shard, the
+    encoder not causal, both on ``flash_attention_sm90``). Then each in
+    float32 and float64 against one device (``_tp_fp32_train``,
+    ``_tp_fp32_serve``):
+    zamba2 at its SSM_CHECK_LAYERS, xLSTM at one group, whisper at
+    ENCDEC_CHECK_LAYERS + ENCDEC_CHECK_LAYERS, on CHECK_B rows of
+    CHECK_S tokens (whisper's ENCDEC_S over 1500 frames). Returns the
+    bf16 path's launches of each flash kernel, and the float32 checks'."""
+    M = TP_SHARDS
+    devices = place(M)
+    mesh = make_host_mesh(M, devices)
+    z = ARCHS[SSM_ARCH]
+    zcfg = z.scaled(n_layers=SSM_CHECK_LAYERS)
+    xcfg = ARCHS[XLSTM_ARCH]
+    wcfg = ARCHS[ENCDEC_ARCH]
+    frames = _frontend(torch, profile_serve, wcfg, 16)["frames"]
+    cases = (
+        ("zamba2", zcfg, STACKS_S, {}, zcfg.n_layers // zcfg.attn_every,
+         "flash_attention_simt", "flash_attention_bwd",
+         zcfg.scaled(dtype="float32")),
+        ("xlstm", xcfg, STACKS_S, {}, 0, None, None,
+         xcfg.scaled(n_layers=xcfg.slstm_every, dtype="float32")),
+        ("whisper", wcfg, ENCDEC_S, {"frames": frames},
+         wcfg.n_layers + wcfg.n_enc_layers, "flash_attention_sm90",
+         "flash_attention_bwd_sm90",
+         wcfg.scaled(n_layers=ENCDEC_CHECK_LAYERS,
+                     n_enc_layers=ENCDEC_CHECK_LAYERS, dtype="float32")))
+    out, launches, launches32 = {}, _kernels(), _kernels()
+    for tag, cfg, S, extra, n_attn, fwd, bwd, cfg32 in cases:
+        B = LM_BATCH if cfg.enc_dec else TRAIN_B
+        pipe = TokenPipeline(PipelineConfig(cfg.vocab, S, B))
+        res = _tp_stack(torch, fa, kv, steps, adamw, SH, TP, mesh, devices,
+                        cfg, S, lambda i: _batch(torch, pipe, i), extra,
+                        n_attn, fwd, bwd, f"lm_tp_stacks {tag}")
+        for k in launches:
+            launches[k] += 2 * res["launches_per_step"][k] \
+                + res["prefill_launches"][k]
+        S32 = ENCDEC_S if cfg.enc_dec else CHECK_S
+        b32 = _batch(torch, TokenPipeline(PipelineConfig(cfg.vocab, S32,
+                                                         CHECK_B)), 0)
+        if cfg.enc_dec:
+            b32["frames"] = frames[:CHECK_B]
+        n32 = (cfg32.n_layers + cfg32.n_enc_layers if cfg.enc_dec
+               else cfg32.n_layers // max(cfg32.attn_every, 1)
+               if cfg.block == "mamba2" else 0)
+        want_one = _kernels(flash_attention_simt=2 * n32,
+                            flash_attention_bwd=n32)
+        want_tp = _kernels(flash_attention_simt=2 * n32 * M,
+                           flash_attention_bwd=n32 * M)
+        res["fp32_train_check"] = _tp_fp32_train(
+            torch, fa, kv, steps, adamw, SH, TP, cfg32, mesh, b32, want_one,
+            want_tp, f"lm_tp_stacks {tag}")
+        res["fp32_serve_check"] = _tp_fp32_serve(
+            torch, fa, kv, steps, adamw, SH, cfg32, mesh,
+            {k: v for k, v in b32.items() if k != "labels"}, n32,
+            f"lm_tp_stacks {tag}")
+        for k in launches32:
+            launches32[k] += want_one[k] + want_tp[k] + \
+                res["fp32_serve_check"]["launches"][k]
+        out[tag] = res
+    del frames
+    out["zamba2"]["layers_of"] = z.n_layers
+    emit({"phase": "lm_tp_stacks", "card": smi,
+          "call": "repro_torch.launch.steps.make_train_step(cfg, mesh), "
+                  "make_serve_steps(cfg, mesh)",
+          "mesh": dict(mesh.shape), "shards": _shards_on(devices),
+          "cuts": {"zamba2": f"{zcfg.n_layers} of {z.n_layers} layers, "
+                             f"{TRAIN_B} x {STACKS_S} tokens",
+                   "xlstm": f"{TRAIN_B} x {STACKS_S} tokens",
+                   "whisper": "none",
+                   "fp32_checks": f"zamba2 {zcfg.n_layers} layers, xLSTM "
+                                  f"{xcfg.slstm_every}, whisper "
+                                  f"{ENCDEC_CHECK_LAYERS} + "
+                                  f"{ENCDEC_CHECK_LAYERS}; {CHECK_B} x "
+                                  f"{CHECK_S} tokens (whisper "
+                                  f"{CHECK_B} x {ENCDEC_S})"},
+          **out, "launches": launches, "fp32_launches": launches32})
+    return launches, launches32
+
+
+def phase_lm_serve_seq(torch, fa, kv, steps, ARCHS, SH, TP, make_host_mesh,
+                       serve_logits, place=one_card):
+    """qwen3-0.6b at full width served with ``REPRO_KV_SHARD=seq`` (set
+    here and restored on the way out) over TP_SHARDS model shards (mesh
+    (1, TP_SHARDS)): each shard holds every KV head of a quarter of the
+    cache's slots, the prefill's attention runs each shard's query heads
+    on ``flash_attention_sm90`` (a launch a layer a shard), and each
+    decode step joins the shards' partial softmaxes on shard 0
+    (``Group.join``, timed by CUDA events). ``lm_serve``'s params and
+    prompts (seed 0, LM_BATCH x LM_PROMPT), SEQ_DECODE greedy steps; the
+    prefill's bf16 logits beside ``lm_serve``'s (``serve_logits``), and as
+    close to the same weights' float32 one-device prefill as those are
+    (the bf16 rule of ``tests/test_torch_ssm.py``: ``max |seq - f32| <= 2
+    max |one - f32| + 2e-2 max |f32|``). In float32 at CHECK_LAYERS
+    layers on CHECK_B x CHECK_S tokens: logits within 1e-5 of the
+    one-device serve's max, LM_GREEDY_CHECK greedy tokens equal, each
+    cache block its slot range of the one-device cache within 1e-5 of the
+    leaf's max. Returns the bf16 run's ``flash_attention_sm90`` launches
+    and the float32 launches of its checks (``flash_attention_simt``)."""
+    prev = os.environ.get("REPRO_KV_SHARD")
+    os.environ["REPRO_KV_SHARD"] = "seq"
+    try:
+        return _serve_seq(torch, fa, kv, steps, ARCHS, SH, TP,
+                          make_host_mesh, serve_logits, place)
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_KV_SHARD", None)
+        else:
+            os.environ["REPRO_KV_SHARD"] = prev
+
+
+def _serve_seq(torch, fa, kv, steps, ARCHS, SH, TP, make_host_mesh,
+               serve_logits, place):
+    cfg = ARCHS[LM_ARCH]
+    M = TP_SHARDS
+    devices = place(M)
+    mesh = make_host_mesh(M, devices)
+    model, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(devices[0])
+    _reset_peak(torch, devices)
+    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
+    m_f32, pre_f32, _ = steps.make_serve_steps(cfg.scaled(dtype="float32"),
+                                                devices[0])
+    p_f32 = SH.tree_map(lambda t, _: t.float(), params)
+    fa.reset_counts()
+    with torch.inference_mode():
+        ref32 = pre_f32(p_f32, {"tokens": tokens}, m_f32.make_cache(
+            LM_BATCH, LM_PROMPT))[0].float().cpu()
+    ref32_launches = fa.COUNTS["flash_attention_simt"]
+    del p_f32
+    torch.cuda.empty_cache()
+    pr = _place_consuming(SH, params, SH.to_named(
+        mesh, SH.param_specs(cfg, mesh, model.abstract_params())))
+    del params
+    ctx = LM_PROMPT + SEQ_DECODE
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(LM_BATCH, ctx))
+    blk = cache["k"].blocks.flat[0]
+    if (tuple(cache["k"].sharding.spec)[2] != "model"
+            or blk.shape[2] != ctx // M or blk.shape[3] != cfg.n_kv_heads):
+        raise AssertionError(f"lm_serve_seq: cache block {tuple(blk.shape)} "
+                             f"of {cache['k']!r}")
+    shard_bytes = sum(c.blocks.flat[0].numel() * c.blocks.flat[0]
+                      .element_size() for c in (cache["k"], cache["v"]))
+    want = _kernels(flash_attention_sm90=cfg.n_layers * M)
+
+    def run():
+        (logits, c), pre_s = _synced(torch, lambda: prefill(
+            pr, {"tokens": tokens}, cache))
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+
+        def loop():
+            t = tok
+            for i in range(SEQ_DECODE):
+                t, _ = decode(pr, t, c, LM_PROMPT + i)
+            return t
+        with TP.timed_collectives() as coll:
+            last, dec_s = _synced(torch, loop)
+        return logits, last, pre_s, dec_s, coll
+
+    logits, last, prefill_s, decode_s, coll = _counted(
+        fa, kv, run, want, "lm_serve_seq")
+    peak = _peak(torch, devices)
+    if (not bool(torch.isfinite(logits).all())
+            or logits.shape != (LM_BATCH, 1, cfg.vocab)
+            or int(last.min()) < 0 or int(last.max()) >= cfg.vocab):
+        raise AssertionError("lm_serve_seq gave non-finite logits or bad "
+                             "tokens")
+    vs_one = float((logits.float().cpu() - serve_logits).abs().max())
+    scale = float(serve_logits.abs().max())
+    argmax_equal = int((torch.argmax(logits.float().cpu()[:, -1], -1)
+                        == torch.argmax(serve_logits[:, -1], -1)).sum())
+    seq_f32 = float((logits.float().cpu() - ref32).abs().max())
+    one_f32 = float((serve_logits - ref32).abs().max())
+    bound16 = 2 * one_f32 + 2e-2 * float(ref32.abs().max())
+    join = coll.get("join", {"calls": 0, "ms": 0.0})
+    if (join["calls"] != cfg.n_layers * SEQ_DECODE or seq_f32 > bound16
+            or ref32_launches != cfg.n_layers):
+        raise AssertionError(f"lm_serve_seq: {join['calls']} joins, bf16 "
+                             f"logits {seq_f32} from float32's (bound "
+                             f"{bound16}), {ref32_launches} float32 launches")
+    del pr, cache, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    m1, pre1, dec1 = steps.make_serve_steps(cfg32, devices[0])
+    _, pre_tp, dec_tp = steps.make_serve_steps(cfg32, mesh)
+    p32 = m1.init(torch.Generator(device=devices[0]).manual_seed(1))
+    toks32 = {"tokens": torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (CHECK_B, CHECK_S))).to(devices[0])}
+    ctx32 = CHECK_S + LM_GREEDY_CHECK
+    c1 = m1.make_cache(CHECK_B, ctx32)
+    l1, t1 = _tp_greedy(torch, pre1, dec1, p32, toks32, c1, LM_GREEDY_CHECK,
+                        CHECK_S)
+    P32 = SH.shard_tree(p32, SH.to_named(mesh, SH.param_specs(cfg32, mesh,
+                                                              p32)))
+    ct = steps.shard_cache(cfg32, mesh, m1.make_cache(CHECK_B, ctx32))
+    fa.reset_counts()
+    lt, tt = _tp_greedy(torch, pre_tp, dec_tp, P32, toks32, ct,
+                        LM_GREEDY_CHECK, CHECK_S)
+    launches32 = fa.COUNTS["flash_attention_simt"]
+    err = float((lt - l1).abs().max())
+    scale32 = float(l1.abs().max())
+    cache_err = 0.0
+    for k in ("k", "v"):
+        whole = c1[k]
+        for pos in np.ndindex(ct[k].blocks.shape):
+            sl = ct[k].sharding.block(ct[k].shape, pos)
+            cache_err = max(cache_err, float(
+                (ct[k].blocks[pos] - whole[sl]).abs().max())
+                / float(whole.abs().max()))
+    if (err > 1e-5 * scale32 or not torch.equal(tt, t1)
+            or launches32 != CHECK_LAYERS * M or cache_err > 1e-5):
+        raise AssertionError(
+            f"float32 seq-sharded serve != one-device serve: logits {err} "
+            f"of {scale32}, tokens {tt.tolist()} vs {t1.tolist()}, "
+            f"{launches32} flash_attention_simt launches, cache blocks "
+            f"{cache_err} of the leaf's max")
+    del p32, P32, c1, ct
+    torch.cuda.empty_cache()
+    launches = want["flash_attention_sm90"]
+    launches32 += ref32_launches
+    emit({"phase": "lm_serve_seq", "arch": LM_ARCH,
+          "call": f"REPRO_KV_SHARD=seq repro_torch.launch.steps."
+                  f"make_serve_steps(ARCHS['{LM_ARCH}'], make_host_mesh("
+                  f"{M}, {[str(d) for d in devices]}))",
+          "mesh": dict(mesh.shape), "shards": _shards_on(devices),
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "B": LM_BATCH, "S": LM_PROMPT, "ctx": ctx,
+          "cache_block_shape": list(blk.shape),
+          "cache_bytes_a_shard": shard_bytes,
+          "decode_steps": SEQ_DECODE,
+          "flash_attention_sm90_launches_per_prefill": launches,
+          "prefill_s": prefill_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "decode_s": decode_s,
+          "decode_tokens_per_s": LM_BATCH * SEQ_DECODE / decode_s,
+          "join": {**join, "ms_a_step": join["ms"] / SEQ_DECODE},
+          "peak_memory_bytes": peak,
+          "bf16_logits_vs_lm_serve": {
+              "max_abs_diff": vs_one, "max_abs_one_device": scale,
+              "rows_with_the_same_argmax": argmax_equal},
+          "bf16_logits_vs_float32": {
+              "seq_max_abs_diff": seq_f32, "lm_serve_max_abs_diff": one_f32,
+              "bound": bound16,
+              "flash_attention_simt_launches": ref32_launches},
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "ctx": ctx32,
+                         "flash_attention_simt_launches": launches32,
+                         "logits_max_abs_err": err,
+                         "logits_max_abs": scale32,
+                         "cache_block_err_over_leaf_max": cache_err,
                          "greedy_tokens_equal": LM_GREEDY_CHECK}})
     return launches, launches32
 
@@ -3682,7 +4389,93 @@ def kernel_line(name, source, replaces, launches, t, by_path=None):
     return line
 
 
-def main() -> int:
+# The LM phases in the order ``main`` runs them, and what each reads of
+# another's results: ``lm_serve_tp`` is held to ``lm_serve_moe``'s logits
+# and routes, ``lm_serve_seq`` to ``lm_serve``'s logits.
+LM_PHASES = ("lm_serve", "lm_serve_moe", "lm_serve_ssm", "lm_serve_encdec",
+             "lm_serve_vlm", "lm_train", "lm_train_encdec", "lm_train_ssm",
+             "lm_train_dp", "lm_serve_dp", "lm_train_tp", "lm_serve_tp",
+             "lm_tp_stacks", "lm_serve_seq")
+LM_NEEDS = {"lm_serve_tp": ("lm_serve_moe",), "lm_serve_seq": ("lm_serve",)}
+
+
+def lm_phases(m: dict) -> dict:
+    """Each LM phase as a call of no arguments, over ``main``'s modules
+    and device line ``m`` (its ``locals()``); the phases that keep
+    results for a later one share ``keep``."""
+    torch, fa, kv, steps, L, ARCHS = (m[k] for k in (
+        "torch", "fa", "kv", "steps", "L", "ARCHS"))
+    flash_ref, adamw, SH, TP, MOE = (m[k] for k in (
+        "flash_ref", "adamw", "SH", "TP", "MOE"))
+    TokenPipeline, PipelineConfig, mesh = (m[k] for k in (
+        "TokenPipeline", "PipelineConfig", "make_host_mesh"))
+    smi, profile_serve = m["smi"], m["profile_serve"]
+    keep = {"lm": [], "moe": [], "routes": []}
+
+    def serve_tp():
+        out = phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, mesh,
+                                keep["moe"][0], MOE, keep["routes"])
+        keep["routes"].clear()
+        return out
+
+    return {
+        "lm_serve": lambda: phase_lm_serve(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, keep=keep["lm"]),
+        "lm_serve_moe": lambda: phase_lm_serve_moe(
+            torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
+            keep=keep["moe"], routes=keep["routes"]),
+        "lm_serve_ssm": lambda: phase_lm_serve_ssm(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, smi),
+        "lm_serve_encdec": lambda: phase_lm_serve_encdec(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, smi, profile_serve),
+        "lm_serve_vlm": lambda: phase_lm_serve_vlm(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, smi, profile_serve),
+        "lm_train": lambda: phase_lm_train(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, m["CheckpointManager"]),
+        "lm_train_encdec": lambda: phase_lm_train_encdec(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, smi, profile_serve),
+        "lm_train_ssm": lambda: phase_lm_train_ssm(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, smi),
+        "lm_train_dp": lambda: phase_lm_train_dp(
+            torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, SH, m["OV"], mesh),
+        "lm_serve_dp": lambda: phase_lm_serve_dp(
+            torch, fa, kv, steps, ARCHS, SH, mesh),
+        "lm_train_tp": lambda: phase_lm_train_tp(
+            torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, SH, TP, mesh),
+        "lm_serve_tp": serve_tp,
+        "lm_tp_stacks": lambda: phase_lm_tp_stacks(
+            torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, SH, TP, mesh, smi, profile_serve),
+        "lm_serve_seq": lambda: phase_lm_serve_seq(
+            torch, fa, kv, steps, ARCHS, SH, TP, mesh, keep["lm"][0]),
+    }
+
+
+def run_lm_phases(table: dict, names) -> dict:
+    """Runs the phases of ``table`` named in ``names`` and those they need
+    (``LM_NEEDS``), in ``LM_PHASES``' order; returns each one's result."""
+    want = set(names)
+    for name in names:
+        if name not in table:
+            raise ValueError(f"no LM phase {name!r}; the phases: "
+                             f"{', '.join(LM_PHASES)}")
+        want.update(LM_NEEDS.get(name, ()))
+    return {name: table[name]() for name in LM_PHASES if name in want}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated LM phases to run alone (and those "
+                         "they need), after the kernels' build: "
+                         + ", ".join(LM_PHASES))
+    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -3723,6 +4516,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    if phases:
+        smi = phase_device(torch)
+        emit({"phase": "build", "build_s": timed_build(kbuild)[2]})
+        lm = run_lm_phases(lm_phases(locals()), phases)
+        emit({"phase": "done", "phases": list(lm),
+              "seconds": time.perf_counter() - t_start})
+        print(smi)
+        print(json.dumps({"ok": True, "phases": list(lm), "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     workers = max(1, min(len(NAMES), (os.cpu_count() or 2) - 1))
     with cf.ThreadPoolExecutor(1) as nvcc, cf.ProcessPoolExecutor(
             workers, mp_context=mp.get_context("spawn")) as pool:
@@ -3759,37 +4563,22 @@ def main() -> int:
                                            FINISH, s_main, results)
     grid_launches = phase_grid(torch, kv, bsp, GridMachine, FINISH,
                                (("mc", s_main), ("bc", s_bc)))
-    sm90_launches, simt_launches = phase_lm_serve(torch, fa, kv, flash_ref,
-                                                  steps, L, ARCHS)
-    moe_logits = []
-    moe_sm90_launches, moe_simt_launches = phase_lm_serve_moe(
-        torch, fa, kv, flash_ref, steps, L, MOE, ARCHS, keep=moe_logits)
-    ssm_simt_launches, ssm_fp32_launches = phase_lm_serve_ssm(
-        torch, fa, kv, flash_ref, steps, L, ARCHS, smi)
-    encdec_sm90_launches, encdec_fp32_launches = phase_lm_serve_encdec(
-        torch, fa, kv, flash_ref, steps, L, ARCHS, smi, profile_serve)
-    vlm_sm90_launches, vlm_fp32_launches = phase_lm_serve_vlm(
-        torch, fa, kv, flash_ref, steps, L, ARCHS, smi, profile_serve)
-    train_launches, fp32_train_launches = phase_lm_train(
-        torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
-        PipelineConfig, CheckpointManager)
+    lm = run_lm_phases(lm_phases(locals()), LM_PHASES)
+    sm90_launches, simt_launches = lm["lm_serve"]
+    moe_sm90_launches, moe_simt_launches = lm["lm_serve_moe"]
+    ssm_simt_launches, ssm_fp32_launches = lm["lm_serve_ssm"]
+    encdec_sm90_launches, encdec_fp32_launches = lm["lm_serve_encdec"]
+    vlm_sm90_launches, vlm_fp32_launches = lm["lm_serve_vlm"]
+    train_launches, fp32_train_launches = lm["lm_train"]
     encdec_train_launches, fp32_encdec_train_launches = \
-        phase_lm_train_encdec(torch, fa, kv, flash_ref, steps, L, ARCHS,
-                              adamw, TokenPipeline, PipelineConfig, smi,
-                              profile_serve)
-    ssm_train_launches, fp32_ssm_train_launches = phase_lm_train_ssm(
-        torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
-        PipelineConfig, smi)
-    dp_launches, fp32_dp_launches = phase_lm_train_dp(
-        torch, fa, kv, steps, ARCHS, adamw, TokenPipeline, PipelineConfig,
-        SH, OV, make_host_mesh)
-    serve_dp_launches, serve_dp_fp32_launches = phase_lm_serve_dp(
-        torch, fa, kv, steps, ARCHS, SH, make_host_mesh)
-    tp_launches, fp32_tp_launches = phase_lm_train_tp(
-        torch, fa, kv, steps, ARCHS, adamw, TokenPipeline, PipelineConfig,
-        SH, TP, make_host_mesh)
-    serve_tp_launches, serve_tp_fp32_launches = phase_lm_serve_tp(
-        torch, fa, kv, steps, ARCHS, SH, make_host_mesh, moe_logits[0])
+        lm["lm_train_encdec"]
+    ssm_train_launches, fp32_ssm_train_launches = lm["lm_train_ssm"]
+    dp_launches, fp32_dp_launches = lm["lm_train_dp"]
+    serve_dp_launches, serve_dp_fp32_launches = lm["lm_serve_dp"]
+    tp_launches, fp32_tp_launches = lm["lm_train_tp"]
+    serve_tp_launches, serve_tp_fp32_launches = lm["lm_serve_tp"]
+    stacks_launches, stacks_fp32_launches = lm["lm_tp_stacks"]
+    seq_launches, seq_fp32_launches = lm["lm_serve_seq"]
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
@@ -3824,6 +4613,10 @@ def main() -> int:
           "launches_on_fp32_tp_train_check": fp32_tp_launches,
           "sm90_launches_on_bf16_tp_serving_path": serve_tp_launches,
           "simt_launches_on_fp32_tp_serving_check": serve_tp_fp32_launches,
+          "launches_on_bf16_tp_stacks_path": stacks_launches,
+          "launches_on_fp32_tp_stacks_checks": stacks_fp32_launches,
+          "sm90_launches_on_bf16_seq_serving_path": seq_launches,
+          "simt_launches_on_fp32_seq_serving_check": seq_fp32_launches,
           "launches_on_fp32_train_check": fp32_train_launches,
           "launches_on_bf16_train_path": train_launches,
           "launches_on_bf16_dp_train_path": dp_launches,
@@ -3875,7 +4668,10 @@ def main() -> int:
                         "lm_train_dp": dp_launches["flash_attention_sm90"],
                         "lm_serve_dp": serve_dp_launches,
                         "lm_train_tp": tp_launches["flash_attention_sm90"],
-                        "lm_serve_tp": serve_tp_launches}),
+                        "lm_serve_tp": serve_tp_launches,
+                        "lm_tp_stacks":
+                        stacks_launches["flash_attention_sm90"],
+                        "lm_serve_seq": seq_launches}),
          "other_shapes": {
              name: {"launches": n, **{k: row[k] for k in (
                  "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3911,7 +4707,12 @@ def main() -> int:
                         "lm_serve_dp_fp32_check": serve_dp_fp32_launches,
                         "lm_train_tp_fp32_check":
                         fp32_tp_launches["flash_attention_simt"],
-                        "lm_serve_tp_fp32_check": serve_tp_fp32_launches}),
+                        "lm_serve_tp_fp32_check": serve_tp_fp32_launches,
+                        "lm_tp_stacks":
+                        stacks_launches["flash_attention_simt"],
+                        "lm_tp_stacks_fp32_checks":
+                        stacks_fp32_launches["flash_attention_simt"],
+                        "lm_serve_seq_fp32_check": seq_fp32_launches}),
          "case": flash112["case"],
          "fp32": kernel_line("flash_attention_simt",
                              "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3930,7 +4731,9 @@ def main() -> int:
                     "lm_train_encdec":
                     encdec_train_launches["flash_attention_bwd_sm90"],
                     "lm_train_dp": dp_launches["flash_attention_bwd_sm90"],
-                    "lm_train_tp": tp_launches["flash_attention_bwd_sm90"]}),
+                    "lm_train_tp": tp_launches["flash_attention_bwd_sm90"],
+                    "lm_tp_stacks":
+                    stacks_launches["flash_attention_bwd_sm90"]}),
      "other_shapes": {name: {
          "launches": n,
          **{k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
@@ -3960,6 +4763,9 @@ def main() -> int:
                      fp32_dp_launches["flash_attention_bwd"],
                      "lm_train_tp_fp32_check":
                      fp32_tp_launches["flash_attention_bwd"],
+                     "lm_tp_stacks": stacks_launches["flash_attention_bwd"],
+                     "lm_tp_stacks_fp32_checks":
+                     stacks_fp32_launches["flash_attention_bwd"],
                      "lm_train_bf16": train_launches["flash_attention_bwd"]}),
          "other_shapes": {"zamba2_train": {
              "launches": ssm_train_launches["flash_attention_bwd"],

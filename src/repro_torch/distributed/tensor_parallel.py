@@ -16,7 +16,10 @@ of one copy a shard. Two collectives do what GSPMD inserts:
   order on shard 0's device, then copied back to each shard, as
   ``overlap.bucketed_mean`` fixes its order;
 * ``Group.gather``: a column-split activation joined on shard 0's device
-  and copied back.
+  and copied back;
+* ``Group.join``: each shard's partial softmax over its slots of a
+  sequence-split K/V cache (``REPRO_KV_SHARD=seq``) rescaled by the
+  global max and added on shard 0's device, divided, and copied back.
 
 Both go through autograd (cross-device ``.to()`` and ``+``), so the
 backward runs in a fixed order too, and results differ from one device's
@@ -54,10 +57,11 @@ _EVENTS: Optional[List] = None
 
 @contextlib.contextmanager
 def timed_collectives():
-    """Records a CUDA event pair around each ``Group.sum`` and
-    ``Group.gather`` (on the current stream of shard 0's card) while open;
-    yields a dict that holds, once the block exits, the calls and ms of
-    each kind (``{"sum": {"calls": n, "ms": t}, "gather": ...}``)."""
+    """Records a CUDA event pair around each ``Group.sum``,
+    ``Group.gather`` and ``Group.join`` (on the current stream of shard
+    0's card) while open; yields a dict that holds, once the block exits,
+    the calls and ms of each kind (``{"sum": {"calls": n, "ms": t},
+    "gather": ..., "join": ...}``)."""
     global _EVENTS
     prev, _EVENTS = _EVENTS, []
     out: Dict[str, Dict[str, float]] = {}
@@ -87,10 +91,14 @@ def _timed(kind: str, device: torch.device):
 
 
 class Group:
-    """One data shard's model shards: their devices, in model order."""
+    """One data shard's model shards: their devices, in model order, and
+    ``kv_slots``, the K/V ring's whole length where a serve step's cache
+    splits its slots over these shards (``REPRO_KV_SHARD=seq``), else
+    None."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, kv_slots: Optional[int] = None):
         self.devices = [torch.device(d) for d in devices]
+        self.kv_slots = kv_slots
 
     def __len__(self) -> int:
         return len(self.devices)
@@ -125,6 +133,27 @@ class Group:
         with _timed("gather", root):
             whole = torch.cat([p.to(root) for p in parts], dim)
         return self.copy(whole)
+
+    def join(self, parts) -> List[torch.Tensor]:
+        """The softmax-weighted sum from one ``(mx, l, o)`` a shard, each
+        over the shard's keys: ``mx`` the max score (-inf where the shard
+        has no valid key), ``l`` the sum of ``exp(score - mx)`` and ``o``
+        those weights' sum of values (fp32; ``mx`` and ``l`` broadcast
+        against ``o``). On shard 0's device, in shard order: each part
+        rescaled by ``exp(mx - max)`` (0 for a shard with no valid key),
+        added, ``o`` divided by ``l``; copied to every shard."""
+        root = self.devices[0]
+        with _timed("join", root):
+            mxs = torch.stack([p[0].to(root) for p in parts])
+            top = mxs.amax(0)
+            top = torch.where(torch.isfinite(top), top, 0.0)
+            w = torch.exp(mxs - top)              # exp(-inf) = 0
+            l = o = None
+            for ws, (_, ls, os) in zip(w, parts):
+                l = ws * ls.to(root) if l is None else l + ws * ls.to(root)
+                o = ws * os.to(root) if o is None else o + ws * os.to(root)
+            out = o / l
+        return self.copy(out)
 
 
 def model_size(mesh: Mesh) -> int:
@@ -239,6 +268,31 @@ def _compress(g: Group, grads: List[Tree], efs: List[Tree], split: Tree):
     return _per_shard(split, deq, len(g)), _per_shard(split, res, len(g))
 
 
+def shard_grads(loss_fn: Callable, mesh: Mesh, params: Tree, batch: Dict):
+    """Each data shard's loss over its model shards and one backward over
+    all of them: returns (``split``, the tree of which leaves are split on
+    ``model``; each data shard's loss and metrics; ``grads[d][m]``, model
+    shard m's gradient blocks in data shard d, every whole leaf's the sum
+    of the shards' contributions, ``sum_whole``). ``loss_fn``, ``params``
+    and ``batch`` are ``make_train_step``'s."""
+    split = SH.tree_map(lambda t, _: split_on_model(t), params)
+    gs = groups(mesh)
+    losses, metrics, leaves = [], [], []
+    for g, row, part in zip(gs, grid(mesh), split_batch(
+            batch, [g.devices[0] for g in gs])):
+        lv = [SH.tree_map(lambda t, _, p=p: t.blocks[p].detach()
+                          .requires_grad_(), params) for p in row]
+        loss, m = loss_fn(g, lv, part)
+        losses.append(loss)
+        metrics.append(m)
+        leaves.append(lv)
+    torch.autograd.backward(losses)
+    grads = [sum_whole(g, [SH.tree_map(lambda t, _: t.grad, lv)
+                           for lv in lvs], split)
+             for g, lvs in zip(gs, leaves)]
+    return split, losses, metrics, grads
+
+
 def make_train_step(loss_fn: Callable, mesh: Mesh,
                     compress_grads: bool = False,
                     bucket_bytes: int = 32 << 20):
@@ -256,21 +310,8 @@ def make_train_step(loss_fn: Callable, mesh: Mesh,
     D = len(gs)
 
     def step(params: Tree, opt: adamw.AdamWState, batch: Dict):
-        split = SH.tree_map(lambda t, _: split_on_model(t), params)
-        losses, metrics, leaves = [], [], []
-        for g, row, part in zip(gs, rows, split_batch(
-                batch, [g.devices[0] for g in gs])):
-            lv = [SH.tree_map(lambda t, _, p=p: t.blocks[p].detach()
-                              .requires_grad_(), params) for p in row]
-            loss, m = loss_fn(g, lv, part)
-            losses.append(loss)
-            metrics.append(m)
-            leaves.append(lv)
-        torch.autograd.backward(losses)
-        grads = [sum_whole(g, [SH.tree_map(lambda t, _: t.grad, lv)
-                               for lv in lvs], split)
-                 for g, lvs in zip(gs, leaves)]
-        del leaves
+        split, losses, metrics, grads = shard_grads(loss_fn, mesh, params,
+                                                    batch)
         if D > 1:
             if step.buckets is None:
                 step.buckets = make_buckets(grads[0][0], bucket_bytes)

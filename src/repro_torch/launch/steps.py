@@ -15,13 +15,14 @@ own device (a device may repeat):
   cache. Params and optimizer state are replicated, one tree a data shard
   (``sharding.replicate``).
 * a ``model`` axis larger than 1: tensor parallelism over it
-  (``distributed.tensor_parallel``) within each data shard, for the
-  attention decoders (dense, VLM, MoE). Params and optimizer state are
-  trees of ``ShardedTensor`` placed by ``param_specs`` (``shard_tree``;
-  ``train_specs`` gives the reference's ``p_specs`` and ``o_specs``), and
-  the steps return them placed the same way. zamba2, xLSTM and whisper,
-  and ``REPRO_KV_SHARD=seq`` (the reference's sequence-sharded cache),
-  raise ``NotImplementedError`` on such a mesh: ROADMAP A8.5c.
+  (``distributed.tensor_parallel``) within each data shard, for every
+  stack (dense, VLM, MoE, zamba2, xLSTM, whisper). Params and optimizer
+  state are trees of ``ShardedTensor`` placed by ``param_specs``
+  (``shard_tree``; ``train_specs`` gives the reference's ``p_specs`` and
+  ``o_specs``), and the steps return them placed the same way. Under
+  ``REPRO_KV_SHARD=seq`` (the reference's sequence-sharded cache) each
+  model shard holds every KV head of a share of the cache's slots, and a
+  decode step joins the shards' partial softmaxes (``Group.join``).
 
 The cache is a tree of ``ShardedTensor`` placed by ``cache_specs``
 (``shard_cache``). A MoE layer routes each data shard's tokens alone: the
@@ -32,7 +33,6 @@ update the cache in place, as the reference's donated cache lets XLA do.
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Dict, Tuple
 
 import torch
@@ -50,23 +50,6 @@ from ..optim import adamw
 def _data_axes(mesh: Mesh):
     with mesh_context(mesh):
         return batch_axes()
-
-
-def _refuse_model_axis(cfg: ModelConfig, mesh: Mesh, serve: bool) -> None:
-    """Raises ``NotImplementedError`` for what a ``model`` axis larger
-    than 1 does not run yet (ROADMAP A8.5c)."""
-    if TP.model_size(mesh) == 1:
-        return
-    if cfg.block != "attn" or cfg.enc_dec:
-        stack = "encoder-decoder" if cfg.enc_dec else cfg.block
-        raise NotImplementedError(
-            f"{cfg.name}: the {stack} stack on a model axis of "
-            f"{TP.model_size(mesh)} is ROADMAP A8.5c; the port runs it on "
-            "model axes of 1")
-    if serve and os.environ.get("REPRO_KV_SHARD") == "seq":
-        raise NotImplementedError(
-            "REPRO_KV_SHARD=seq (the cache's sequence on the model axis) is "
-            "ROADMAP A8.5c; unset it to split the cache by KV heads")
 
 
 def train_specs(cfg: ModelConfig, mesh: Mesh, p_shapes,
@@ -122,12 +105,9 @@ def make_train_step(cfg: ModelConfig, device=None,
     axis, tensor-parallel within each data shard
     (``tensor_parallel.make_train_step``): ``params`` and ``opt`` are then
     trees of ``ShardedTensor`` placed by ``train_specs``, and so are the
-    ones it returns; zamba2, xLSTM and the encoder-decoder raise
-    ``NotImplementedError`` there (ROADMAP A8.5c). A VLM's ``patches`` and
+    ones it returns. A VLM's ``patches`` and
     whisper's ``frames``, inputs and not parameters, go through the step
     as the tokens do."""
-    if isinstance(device, Mesh):
-        _refuse_model_axis(cfg, device, serve=False)
     apply = _optimizer(compress_grads)
     if isinstance(device, Mesh) and TP.model_size(device) > 1:
         model = build(cfg, TP.groups(device)[0].devices[0])
@@ -192,7 +172,6 @@ def make_serve_steps(cfg: ModelConfig, device=None):
     rows of the batch on its block of the cache, and the whole logits and
     the tokens come back on shard 0's device in row order."""
     if isinstance(device, Mesh) and TP.model_size(device) > 1:
-        _refuse_model_axis(cfg, device, serve=True)
         return _tp_serve_steps(cfg, device)
     if not isinstance(device, Mesh):
         model = build(cfg, resolve_device(device))
@@ -240,7 +219,9 @@ def make_serve_steps(cfg: ModelConfig, device=None):
 
 def _tp_serve_steps(cfg: ModelConfig, mesh: Mesh):
     """The serve steps over ``mesh``'s data shards, each tensor-parallel
-    over its model shards."""
+    over its model shards; where ``cache_specs`` split the K/V cache's
+    slots over the model axis, each shard group is told the ring's whole
+    length (``Group.kv_slots``)."""
     rows, gs = TP.grid(mesh), TP.groups(mesh)
     heads = [g.devices[0] for g in gs]
     model = build(cfg, heads[0])
@@ -248,11 +229,17 @@ def _tp_serve_steps(cfg: ModelConfig, mesh: Mesh):
     def blocks(tree, row):
         return [SH.blocks_at(tree, p) for p in row]
 
+    def group(g, cache):
+        k = cache.get("k")
+        if k is None or tuple(k.sharding.spec)[2] != "model":
+            return g
+        return TP.Group(g.devices, kv_slots=k.shape[2])
+
     @torch.inference_mode()
     def tp_prefill(params, batch: Dict, cache: Any
                    ) -> Tuple[torch.Tensor, Any]:
-        out = [model.prefill_tp(g, blocks(params, row), part,
-                                blocks(cache, row))[0].to(heads[0])
+        out = [model.prefill_tp(group(g, cache), blocks(params, row),
+                                part, blocks(cache, row))[0].to(heads[0])
                for g, row, part in zip(gs, rows, split_batch(batch, heads))]
         return torch.cat(out), cache
 
@@ -262,7 +249,8 @@ def _tp_serve_steps(cfg: ModelConfig, mesh: Mesh):
         out = []
         for g, row, part in zip(gs, rows,
                                 split_batch({"tokens": tokens}, heads)):
-            logits, _ = model.decode_step_tp(g, blocks(params, row),
+            logits, _ = model.decode_step_tp(group(g, cache),
+                                             blocks(params, row),
                                              part["tokens"],
                                              blocks(cache, row), pos)
             out.append(torch.argmax(logits[:, -1], dim=-1).to(

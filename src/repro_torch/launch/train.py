@@ -13,19 +13,20 @@ over them, as the reference builds it from ``jax.devices()`` (a
 the step runs over it (``launch.steps``): data-parallel where the model
 axis is 1 (each data shard its rows of the batch, the bucketed gradient
 sum, AdamW on every replica), and tensor-parallel within each data shard
-where it is larger (params and moments split by ``param_specs``), for the
-attention decoders. Checkpointing and deterministic resume are on:
+where it is larger (params and moments split by ``param_specs``), for
+every stack. Checkpointing and deterministic resume are on:
 checkpoints hold full logical arrays, gathered from the shards (taken
 from replica 0 on a model axis of 1); the run resumes from the latest
 committed checkpoint in ``--ckpt-dir`` onto this run's mesh, whatever the
 mesh that saved it, and the token pipeline is counter-based, so the
 resumed run sees the batches an uninterrupted run would.
 ``--compress-grads`` sends the gradient through the int8 round trip with
-error feedback. Dense, MoE, zamba2 and xLSTM archs train (``--arch
-mixtral-8x7b --smoke --devices cpu``; MoE routes each data shard's tokens
-alone; ``--arch zamba2-7b`` or ``--arch xlstm-125m`` run their scans in
-checkpointed chunks); zamba2, xLSTM and whisper on a model axis larger
-than 1 raise ``NotImplementedError`` (ROADMAP A8.5c). whisper trains
+error feedback. Dense, MoE, zamba2 and xLSTM archs train on any mesh
+(``--arch mixtral-8x7b --smoke --devices cpu``; MoE routes each data
+shard's tokens alone; ``--arch zamba2-7b`` or ``--arch xlstm-125m`` run
+their scans in checkpointed chunks; ``--arch zamba2-7b --smoke
+--model-parallel 2 --devices cpu,cpu,cpu,cpu`` splits its Mamba2 heads
+over two model shards). whisper trains
 through ``launch.steps.make_train_step`` on batches that hold its
 ``frames``; the token pipeline gives none, so ``--arch whisper-medium``
 raises ``ValueError`` naming them (the reference's CLI fails on the same

@@ -25,7 +25,13 @@ What differs from the reference:
   parallelism over the ``model`` axis) do what GSPMD does at its sites:
   ``q`` split by heads, ``k`` and ``v`` gathered whole on every shard
   (``layers.py:169-170`` of the reference), the MLP hidden split
-  (``:236``) and the vocab split (``:258``).
+  (``:236``) and the vocab split (``:258``); ``tp_cross_attention`` is
+  the cross-attention's, ``tp_rmsnorm`` a norm over an axis the shards
+  split (each shard's sum of squares, summed), ``tp_columns`` a shard's
+  columns of a column-split product. Under a sequence-split K/V cache
+  (the reference's ``REPRO_KV_SHARD=seq``) each shard attends every
+  query head to its slots (``seq_partial``) and the shards' partial
+  softmaxes join on shard 0 (``Group.join``, ``seq_attend``).
 * Initializers draw from an explicit ``torch.Generator`` on its own device
   and move the result to ``device``, scaling the fp32 draw in place (one
   fp32 copy of a leaf at a time); on the ``meta`` device they draw
@@ -371,14 +377,55 @@ def _shift(kv, by: int):
     return [i - by for i in kv]
 
 
-def tp_qkv(tp, ps, cfg: ModelConfig, hs, pos) -> List[Tuple]:
-    """Each shard's ``(q, k, v, cols)``: ``k``, ``v`` ``[B, S, Hkv, dh]``,
-    every KV head (gathered where the rules split their columns, which may
-    cut a head), normed and rotated; ``q`` ``[B, S, n, dh]`` the query
-    heads that cover the columns ``cols = (lo, hi, h0)`` its ``wo`` rows
-    take, from head ``h0`` (gathered first where the block cuts a head)."""
+def own_heads(n: int, shards: int, m: int) -> Tuple[int, int]:
+    """The heads ``[h0, h1)`` of ``n`` that shard m of ``shards`` runs: an
+    equal share where they divide (the cache's state then splits on
+    them, ``cache_specs``), else all of them."""
+    if n % shards:
+        return 0, n
+    k = n // shards
+    return m * k, (m + 1) * k
+
+
+def tp_columns(tp, parts, full: int, ranges) -> List[torch.Tensor]:
+    """Each shard's columns ``ranges[m] = (a, b)`` of a product whose
+    last axis, ``full`` wide, the shards hold as ``parts`` (column blocks
+    by the rules, or whole where the guard keeps it whole): the shard's
+    own block where that is its range, else a slice of the whole product
+    (gathered first where it is split)."""
+    n = parts[0].shape[-1]
+    if n < full and all(block_cols(n, full, m) == tuple(r)
+                        for m, r in enumerate(ranges)):
+        return list(parts)
+    whole = list(parts) if n == full else tp.gather(parts)
+    return [_cols(w, a, b) for w, (a, b) in zip(whole, ranges)]
+
+
+def tp_rmsnorm(tp, ps, xs, cols, full: int, eps: float
+               ) -> List[torch.Tensor]:
+    """``rmsnorm`` over a last axis of ``full`` of which shard m holds
+    the columns ``cols[m] = (lo, hi)`` in ``xs[m]`` (with its columns of
+    the whole ``scale``): each shard's fp32 sum of squares, summed across
+    the shards, over ``full``. Where every shard holds every column it is
+    each shard's own ``rmsnorm``."""
+    if xs[0].shape[-1] == full:
+        return [rmsnorm(p, x, eps) for p, x in zip(ps, xs)]
+    xf = [x.float() for x in xs]
+    ss = tp.sum([x.square().sum(-1, keepdim=True) for x in xf])
+    return [(x * torch.rsqrt(s / full + eps)
+             * _cols(p["scale"], lo, hi).float()).to(x0.dtype)
+            for p, x, s, (lo, hi), x0 in zip(ps, xf, ss, cols, xs)]
+
+
+def _tp_split_qkv(tp, cfg: ModelConfig, proj, all_q: bool = False):
+    """From each shard's ``(q, k, v)`` projections (column blocks, or
+    whole where the guard keeps them whole): each shard's ``(q, k, v,
+    cols)``, ``k`` and ``v`` every KV head's columns (gathered where
+    split, which may cut a head), ``q`` the columns of the query heads
+    that cover the columns ``cols = (lo, hi, h0)`` its ``wo`` rows take,
+    from head ``h0`` (gathered first where the block cuts a head; every
+    head from ``h0 = 0`` with ``all_q``)."""
     H, dh = cfg.n_heads, cfg.d_head
-    proj = [_proj(p, cfg, h) for p, h in zip(ps, hs)]
 
     def whole(i: int, full: int):
         parts = [pr[i] for pr in proj]
@@ -388,15 +435,26 @@ def tp_qkv(tp, ps, cfg: ModelConfig, hs, pos) -> List[Tuple]:
     vs = whole(2, cfg.n_kv_heads * dh)
     q_all = None
     out = []
-    for m, (p, pr) in enumerate(zip(ps, proj)):
+    for m, pr in enumerate(proj):
         lo, hi = block_cols(pr[0].shape[-1], H * dh, m)
-        h0, h1 = lo // dh, -(-hi // dh)
+        h0, h1 = (0, H) if all_q else (lo // dh, -(-hi // dh))
         q = pr[0]
-        if lo % dh or hi % dh:
+        if all_q or lo % dh or hi % dh:
             q_all = whole(0, H * dh) if q_all is None else q_all
             q = q_all[m][..., h0 * dh:h1 * dh]
-        out.append(_heads(p, cfg, q, ks[m], vs[m], pos[m]) + ((lo, hi, h0),))
+        out.append((q, ks[m], vs[m], (lo, hi, h0)))
     return out
+
+
+def tp_qkv(tp, ps, cfg: ModelConfig, hs, pos, all_q: bool = False
+           ) -> List[Tuple]:
+    """Each shard's ``(q, k, v, cols)`` (``_tp_split_qkv``) as heads:
+    ``k``, ``v`` ``[B, S, Hkv, dh]``, ``q`` ``[B, S, n, dh]``, normed and
+    rotated."""
+    proj = [_proj(p, cfg, h) for p, h in zip(ps, hs)]
+    return [_heads(p, cfg, q, k, v, pos[m]) + (cols,)
+            for m, (p, (q, k, v, cols)) in enumerate(
+                zip(ps, _tp_split_qkv(tp, cfg, proj, all_q)))]
 
 
 def _tp_out(p: Dict, cfg: ModelConfig, o: torch.Tensor, cols) -> torch.Tensor:
@@ -407,41 +465,130 @@ def _tp_out(p: Dict, cfg: ModelConfig, o: torch.Tensor, cols) -> torch.Tensor:
     return o[..., lo - off:hi - off] @ p["wo"]
 
 
-def tp_attention_fwd(tp, ps, cfg: ModelConfig, hs, pos):
-    """Causal self-attention (training, prefill) of each shard's query
-    heads, on the flash kernel (the masked ``_sdpa`` under a window) ->
-    (outs, kvs, split): each shard's output through its ``wo`` rows,
-    partial sums when ``split`` (``wo`` split by rows) and the whole output
-    otherwise; ``kvs`` each shard's whole ``(k, v)`` for a prefill's
-    cache."""
+def _tp_split(ps, cfg: ModelConfig) -> bool:
+    return ps[0]["wo"].shape[0] < cfg.n_heads * cfg.d_head
+
+
+def tp_attention_fwd(tp, ps, cfg: ModelConfig, hs, pos,
+                     window: Optional[int] = None, causal: bool = True):
+    """Self-attention (training, prefill) of each shard's query heads on
+    the flash kernel, causal or not (the masked ``_sdpa`` under a window)
+    -> (outs, kvs, split): each shard's output through its ``wo`` rows,
+    partial sums when ``split`` (``wo`` split by rows) and the whole
+    output otherwise; ``kvs`` each shard's whole ``(k, v)`` for a
+    prefill's cache. ``window`` is ``windowed_attention``'s: the flash
+    kernel while the sequence fits it; without one ``cfg.swa_window``
+    masks, as in ``attention_fwd``."""
     outs, kvs = [], []
     for p, (q, k, v, cols) in zip(ps, tp_qkv(tp, ps, cfg, hs, pos)):
         kv = kv_heads(cfg, cols[2], cols[2] + q.shape[2])
-        if cfg.swa_window is None:
-            o = flash_sdpa(q, k[:, :, kv], v[:, :, kv])
+        S = q.shape[1]
+        w = cfg.swa_window if window is None else (
+            None if S <= window else window)
+        if w is None:
+            o = flash_sdpa(q, k[:, :, kv], v[:, :, kv], causal)
         else:
-            S = q.shape[1]
-            o = _sdpa(q, k[:, :, kv], v[:, :, kv],
-                      causal_mask(S, S, cfg.swa_window, device=q.device), cfg)
+            mask = causal_mask(S, S, w, device=q.device) if causal else None
+            o = _sdpa(q, k[:, :, kv], v[:, :, kv], mask, cfg)
         outs.append(_tp_out(p, cfg, o, cols))
         kvs.append((k, v))
-    return outs, kvs, ps[0]["wo"].shape[0] < cfg.n_heads * cfg.d_head
+    return outs, kvs, _tp_split(ps, cfg)
 
 
-def tp_attention_decode(tp, ps, cfg: ModelConfig, hs, caches, pos):
-    """One-token decode: each shard writes its cache block's KV heads
-    (``caches[m] = (k, v)``, each ``[B, T, n, dh]``; all heads where the
-    cache is whole) and attends its query heads to them -> (outs,
-    split) as ``tp_attention_fwd``."""
+def tp_cross_attention(tp, ps, cfg: ModelConfig, hs, srcs):
+    """``cross_attention_fwd`` of each shard's query heads to the whole
+    K and V that ``srcs[m]`` (the encoder's output, whole on every shard)
+    projects -> (outs, split) as ``tp_attention_fwd``."""
+    dh = cfg.d_head
+    proj = [(h @ p["wq"], s @ p["wk"], s @ p["wv"])
+            for p, h, s in zip(ps, hs, srcs)]
+    outs = []
+    for p, (q, k, v, cols) in zip(ps, _tp_split_qkv(tp, cfg, proj)):
+        B, S, _ = q.shape
+        F_ = k.shape[1]
+        q = q.reshape(B, S, -1, dh)
+        kv = kv_heads(cfg, cols[2], cols[2] + q.shape[2])
+        o = _sdpa(q, k.reshape(B, F_, -1, dh)[:, :, kv],
+                  v.reshape(B, F_, -1, dh)[:, :, kv], None, cfg)
+        outs.append(_tp_out(p, cfg, o, cols))
+    return outs, _tp_split(ps, cfg)
+
+
+def tp_attention_decode(tp, ps, cfg: ModelConfig, hs, caches, pos,
+                        window: Optional[int] = None):
+    """One-token decode -> (outs, split) as ``tp_attention_fwd``;
+    ``caches[m] = (k, v)`` shard m's cache blocks, each ``[B, T, n, dh]``.
+    Split by KV heads (or whole): each shard writes its block's heads and
+    attends its query heads to them. Split by sequence (``tp.kv_slots``
+    set, ``REPRO_KV_SHARD=seq``): each shard holds every KV head of slots
+    ``[m T, (m + 1) T)`` of a ring of ``tp.kv_slots``; the token's K/V
+    goes to the shard that holds slot ``pos % tp.kv_slots``, every shard
+    attends every query head to its slots (``seq_partial``), the
+    partials join on shard 0 (``Group.join``), and each shard takes its
+    heads' columns."""
+    seq = tp.kv_slots is not None
+    qkv = tp_qkv(tp, ps, cfg, hs, pos, all_q=seq)
+    if seq:
+        os_ = seq_attend(tp, [seq_partial(cfg, q, k, v, ck, cv, pos[m], m,
+                                          tp.kv_slots, window)
+                              for m, ((q, k, v, _), (ck, cv)) in enumerate(
+                                  zip(qkv, caches))], caches[0][1].dtype)
+        return ([_tp_out(p, cfg, o, cols)
+                 for p, (_, _, _, cols), o in zip(ps, qkv, os_)],
+                _tp_split(ps, cfg))
     outs = []
     for m, (p, (q, k, v, cols), (ck, cv)) in enumerate(
-            zip(ps, tp_qkv(tp, ps, cfg, hs, pos), caches)):
+            zip(ps, qkv, caches)):
         c = cache_heads(cfg, ck.shape[2], m)
         kv = _shift(kv_heads(cfg, cols[2], cols[2] + q.shape[2]), c.start)
         o = decode_attend(cfg, q, k[:, :, c], v[:, :, c], ck, cv, pos[m],
-                          kv=kv)
+                          window, kv=kv)
         outs.append(_tp_out(p, cfg, o, cols))
-    return outs, ps[0]["wo"].shape[0] < cfg.n_heads * cfg.d_head
+    return outs, _tp_split(ps, cfg)
+
+
+def seq_partial(cfg: ModelConfig, q, k, v, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, pos: torch.Tensor, m: int,
+                slots: int, window: Optional[int] = None):
+    """Shard m's part of a decode step over a sequence-split cache: its
+    block ``cache_[kv]`` ``[B, T, Hkv, dh]`` holds the global slots
+    ``[m T, (m + 1) T)`` of a ring of ``slots``. Writes the token's
+    ``k``, ``v`` ``[B, 1, Hkv, dh]`` where its slot ``pos % slots`` lies
+    in the block (no write elsewhere, and no sync: the slot is masked),
+    then attends ``q`` ``[B, 1, H, dh]`` (every head) to the block's
+    valid slots by ``decode_attend``'s rule on the global index ->
+    ``(mx, l, o)`` in fp32 for ``Group.join``: the max score ``[B, Hkv,
+    G, 1]`` (-inf where no slot is valid yet), the sum of ``exp(score -
+    mx)`` and the weighted values ``[B, Hkv, G, dh]``."""
+    pos_t = pos[0] if pos.dim() == 3 else pos
+    B, T = cache_k.shape[:2]
+    lo = m * T
+    local = pos_t[0, :1] % slots - lo
+    idx = local.clamp(0, T - 1)
+    mine = (local >= 0) & (local < T)
+    for c, new in ((cache_k, k), (cache_v, v)):
+        c.index_copy_(1, idx, torch.where(mine, new, c.index_select(1, idx)))
+    kj = lo + torch.arange(T, device=q.device)[None, :]
+    w = window if window else cfg.swa_window
+    if w is not None and slots <= w:
+        valid = (kj <= pos_t[:, :1]) | (pos_t[:, :1] >= slots)
+    else:
+        valid = kj <= pos_t[:, :1]
+    H, dh = q.shape[2], q.shape[3]
+    Hkv = cache_k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, dh).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, cache_k.float()) / math.sqrt(dh)
+    s = torch.where(valid[:, None, None, :], s, -math.inf)
+    mx = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0.0))
+    o = torch.einsum("bkgt,btkd->bkgd", p, cache_v.float())
+    return mx, p.sum(-1, keepdim=True), o
+
+
+def seq_attend(tp, parts, dtype) -> List[torch.Tensor]:
+    """``Group.join`` of the shards' ``seq_partial`` -> each shard's
+    ``[B, 1, H * dh]`` in ``dtype``."""
+    return [o.reshape(o.shape[0], 1, -1).to(dtype) for o in tp.join(parts)]
 
 
 def tp_mlp(ps, cfg: ModelConfig, hs, d_ff: Optional[int] = None):

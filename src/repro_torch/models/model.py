@@ -33,8 +33,9 @@ first P positions; a whisper batch's ``frames`` ``[B, n_frames, d]``
 (precomputed frame embeddings) get a sinusoid (``_sinusoid``) and go
 through the encoder.
 ``loss_tp``, ``prefill_tp`` and ``decode_step_tp`` are ``loss``,
-``prefill`` and ``decode_step`` of the attention decoders over one data
-shard's model shards (``distributed/tensor_parallel.py``).
+``prefill`` and ``decode_step`` of every stack over one data shard's
+model shards (``distributed/tensor_parallel.py``), dispatched on the
+stack as those are.
 ``abstract_params`` gives meta-device tensors (the reference's
 ``ShapeDtypeStruct``s) and ``input_specs`` ``(shape, dtype)`` pairs for
 every input.
@@ -236,15 +237,18 @@ class Model:
         return L.unembed(params["embed"], cfg, h).float(), cache
 
     # -------------------------------------------------- tensor parallel ----
-    # The attention decoders over one data shard's model shards: ``tp`` a
+    # Every stack over one data shard's model shards: ``tp`` a
     # ``distributed.tensor_parallel.Group``, ``ps`` each shard's blocks of
     # the parameters (placed by ``sharding.param_specs``), ``caches`` each
-    # shard's blocks of the cache (placed by ``cache_specs``); inputs on
-    # shard 0's device. They compute what ``loss``, ``prefill`` and
-    # ``decode_step`` compute, up to the order of the cross-shard sums.
+    # shard's blocks of the cache (placed by ``cache_specs``), ``slots``
+    # the K/V cache's whole length (a block of a sequence-split cache holds
+    # a share of it); inputs on shard 0's device. They compute what
+    # ``loss``, ``prefill`` and ``decode_step`` compute, up to the order of
+    # the cross-shard sums.
     def _embed_inputs_tp(self, tp, ps, batch: Dict):
-        """Each shard's (x, pos), and the label offset (a VLM's patch
-        count)."""
+        """Each shard's (x, pos), each shard's whole encoder output (a
+        whisper batch's ``frames`` through ``tp_encoder_fwd``; else None)
+        and the label offset (a VLM's patch count)."""
         cfg = self.cfg
         xs = tp.reduce(*L.tp_embed([p["embed"] for p in ps], cfg,
                                    tp.copy(batch["tokens"])))
@@ -253,10 +257,31 @@ class Model:
             offset = batch["patches"].shape[1]
             xs = [torch.cat([batch["patches"].to(x.device, x.dtype), x], 1)
                   for x in xs]
+        encs = None
+        if cfg.enc_dec:
+            frames = [f.to(x.dtype) + _sinusoid(f.shape[1], cfg.d_model,
+                                                x.dtype, x.device)
+                      for f, x in zip(tp.copy(batch["frames"]), xs)]
+            encs = T.tp_encoder_fwd(cfg, tp, ps, frames)
         B, S = xs[0].shape[:2]
         pos = [_positions(B, S, m_rope=cfg.m_rope, device=x.device)
                for x in xs]
-        return xs, pos, offset
+        return xs, pos, encs, offset
+
+    def _trunk_tp(self, tp, ps, xs, pos, caches=None, encs=None):
+        """``_trunk`` over the model shards: (each shard's normed hidden
+        states, the MoE auxiliary loss on shard 0's device); ``caches``
+        each shard's ``(k, v)`` blocks (zamba2's and xLSTM's dicts) of a
+        decode step, updated in place."""
+        cfg = self.cfg
+        if cfg.enc_dec:
+            hs = T.tp_encdec_fwd(cfg, tp, ps, xs, pos, encs, caches)
+        elif cfg.block == "attn":
+            return T.tp_decoder_fwd(cfg, tp, ps, xs, pos, caches)
+        else:
+            hs = _TP_STACK[cfg.block](cfg, tp, ps, xs, pos, caches,
+                                      decode=caches is not None)
+        return hs, torch.zeros((), dtype=torch.float32, device=xs[0].device)
 
     def _vocab_split(self, ps) -> bool:
         e = ps[0]["embed"]
@@ -280,8 +305,8 @@ class Model:
         logsumexp joins each shard's max and sum of exponentials, and the
         gold logit comes from the shard that holds the label."""
         cfg = self.cfg
-        xs, pos, offset = self._embed_inputs_tp(tp, ps, batch)
-        hs, aux = T.tp_decoder_fwd(cfg, tp, ps, xs, pos)
+        xs, pos, encs, offset = self._embed_inputs_tp(tp, ps, batch)
+        hs, aux = self._trunk_tp(tp, ps, xs, pos, encs=encs)
         if offset:
             hs = [h[:, offset:] for h in hs]
         labels = batch["labels"]
@@ -307,23 +332,48 @@ class Model:
 
     def prefill_tp(self, tp, ps, batch: Dict, caches) -> Tuple:
         """``prefill`` over the model shards -> (the whole last-token
-        logits ``[B, 1, V]`` on shard 0's device, caches)."""
-        xs, pos, _ = self._embed_inputs_tp(tp, ps, batch)
-        hs = T.tp_decoder_prefill(self.cfg, tp, ps, xs, pos,
-                                  [(c["k"], c["v"]) for c in caches])
+        logits ``[B, 1, V]`` on shard 0's device, caches). An
+        encoder-decoder's shards each write their block of ``enc_out``
+        (``ValueError`` where the batch's frames do not fit it)."""
+        cfg = self.cfg
+        xs, pos, encs, _ = self._embed_inputs_tp(tp, ps, batch)
+        if cfg.enc_dec:
+            for m, (e, c) in enumerate(zip(encs, caches)):
+                blk = c["enc_out"]
+                lo, hi = L.block_cols(blk.shape[-1], cfg.d_model, m)
+                if e.shape[:-1] != blk.shape[:-1]:
+                    raise ValueError(
+                        f"{cfg.name}: the batch's encoder output "
+                        f"{tuple(e.shape)} does not fit the cache's enc_out "
+                        f"block {tuple(blk.shape)}")
+                blk.copy_(L._cols(e, lo, hi))
+            hs = T.tp_encdec_prefill(cfg, tp, ps, xs, pos, encs,
+                                     [(c["k"], c["v"]) for c in caches])
+        elif cfg.block == "attn":
+            hs = T.tp_decoder_prefill(cfg, tp, ps, xs, pos,
+                                      [(c["k"], c["v"]) for c in caches])
+        else:
+            hs = _TP_STACK[cfg.block](cfg, tp, ps, xs, pos, caches)
         return self._logits_tp(tp, ps, [h[:, -1:] for h in hs]), caches
 
     def decode_step_tp(self, tp, ps, tokens: torch.Tensor, caches,
                        pos_scalar: int) -> Tuple:
         """``decode_step`` over the model shards -> (the whole logits
-        ``[B, 1, V]`` on shard 0's device, caches updated in place)."""
+        ``[B, 1, V]`` on shard 0's device, caches updated in place). An
+        encoder-decoder's ``enc_out`` blocks are gathered once a step."""
         cfg = self.cfg
         xs = tp.reduce(*L.tp_embed([p["embed"] for p in ps], cfg,
                                    tp.copy(tokens)))
         pos = [_decode_pos(tokens.shape[0], pos_scalar, cfg.m_rope,
                            device=x.device) for x in xs]
-        hs, _ = T.tp_decoder_fwd(cfg, tp, ps, xs, pos,
-                                 [(c["k"], c["v"]) for c in caches])
+        encs = None
+        if cfg.enc_dec:
+            blocks = [c["enc_out"] for c in caches]
+            encs = blocks if blocks[0].shape[-1] == cfg.d_model else \
+                tp.gather(blocks)
+        state = [(c["k"], c["v"]) for c in caches] if cfg.block == "attn" \
+            else caches
+        hs, _ = self._trunk_tp(tp, ps, xs, pos, state, encs)
         return self._logits_tp(tp, ps, hs), caches
 
     # ------------------------------------------------------ input specs ----
@@ -382,6 +432,7 @@ _INIT = {"attn": T.decoder_init, "mamba2": T.zamba2_init,
 def _init(cfg: ModelConfig):
     return T.encdec_init if cfg.enc_dec else _INIT[cfg.block]
 _STACK = {"mamba2": T.zamba2_fwd, "xlstm": T.xlstm_fwd}
+_TP_STACK = {"mamba2": T.tp_zamba2_fwd, "xlstm": T.tp_xlstm_fwd}
 
 
 def build(cfg: ModelConfig, device=None) -> Model:

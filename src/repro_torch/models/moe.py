@@ -118,6 +118,14 @@ def route(p: Dict, cfg: ModelConfig, xt: torch.Tensor,
     return Route(gate_vals, gate_idx, slot, slot < C, aux, C)
 
 
+def route_flips(a: Route, b: Route) -> int:
+    """The (token, k) pairs of route ``a`` whose expert is not among the
+    token's top K in route ``b``: the routes two runs pick differently,
+    whatever their order within the top K."""
+    ga, gb = a.gate_idx, b.gate_idx.to(a.gate_idx.device)
+    return int((~(ga[:, :, None] == gb[:, None, :]).any(-1)).sum())
+
+
 def slots(gate_idx: torch.Tensor, E: int) -> torch.Tensor:
     """Each (t, k) pair's count of earlier pairs, in token-major, k-inner
     order, that chose its expert ``gate_idx [T, K]``. A stable sort by

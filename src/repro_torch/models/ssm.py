@@ -26,6 +26,9 @@ What differs from the reference:
   (the reference's scan is rematerialised by its layer's ``_remat``
   alone). The chunks nest inside the layer's own checkpoint
   (``models/transformer.py``); the last chunk takes what is left of S.
+* ``tp_mamba2_fwd``, ``tp_mlstm_fwd`` and ``tp_slstm_fwd`` run a core
+  over a data shard's model shards (the reference leaves that to GSPMD):
+  each shard its heads or channels, with the same steps and scans.
 * ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus`` is
   (``F.softplus`` switches to ``x`` past a threshold of 20), computed in
   the dtype the reference computes it in: mLSTM's input gate in the
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import layers as L
 from .config import ModelConfig
 from .layers import _dtype, dense_init, rmsnorm, rmsnorm_init
 
@@ -257,3 +261,136 @@ def slstm_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     y = (og * cns[:, :, 0] / cns[:, :, 1].clamp_min(1.0)).to(x.dtype)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     return y @ p["proj"], (cn[:, 0], cn[:, 1])
+
+
+# ------------------------------------------------------ tensor parallel ----
+# The cores over a data shard's model shards, as ``layers.py``'s
+# tensor-parallel section lays them out: ``ps`` each shard's blocks of a
+# core's parameters, ``hs`` each shard's copy of the normed input,
+# ``states`` each shard's block of the state (None: from zeros), ``tp``
+# the group. Each shard runs its heads (Mamba2, mLSTM) or channels
+# (sLSTM), ``own_heads``/the output projection's rows say which, with its
+# slice of each leaf kept whole; the norm over every head joins the
+# shards' sums of squares (``tp_rmsnorm``); the output projection, split
+# by rows, gives partial sums. Each returns (outs, states, split).
+def tp_mamba2_fwd(tp, ps, cfg: ModelConfig, hs, states=None):
+    """``mamba2_fwd`` over the model shards. ``in_proj``'s fused ``[z | x
+    | B | C | dt]`` columns are split in blocks that need not fall on a
+    field or a head, so the product is gathered whole (where split) and
+    each shard takes ``z``, ``x`` and ``dt`` of its heads and ``B`` and
+    ``C`` whole; its scan runs those heads, its state ``[B, n, N, P]``
+    is the cache's block of H."""
+    B, S, d = hs[0].shape
+    d_in, P, N = 2 * d, cfg.ssm_headdim, cfg.ssm_state
+    H = d_in // P
+    proj = [h @ p["in_proj"] for p, h in zip(ps, hs)]
+    whole = proj if proj[0].shape[-1] == 2 * d_in + 2 * N + H else \
+        tp.gather(proj)
+    ys, zs, cols, out_states = [], [], [], []
+    for m, (p, w) in enumerate(zip(ps, whole)):
+        h0, h1 = L.own_heads(H, len(ps), m)
+        lo, hi = L.block_cols(p["out_proj"].shape[0], d_in, m)
+        z, xr, Bm, Cm, dtv = torch.split(w, [d_in, d_in, N, N, H], dim=-1)
+        xh = xr[..., h0 * P:h1 * P].reshape(B, S, h1 - h0, P).float()
+        dtv = dtv[..., h0:h1].float() + p["dt_bias"][h0:h1]
+        st, y = _mamba2_scan(xh, Bm.float(), Cm.float(), dtv,
+                             p["A_log"][h0:h1],
+                             None if states is None else states[m])
+        y = y + xh * p["D"][h0:h1][None, None, :, None]
+        y = y.reshape(B, S, -1).to(hs[0].dtype)
+        ys.append(y[..., lo - h0 * P:hi - h0 * P])
+        zs.append(z[..., lo:hi])
+        cols.append((lo, hi))
+        out_states.append(st)
+    ys = L.tp_rmsnorm(tp, [p["norm"] for p in ps], ys, cols, d_in,
+                      cfg.norm_eps)
+    outs = [(y * F.silu(z)) @ p["out_proj"] for p, y, z in zip(ps, ys, zs)]
+    return outs, out_states, ps[0]["out_proj"].shape[0] < d_in
+
+
+def tp_mlstm_fwd(tp, ps, cfg: ModelConfig, hs, states=None):
+    """``mlstm_fwd`` over the model shards: each shard's heads' q, k and v
+    columns (gathered first where a block cuts a head), its heads'
+    columns of the gates ``wi`` and ``wf`` (whole by the guard), its
+    scan, the norm over every head, ``wo``'s rows."""
+    B, S, d = hs[0].shape
+    H = cfg.n_heads
+    dh = d // H
+    M = len(ps)
+    heads = [L.own_heads(H, M, m) for m in range(M)]
+    cols = [(h0 * dh, h1 * dh) for h0, h1 in heads]
+
+    def take(name, full, ranges):
+        return L.tp_columns(tp, [h @ p[name] for p, h in zip(ps, hs)],
+                            full, ranges)
+
+    qs, ks, vs = (take(n, d, cols) for n in ("wq", "wk", "wv"))
+    wis, wfs = take("wi", H, heads), take("wf", H, heads)
+    ys, out_states, ycols = [], [], []
+    for m, (p, (h0, h1)) in enumerate(zip(ps, heads)):
+        n = h1 - h0
+        q = qs[m].reshape(B, S, n, dh).float()
+        k = ks[m].reshape(B, S, n, dh).float() / math.sqrt(dh)
+        v = vs[m].reshape(B, S, n, dh).float()
+        ig = torch.exp(-_softplus(-wis[m])).float()
+        fg = torch.sigmoid(wfs[m].float())
+        Cn = torch.zeros((B, n, dh, dh + 1), dtype=torch.float32,
+                         device=q.device)
+        if states is not None:
+            Cn[..., :dh].copy_(states[m][0])
+            Cn[..., dh].copy_(states[m][1])
+        v1 = torch.cat([v, v.new_ones((B, S, n, 1))], -1)
+        Cn, out = _scan(_mlstm_steps, Cn, (fg, ig[..., None] * k, v1, q))
+        y = out[..., :dh] / out[..., dh:].abs().clamp_min(1.0)
+        y = y.reshape(B, S, n * dh).to(hs[0].dtype)
+        lo, hi = L.block_cols(p["wo"].shape[0], d, m)
+        ys.append(y[..., lo - h0 * dh:hi - h0 * dh])
+        ycols.append((lo, hi))
+        out_states.append((Cn[..., :dh], Cn[..., dh]))
+    ys = L.tp_rmsnorm(tp, [p["norm"] for p in ps], ys, ycols, d,
+                      cfg.norm_eps)
+    return ([y @ p["wo"] for p, y in zip(ps, ys)], out_states,
+            ps[0]["wo"].shape[0] < d)
+
+
+def tp_slstm_fwd(tp, ps, cfg: ModelConfig, hs, states=None):
+    """``slstm_fwd`` over the model shards, each on the channels its
+    ``proj`` rows take (all of them where ``proj`` is whole): ``wz``,
+    ``wi`` and ``wf`` columns (``wi``/``wf`` split only past 512 columns,
+    else whole and cut), the output gate ``x @ wo`` from ``wo``'s rows as
+    partial sums added across the shards before its sigmoid, the
+    recurrence on the shard's channels (its block of the cache's ``(c,
+    n)``), the norm over every channel, ``proj``'s rows."""
+    B, S, d = hs[0].shape
+    cols = [L.block_cols(p["proj"].shape[0], d, m) for m, p in enumerate(ps)]
+
+    def take(name):
+        return L.tp_columns(tp, [h @ p[name] for p, h in zip(ps, hs)], d,
+                            cols)
+
+    zs, wis, wfs = take("wz"), take("wi"), take("wf")
+    og = []
+    for m, (p, h) in enumerate(zip(ps, hs)):
+        lo, hi = L.block_cols(p["wo"].shape[0], d, m)
+        og.append(L._cols(h, lo, hi) @ p["wo"])
+    og = tp.reduce(og, ps[0]["wo"].shape[0] < d)
+    ys, out_states = [], []
+    for m, (lo, hi) in enumerate(cols):
+        z = torch.tanh(zs[m].float())
+        ig = torch.exp(-_softplus(-wis[m].float()))
+        fg = torch.sigmoid(wfs[m].float())
+        o = torch.sigmoid(L._cols(og[m], lo, hi).float())
+        cn = torch.zeros((B, 2, hi - lo), dtype=torch.float32,
+                         device=z.device)
+        if states is None:
+            cn[:, 1] = 1.0
+        else:
+            cn[:, 0].copy_(states[m][0])
+            cn[:, 1].copy_(states[m][1])
+        cn, cns = _scan(_slstm_steps, cn, (fg, torch.stack([ig * z, ig], 2)))
+        ys.append((o * cns[:, :, 0] / cns[:, :, 1].clamp_min(1.0)).to(
+            hs[0].dtype))
+        out_states.append((cn[:, 0], cn[:, 1]))
+    ys = L.tp_rmsnorm(tp, [p["norm"] for p in ps], ys, cols, d, cfg.norm_eps)
+    return ([y @ p["proj"] for p, y in zip(ps, ys)], out_states,
+            ps[0]["proj"].shape[0] < d)

@@ -33,9 +33,13 @@ returns its auxiliary loss, which ``decoder_fwd`` sums over the layers as
 the reference's scan carry does.
 
 ``tp_decoder_fwd`` and ``tp_decoder_prefill`` run the decoder over one
-data shard's model shards (tensor parallelism over the ``model`` axis):
-the same blocks, each shard on its blocks of the parameters, each
-row-parallel product summed across the shards before its residual add.
+data shard's model shards (tensor parallelism over the ``model`` axis),
+and ``tp_zamba2_fwd``, ``tp_xlstm_fwd``, ``tp_encoder_fwd``,
+``tp_encdec_fwd`` and ``tp_encdec_prefill`` the other stacks: the same
+blocks, each shard on its blocks of the parameters, each row-parallel
+product summed across the shards before its residual add. Under grad
+each of their layers runs under the reentrant checkpoint
+(``_tp_checkpoint``), each scan in its chunks inside it.
 
 The encoder's self-attention is ``attention_fwd(..., causal=False)`` with
 no positions (no RoPE), so it runs the flash kernel unmasked; the
@@ -251,9 +255,11 @@ def tp_block_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None):
     return _tp_ffn(cfg, tp, ps, xs)
 
 
-def _tp_layers(cfg: ModelConfig, ps) -> List[List[Params]]:
-    """Layer i's blocks, one a shard, for each layer."""
-    per = [_unstack(p["layers"], cfg.n_layers) for p in ps]
+def _tp_layers(cfg: ModelConfig, ps, key: str = "layers",
+               n: Optional[int] = None) -> List[List[Params]]:
+    """Layer i's blocks of the stack ``key``, one a shard, for each
+    layer."""
+    per = [_unstack(p[key], n or cfg.n_layers) for p in ps]
     return [list(layer) for layer in zip(*per)]
 
 
@@ -274,36 +280,44 @@ def _refill(tree, it):
     return next(it)
 
 
-def _tp_remat(cfg: ModelConfig, tp, lp, xs, pos):
-    """``tp_block_fwd`` under the reentrant ``torch.utils.checkpoint``,
-    the layer's inputs and its blocks of the parameters passed as tensors
-    (their gradients leave through the checkpoint). The non-reentrant one
-    recomputes a layer from whichever device's backward thread first
-    unpacks one of its saved tensors, and two cards' threads may do so at
-    once; the reentrant one recomputes inside its own backward node, once."""
+def _tp_checkpoint(fn, xs, tree) -> List[torch.Tensor]:
+    """``fn(xs, tree)`` (a list of tensors) under the reentrant
+    ``torch.utils.checkpoint``, ``xs`` and every tensor of ``tree`` (the
+    layer's blocks of the parameters, and any other input that needs a
+    gradient) passed as its inputs, so that their gradients leave through
+    it. The non-reentrant one recomputes a layer from whichever device's
+    backward thread first unpacks one of its saved tensors, and two
+    cards' threads may do so at once; the reentrant one recomputes inside
+    its own backward node, once. Its forward runs without grad, so a scan
+    inside it runs in one call; the recompute runs with grad, each scan
+    in its checkpointed chunks (``ssm._scan``), nested."""
     n = len(xs)
 
     def run(*args):
-        ys, aux = tp_block_fwd(cfg, tp, _refill(lp, iter(args[n:])),
-                               list(args[:n]), pos)
-        return tuple(ys) + (() if aux is None else (aux,))
+        return tuple(fn(list(args[:n]), _refill(tree, iter(args[n:]))))
 
-    out = checkpoint(run, *xs, *_tensors(lp), use_reentrant=True,
-                     preserve_rng_state=False)
-    return list(out[:n]), out[n] if len(out) > n else None
+    return list(checkpoint(run, *xs, *_tensors(tree), use_reentrant=True,
+                           preserve_rng_state=False))
 
 
 def tp_decoder_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None):
     """``decoder_fwd`` over the model shards: with grad enabled and no
-    caches each layer runs under ``torch.utils.checkpoint`` (``_tp_remat``);
-    ``caches`` each shard's ``(k [L, B, T, n, dh], v)`` blocks, updated in
-    place by a decode step. Returns (each shard's normed hidden states,
-    the MoE auxiliary loss on shard 0's device)."""
+    caches each layer runs under ``_tp_checkpoint``; ``caches`` each
+    shard's ``(k [L, B, T, n, dh], v)`` blocks, updated in place by a
+    decode step. Returns (each shard's
+    normed hidden states, the MoE auxiliary loss on shard 0's device)."""
     remat = caches is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    n = len(xs)
+
+    def block(ys, lp):
+        ys, a = tp_block_fwd(cfg, tp, lp, ys, pos)
+        return ys + ([] if a is None else [a])
+
     for i, lp in enumerate(_tp_layers(cfg, ps)):
         if remat:
-            xs, a = _tp_remat(cfg, tp, lp, xs, pos)
+            out = _tp_checkpoint(block, xs, lp)
+            xs, a = out[:n], (out[n] if len(out) > n else None)
         else:
             xs, a = tp_block_fwd(cfg, tp, lp, xs, pos, None if caches is None
                                  else [(k[i], v[i]) for k, v in caches])
@@ -313,24 +327,35 @@ def tp_decoder_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None):
             for p, x in zip(ps, xs)], aux
 
 
+def _tp_fill(cfg: ModelConfig, tp, caches, i: int, kvs, S: int) -> None:
+    """Writes layer i of each shard's ring caches ``caches[m] = (k, v)``,
+    each ``[L, B, T, n, dh]``, from its whole ``kvs[m] = (k, v)`` of the
+    prompt: the block's KV heads (split on ``model``, or all of them), or
+    under a sequence-split cache (``tp.kv_slots``) every head of the
+    slots ``[m T, (m + 1) T)`` of ``_ring``'s ``tp.kv_slots``."""
+    Tw = tp.kv_slots
+    for m, ((k, v), (ck, cv)) in enumerate(zip(kvs, caches)):
+        T = ck.shape[2]
+        c = L.cache_heads(cfg, ck.shape[3], m)
+        t0 = m * T if Tw else 0
+        ck[i].copy_(_ring(k[:, :, c], S, Tw or T)[:, t0:t0 + T])
+        cv[i].copy_(_ring(v[:, :, c], S, Tw or T)[:, t0:t0 + T])
+
+
 def tp_decoder_prefill(cfg: ModelConfig, tp, ps, xs, pos, caches):
     """``decoder_prefill`` over the model shards: each shard fills its
-    block of the ring caches ``caches[m] = (k, v)``, each ``[L, B, Tw, n,
-    dh]`` (its KV heads where ``cache_specs`` splits them, all of them
-    where the cache is whole). Returns each shard's normed hidden
-    states."""
+    block of the ring caches ``caches[m] = (k, v)``, each ``[L, B, T, n,
+    dh]`` (``_tp_fill``: its KV heads where ``cache_specs`` splits them,
+    its slots where it splits the sequence, all of it where the cache is
+    whole). Returns each shard's normed hidden states."""
     S = xs[0].shape[1]
-    Tw = caches[0][0].shape[2]
     for i, lp in enumerate(_tp_layers(cfg, ps)):
         hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
         a, kvs, split = L.tp_attention_fwd(tp, [p["attn"] for p in lp], cfg,
                                            hs, pos)
         xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
         xs, _ = _tp_ffn(cfg, tp, lp, xs)
-        for m, ((k, v), (ck, cv)) in enumerate(zip(kvs, caches)):
-            c = L.cache_heads(cfg, ck.shape[3], m)
-            ck[i].copy_(_ring(k[:, :, c], S, Tw))
-            cv[i].copy_(_ring(v[:, :, c], S, Tw))
+        _tp_fill(cfg, tp, caches, i, kvs, S)
     return [L.rmsnorm(p["lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
 
 
@@ -618,3 +643,200 @@ def encdec_prefill(cfg: ModelConfig, params: Params, x, pos, enc_out,
         caches[0][i].copy_(_ring(k, S, Tw))
         caches[1][i].copy_(_ring(v, S, Tw))
     return L.rmsnorm(params["lnf"], x, cfg.norm_eps)
+
+
+# ------------------------------------ the other stacks, tensor parallel ----
+# zamba2, xLSTM and the encoder-decoder over a data shard's model shards,
+# laid out as the decoder's section above says; each layer (and zamba2's
+# shared attention) runs under ``_tp_checkpoint`` in a full forward under
+# grad. ``caches`` holds each shard's blocks of the cache (placed by
+# ``cache_specs``): the recurrent states split on heads or channels,
+# zamba2's ``ak``/``av`` on KV heads, whisper's ``k``/``v`` on KV heads or
+# (``REPRO_KV_SHARD=seq``) on slots, its ``enc_out`` on ``d``.
+def _tp_mamba_layer(cfg: ModelConfig, tp, lp, xs, states=None):
+    """``_mamba_layer_fwd`` over the model shards -> (xs, each shard's
+    final state)."""
+    hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    ms, st, split = SSM.tp_mamba2_fwd(tp, [p["mamba"] for p in lp], cfg,
+                                      hs, states)
+    xs = [x + y for x, y in zip(xs, tp.reduce(ms, split))]
+    hs = [L.rmsnorm(p["ln2"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    ys = tp.reduce(*L.tp_mlp([p["mlp"] for p in lp], cfg, hs))
+    return [x + y for x, y in zip(xs, ys)], st
+
+
+def _tp_mamba_layers(cfg: ModelConfig, tp, stacks, n: int, xs, states,
+                     decode: bool, remat: bool):
+    """``_mamba_layers`` over the model shards: ``stacks`` each shard's
+    stacked ``[n, ...]`` leaves, ``states`` each shard's ``[n, B, h, N,
+    P]`` cache block or None."""
+    per = [_unstack(s, n) for s in stacks]
+    for i, lp in enumerate(zip(*per)):
+        lp = list(lp)
+        if remat:
+            xs = _tp_checkpoint(
+                lambda ys, t: _tp_mamba_layer(cfg, tp, t, ys)[0], xs, lp)
+            continue
+        xs, st = _tp_mamba_layer(cfg, tp, lp, xs, [s[i] for s in states]
+                                 if decode else None)
+        if states is not None:
+            for dst, src in zip(states, st):
+                dst[i].copy_(src)
+    return xs
+
+
+def tp_zamba2_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None,
+                  decode: bool = False):
+    """``zamba2_fwd`` over the model shards -> each shard's normed hidden
+    states: a full forward (``caches=None``), a prefill (each shard writes
+    its blocks of every state and, by ``_tp_fill``, of ``ak``/``av``) or a
+    decode step (``decode``). The shared attention runs each shard's query
+    heads under ``ZAMBA_WINDOW``, as ``windowed_attention`` does."""
+    inner = cfg.attn_every
+    n_super, _ = _groups(cfg, inner)
+    S = xs[0].shape[1]
+    remat = caches is None and torch.is_grad_enabled()
+    groups = [_unstack(p["super"], n_super) for p in ps]
+    shared = [{"ln": p["shared_ln"], "attn": p["shared_attn"]} for p in ps]
+
+    def norms(sh, ys):
+        return [L.rmsnorm(t["ln"], y, cfg.norm_eps) for t, y in zip(sh, ys)]
+
+    def attend(ys, sh):
+        a, kvs, split = L.tp_attention_fwd(tp, [t["attn"] for t in sh], cfg,
+                                           norms(sh, ys), pos, ZAMBA_WINDOW)
+        return [y + o for y, o in zip(ys, tp.reduce(a, split))], kvs
+
+    for g in range(n_super):
+        xs = _tp_mamba_layers(cfg, tp, [gr[g] for gr in groups], inner, xs,
+                              None if caches is None else
+                              [c["ssm"][g] for c in caches], decode, remat)
+        if remat:
+            xs = _tp_checkpoint(lambda ys, sh: attend(ys, sh)[0], xs, shared)
+        elif decode:
+            a, split = L.tp_attention_decode(
+                tp, [t["attn"] for t in shared], cfg, norms(shared, xs),
+                [(c["ak"][g], c["av"][g]) for c in caches], pos,
+                window=ZAMBA_WINDOW)
+            xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+        else:
+            xs, kvs = attend(xs, shared)
+            if caches is not None:
+                _tp_fill(cfg, tp, [(c["ak"], c["av"]) for c in caches], g,
+                         kvs, S)
+    if "tail" in ps[0]:
+        nt = ps[0]["tail"]["ln1"]["scale"].shape[0]
+        xs = _tp_mamba_layers(cfg, tp, [p["tail"] for p in ps], nt, xs,
+                              None if caches is None else
+                              [c["tail_ssm"] for c in caches], decode, remat)
+    return [L.rmsnorm(p["lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+
+
+def tp_xlstm_fwd(cfg: ModelConfig, tp, ps, xs, pos, caches=None,
+                 decode: bool = False):
+    """``xlstm_fwd`` over the model shards (``tp_zamba2_fwd``'s modes):
+    each mLSTM on its shard's heads, each sLSTM on its shard's channels,
+    each shard's states in its cache blocks."""
+    inner = cfg.slstm_every - 1
+    n_super, _ = _groups(cfg, cfg.slstm_every)
+    remat = caches is None and torch.is_grad_enabled()
+
+    def layer(fwd, lp, ys, states=None):
+        hs = [L.rmsnorm(p["ln"], y, cfg.norm_eps) for p, y in zip(lp, ys)]
+        out, st, split = fwd(tp, [p["core"] for p in lp], cfg, hs, states)
+        return [y + o for y, o in zip(ys, tp.reduce(out, split))], st
+
+    def run(fwd, lp, ys, keys, idx):
+        if remat:
+            return _tp_checkpoint(lambda zs, t: layer(fwd, t, zs)[0], ys, lp)
+        s0 = [tuple(c[k][idx] for k in keys) for c in caches] \
+            if decode else None
+        ys, st = layer(fwd, lp, ys, s0)
+        if caches is not None:
+            for c, s in zip(caches, st):
+                for k, v in zip(keys, s):
+                    c[k][idx].copy_(v)
+        return ys
+
+    groups = [_unstack(p["super"], n_super) for p in ps]
+    for g in range(n_super):
+        ms = [_unstack(gr[g]["m"], inner) for gr in groups]
+        for i in range(inner):
+            xs = run(SSM.tp_mlstm_fwd, [m[i] for m in ms], xs, ("mC", "mn"),
+                     (g, i))
+        xs = run(SSM.tp_slstm_fwd, [gr[g]["s"] for gr in groups], xs,
+                 ("sc", "sn"), g)
+    return [L.rmsnorm(p["lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+
+
+def _tp_enc_layer(cfg: ModelConfig, tp, lp, xs):
+    hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    a, _, split = L.tp_attention_fwd(tp, [p["attn"] for p in lp], cfg, hs,
+                                     [None] * len(xs), causal=False)
+    xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+    hs = [L.rmsnorm(p["ln2"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    ys = tp.reduce(*L.tp_mlp([p["mlp"] for p in lp], cfg, hs))
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def tp_encoder_fwd(cfg: ModelConfig, tp, ps, xs):
+    """``encoder_fwd`` over the model shards, each shard's heads not
+    causal on the flash kernel -> each shard's whole normed output."""
+    remat = torch.is_grad_enabled()
+    for lp in _tp_layers(cfg, ps, "enc_layers", cfg.n_enc_layers):
+        xs = _tp_checkpoint(lambda ys, t: _tp_enc_layer(cfg, tp, t, ys),
+                            xs, lp) if remat else _tp_enc_layer(cfg, tp, lp,
+                                                                xs)
+    return [L.rmsnorm(p["enc_lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+
+
+def _tp_cross_and_mlp(cfg: ModelConfig, tp, lp, xs, encs):
+    hs = [L.rmsnorm(p["lnx"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    a, split = L.tp_cross_attention(tp, [p["cross"] for p in lp], cfg, hs,
+                                    encs)
+    xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+    hs = [L.rmsnorm(p["ln2"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    ys = tp.reduce(*L.tp_mlp([p["mlp"] for p in lp], cfg, hs))
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _tp_dec_layer(cfg: ModelConfig, tp, lp, xs, pos, encs, caches=None):
+    hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+    attn = [p["attn"] for p in lp]
+    if caches is None:
+        a, _, split = L.tp_attention_fwd(tp, attn, cfg, hs, pos)
+    else:
+        a, split = L.tp_attention_decode(tp, attn, cfg, hs, caches, pos)
+    xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+    return _tp_cross_and_mlp(cfg, tp, lp, xs, encs)
+
+
+def tp_encdec_fwd(cfg: ModelConfig, tp, ps, xs, pos, encs, caches=None):
+    """``encdec_fwd`` over the model shards, ``encs`` each shard's whole
+    encoder output: a full forward, or a decode step on ``caches[m] = (k,
+    v)`` blocks."""
+    remat = caches is None and torch.is_grad_enabled()
+    for i, lp in enumerate(_tp_layers(cfg, ps, "dec_layers")):
+        if remat:
+            xs = _tp_checkpoint(lambda ys, t: _tp_dec_layer(
+                cfg, tp, t["p"], ys, pos, t["enc"]), xs,
+                {"p": lp, "enc": encs})
+        else:
+            xs = _tp_dec_layer(cfg, tp, lp, xs, pos, encs,
+                               None if caches is None else
+                               [(k[i], v[i]) for k, v in caches])
+    return [L.rmsnorm(p["lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+
+
+def tp_encdec_prefill(cfg: ModelConfig, tp, ps, xs, pos, encs, caches):
+    """``encdec_prefill`` over the model shards, each shard filling its
+    blocks of the self-attention caches (``_tp_fill``)."""
+    S = xs[0].shape[1]
+    for i, lp in enumerate(_tp_layers(cfg, ps, "dec_layers")):
+        hs = [L.rmsnorm(p["ln1"], x, cfg.norm_eps) for p, x in zip(lp, xs)]
+        a, kvs, split = L.tp_attention_fwd(tp, [p["attn"] for p in lp], cfg,
+                                           hs, pos)
+        xs = [x + y for x, y in zip(xs, tp.reduce(a, split))]
+        xs = _tp_cross_and_mlp(cfg, tp, lp, xs, encs)
+        _tp_fill(cfg, tp, caches, i, kvs, S)
+    return [L.rmsnorm(p["lnf"], x, cfg.norm_eps) for p, x in zip(ps, xs)]

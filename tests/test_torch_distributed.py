@@ -475,21 +475,47 @@ def test_shard_routing_is_reference_grouped_dispatch(D):
 
 @pytest.mark.parametrize("maker", [steps.make_train_step,
                                    steps.make_serve_steps])
-def test_model_axis_raises_not_implemented(maker, monkeypatch):
-    """A model axis > 1 runs the attention decoders (tensor-parallel,
-    ``tests/test_torch_tensor_parallel.py``); zamba2, xLSTM, whisper and
-    the serve steps under ``REPRO_KV_SHARD=seq`` still refuse it, naming
-    ROADMAP A8.5c."""
+def test_model_axis_runs_every_stack(maker, monkeypatch):
+    """A model axis > 1 runs every stack: zamba2, xLSTM and whisper build
+    a step on (2, 2) of CPU shards and take it (a finite loss, or logits
+    and a decode step), and so does qwen3's serving under
+    ``REPRO_KV_SHARD=seq``. Held to the one-device math by
+    ``tests/test_torch_tensor_parallel_stacks.py``."""
     mesh = MESH.make_host_mesh(2, CPU4)
-    for name in ("zamba2-7b", "xlstm-125m", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="A8.5c"):
-            maker(SMOKE[name], mesh)
-    monkeypatch.setenv("REPRO_KV_SHARD", "seq")
+    rng = np.random.default_rng(0)
+    names = ["zamba2-7b", "xlstm-125m", "whisper-medium"]
     if maker is steps.make_serve_steps:
-        with pytest.raises(NotImplementedError, match="A8.5c"):
-            maker(SMOKE["qwen3-0.6b"], mesh)
-    else:
-        maker(SMOKE["qwen3-0.6b"], mesh)     # no cache: nothing to refuse
+        names.append("qwen3-0.6b")
+    for name in names:
+        cfg = SMOKE[name]
+        if name == "qwen3-0.6b":
+            monkeypatch.setenv("REPRO_KV_SHARD", "seq")
+        model, *fns = maker(cfg, mesh)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, 8)).astype(np.int32))}
+        if cfg.enc_dec:
+            batch["frames"] = torch.from_numpy((0.02 * rng.standard_normal(
+                (B, cfg.n_frames, cfg.d_model))).astype(np.float32))
+        if maker is steps.make_train_step:
+            step, p_shapes = fns[0], fns[1]
+            p_specs, o_specs = steps.train_specs(cfg, mesh, p_shapes)
+            batch["labels"] = batch["tokens"]
+            _, _, m = step(SH.shard_tree(params, SH.to_named(mesh, p_specs)),
+                           SH.shard_tree(adamw.init(params),
+                                         SH.to_named(mesh, o_specs)), batch)
+            assert np.isfinite(float(m["loss"])), name
+            continue
+        prefill, decode = fns
+        P = SH.shard_tree(params, SH.to_named(
+            mesh, SH.param_specs(cfg, mesh, params)))
+        cache = steps.shard_cache(cfg, mesh, model.make_cache(B, 12, "cpu"))
+        if name == "qwen3-0.6b":
+            assert tuple(cache["k"].sharding.spec)[2] == "model"
+        logits, cache = prefill(P, batch, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        tok, _ = decode(P, tok, cache, 8)
+        assert bool(torch.isfinite(logits).all()) and tok.shape == (B, 1)
 
 
 def test_production_mesh_cannot_run_a_step():
@@ -675,12 +701,15 @@ def test_train_cli_resumes_onto_another_mesh(tmp_path, capsys):
 
 
 def test_train_cli_refuses_model_parallel(tmp_path):
-    """``--model-parallel`` runs (``tests/test_torch_tensor_parallel.py``)
-    where it divides the devices and the stack has a model axis; the rest
-    still raises."""
+    """``--model-parallel`` runs (``tests/test_torch_tensor_parallel.py``,
+    ``test_torch_tensor_parallel_stacks.py``) for every stack where it
+    divides the devices; one that does not divide them raises, and so
+    does whisper, whose frames the token pipeline does not give, on a
+    model axis as on one device."""
     with pytest.raises(ValueError, match="does not divide"):
         train.main([*CLI, "--model-parallel", "3", "--devices", "cpu,cpu",
                     "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A8.5c"):
-        train.main([*CLI, "--arch", "zamba2-7b", "--model-parallel", "2",
-                    "--devices", "cpu,cpu", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="'frames'"):
+        train.main([*CLI, "--arch", "whisper-medium", "--model-parallel",
+                    "2", "--devices", "cpu,cpu", "--ckpt-dir",
+                    str(tmp_path)])
