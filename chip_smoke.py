@@ -20,7 +20,8 @@ against its plain PyTorch version on the card:
   2e-2) at the reference kernel test's five shapes, GQA, a tail tile, a
   non-causal shape and the qwen3-0.6b, deepseek-moe-16b, zamba2-7b,
   whisper-medium (its encoder, not causal over 1500 frames, and its
-  decoder, both at dh 64) and qwen2-vl-72b (G 8) prefills' (zamba2's
+  decoder, both at dh 64), qwen2-vl-72b (G 8) and starcoder2-3b (G 12,
+  and one key tile of the same heads) prefills' (zamba2's
   shared attention: bf16 at dh 112), each on the kernel that
   ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the wgmma
   kernel ``flash_attention_sm90.cu``, float32 (and bf16 at other head
@@ -69,7 +70,8 @@ launch counts set to 0 just before and read just after:
   input; float32 checks at two layers as for qwen3-0.6b (2
   ``flash_attention_simt`` launches a prefill; the decode check at
   capacity C = T); then mixtral-8x7b at 16 of its 32 layers, whose
-  windowed prefill launches no flash kernel, and 8 decode steps;
+  window (4096) covers its 2048-token prompts, so its prefill launches
+  one ``flash_attention_sm90`` a layer, and 8 decode steps;
 * SSM serving, ``make_serve_steps`` on zamba2-7b at full width and all 81
   layers (random weights from a seed): B=4 prompts of 2048 tokens, one
   prefill (13 ``flash_attention_simt`` launches, one a group of six
@@ -143,6 +145,22 @@ launch counts set to 0 just before and read just after:
   ``REPRO_KV_SHARD=seq``: each shard every KV head of a quarter of the
   slots, the decode's partial softmaxes joined on shard 0; float32 at
   two layers with every cache block checked);
+* the configs no earlier phase runs, at full width and depth in bf16
+  (``lm_configs``): starcoder2-3b (GELU MLP, QKV bias, 24 query heads
+  over 2 KV heads, G 12) and qwen3-1.7b (qk-norm), each served (a
+  prefill of one ``flash_attention_sm90`` launch a layer, 8 greedy
+  steps) and trained (a warm-up and a timed step of 4 x 2048 tokens, 2L
+  ``flash_attention_sm90`` and L ``flash_attention_bwd_sm90`` launches),
+  with float32 serve and train checks at two layers;
+* a model past one card (``lm_serve_big``): qwen1.5-110b at full width
+  and 20 of its 80 layers served over four model shards of the card
+  (mesh (1, 4)), its parameters drawn straight into their blocks
+  (``sharding.init_sharded``), 4 x 20 ``flash_attention_sm90`` launches
+  a prefill at a shard's 16 query and 2 KV heads and 8 greedy steps, the
+  init's seconds and each device's peak beside a reckoning, float32 at
+  two layers on the same mesh against one device
+  (``scripts/multi_card.py --serve-big``: qwen1.5-110b, qwen2-vl-72b and
+  mixtral-8x7b whole, one model shard a card);
 
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
@@ -154,9 +172,10 @@ without lse, the plain version and SDPA in turns in float32, and in bf16
 both backward kernels, the plain version and SDPA's backward in turns,
 in float32 the 3xTF32 one with and without lse, and the backward
 kernels at the new training shapes, the wgmma one not causal at
-whisper's encoder and the 3xTF32 one in bf16 at zamba2's dh 112; the
-float32 rows give the fp32 CUDA-core bound and the 3xTF32 tensor-core
-bound). Each Vcycle
+whisper's encoder and the 3xTF32 one in bf16 at zamba2's dh 112, and
+the wgmma pair at starcoder2-3b's G 12 and the forward at a
+qwen1.5-110b model shard's heads; the float32 rows give the fp32
+CUDA-core bound and the 3xTF32 tensor-core bound). Each Vcycle
 case of the timing also reports what bounds the kernel: the
 busiest core's rows a Vcycle (``busy_rows``), the kernel's ns per such row
 (``ns_per_busy_row``), the bytes of code rows it reads a launch
@@ -1262,6 +1281,10 @@ FLASH_CASES = (
     # the qwen2-vl-72b prefill: B=4 x H=64 over Hkv=8 (G=8), 256 patches
     # and 2048 tokens
     (LM_BATCH * 64, LM_BATCH * 8, 256 + LM_PROMPT, 128, "bfloat16", True),
+    # the starcoder2-3b prefill: B=4 x H=24 over Hkv=2 (G=12), and one
+    # key tile of the same heads
+    (LM_BATCH * 24, LM_BATCH * 2, LM_PROMPT, 128, "bfloat16", True),
+    (LM_BATCH * 24, LM_BATCH * 2, 17, 128, "bfloat16", True),
 )
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -1788,10 +1811,12 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
     (C = T, nothing dropped: a forward over S+1 tokens is another batch,
     which at 1.25 would drop other pairs than prefill and decode do); then
     mixtral-8x7b at full width and MIXTRAL_LAYERS of its 32 layers (what
-    one card holds), whose windowed prefill launches no flash kernel, and
-    MIXTRAL_DECODE steps. With a list ``keep``, deepseek's prefill logits
-    are appended to it, with a list ``routes`` each of its layers' route
-    in that prefill. Returns the two flash kernels' launches."""
+    one card holds), whose window (4096) covers the prompt, so its prefill
+    launches one ``flash_attention_sm90`` a layer, and MIXTRAL_DECODE
+    steps. With a list ``keep``, deepseek's prefill logits are appended
+    to it, with a list ``routes`` each of its layers' route in that
+    prefill. Returns deepseek's launches of the two flash kernels and
+    mixtral's of ``flash_attention_sm90``."""
     cfg = ARCHS[MOE_ARCH]
     tokens, deepseek = _serve(torch, fa, kv, steps, cfg, MOE_SEED,
                               MOE_DECODE, MOE_CTX,
@@ -1805,7 +1830,8 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
                               MOE_CTX)
     mcfg = ARCHS[MIXTRAL_ARCH].scaled(n_layers=MIXTRAL_LAYERS)
     _, mixtral = _serve(torch, fa, kv, steps, mcfg, 6, MIXTRAL_DECODE,
-                        LM_PROMPT + MIXTRAL_DECODE, {}, MOE)
+                        LM_PROMPT + MIXTRAL_DECODE,
+                        {"flash_attention_sm90": mcfg.n_layers}, MOE)
     for c, res in ((cfg, deepseek), (mcfg, mixtral)):
         res.update(param_count=list(c.param_count()),
                    param_count_x2_bytes=2 * c.param_count()[0],
@@ -1818,7 +1844,8 @@ def phase_lm_serve_moe(torch, fa, kv, flash_ref, steps, L, MOE, ARCHS,
           "fp32_check_capacity": "C = T (factor E/K)", **checks,
           "mixtral": {**mixtral,
                       "layers_of": ARCHS[MIXTRAL_ARCH].n_layers}})
-    return launches, checks["fp32_flash_attention_simt_launches_per_prefill"]
+    return (launches, checks["fp32_flash_attention_simt_launches_per_prefill"],
+            mixtral["launches_per_run"]["flash_attention_sm90"])
 
 
 SSM_ARCH, SSM_DECODE = "zamba2-7b", 16
@@ -2748,16 +2775,6 @@ def _blocks_differ(torch, SH, tree) -> int:
     return n
 
 
-def _place_consuming(SH, tree, shardings):
-    """``SH.shard_tree(tree, shardings)``, each leaf dropped from
-    ``tree`` once placed, so that a placement holds the parameters once
-    plus one leaf."""
-    if isinstance(tree, dict):
-        return {k: _place_consuming(SH, tree.pop(k), shardings[k])
-                for k in list(tree)}
-    return SH.shard_tree(tree, shardings)
-
-
 def _whole_extra(p_specs, p_shapes, M) -> tuple:
     """(elements, bytes) that the leaves the guard keeps whole on the
     model axis add over M shards: M - 1 more copies of each."""
@@ -2775,10 +2792,12 @@ def phase_lm_train_tp(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
     """qwen3-0.6b at full width and depth trained tensor-parallel over
     TP_SHARDS model shards (``place``: of card 0, or one a card), mesh
     (1, TP_SHARDS), through ``make_train_step(cfg, mesh)``: ``lm_train``'s
-    params (seed 0) and batches, placed by ``train_specs``, a warm-up and
-    TP_TIMED timed steps. Each shard runs its 4 query and 2 KV heads, so a
-    step must launch TP_SHARDS x 56 ``flash_attention_sm90`` and
-    TP_SHARDS x 28 ``flash_attention_bwd_sm90`` and nothing else; the
+    params (seed 0, drawn into their blocks by ``SH.init_sharded``, the
+    moments by ``SH.zeros_tree``) and batches, placed by ``train_specs``,
+    a warm-up and TP_TIMED timed steps. Each shard runs its 4 query and 2
+    KV heads, so a step must launch TP_SHARDS x 56
+    ``flash_attention_sm90`` and TP_SHARDS x 28
+    ``flash_attention_bwd_sm90`` and nothing else; the
     model replicas of every leaf the guard keeps whole (the norms) stay
     bit-equal; the model-axis sums and gathers are timed by CUDA events
     (``tensor_parallel.timed_collectives``). Then in float32 at
@@ -2794,14 +2813,13 @@ def phase_lm_train_tp(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
     devices = place(M)
     mesh = make_host_mesh(M, devices)
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
-    model, step, p_shapes, _ = steps.make_train_step(cfg, mesh)
+    model, step, p_shapes, o_shapes = steps.make_train_step(cfg, mesh)
     p_specs, o_specs = steps.train_specs(cfg, mesh, p_shapes)
     _reset_peak(torch, devices)
     base = {str(d): torch.cuda.memory_allocated(d) for d in set(devices)}
-    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
-    pr = SH.shard_tree(params, SH.to_named(mesh, p_specs))
-    orr = SH.shard_tree(adamw.init(params), SH.to_named(mesh, o_specs))
-    del params
+    pr = SH.init_sharded(model, torch.Generator(
+        device=devices[0]).manual_seed(0), SH.to_named(mesh, p_specs))
+    orr = SH.zeros_tree(o_shapes, SH.to_named(mesh, o_specs))
     place_peak = _peak(torch, devices)
     _reset_peak(torch, devices)
     want = {"flash_attention_sm90": 2 * cfg.n_layers * M,
@@ -2971,8 +2989,8 @@ def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
     over TP_SHARDS model shards (mesh (1, TP_SHARDS); 16 experts, 4 query
     and 4 KV heads, a quarter of the vocab, the shared experts' hidden and
     the cache's KV heads a shard) through ``make_serve_steps(cfg, mesh)``:
-    ``lm_serve_moe``'s params (seed MOE_SEED, placed by ``param_specs``
-    leaf by leaf as the one-device tree is freed) and LM_BATCH prompts of
+    ``lm_serve_moe``'s params (seed MOE_SEED, drawn into the blocks
+    ``param_specs`` places by ``SH.init_sharded``) and LM_BATCH prompts of
     LM_PROMPT tokens, a counted prefill (a ``flash_attention_sm90`` launch
     a layer a shard) and TP_DECODE greedy steps, then a timed prefill and
     the decode loop again. The prefill's bf16 last-position logits beside
@@ -2994,12 +3012,10 @@ def phase_lm_serve_tp(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
     _reset_peak(torch, devices)
     base = {str(d): torch.cuda.memory_allocated(d) for d in set(devices)}
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=devices[0]).manual_seed(
-        MOE_SEED))
-    n_params = sum(t.numel() for t in _leaves(params))
-    pr = _place_consuming(SH, params, SH.to_named(
-        mesh, SH.param_specs(cfg, mesh, model.abstract_params())))
-    del params
+    shapes = model.abstract_params()
+    n_params = sum(t.numel() for t in _leaves(shapes))
+    pr = SH.init_sharded(model, torch.Generator(device=devices[0]).manual_seed(
+        MOE_SEED), SH.to_named(mesh, SH.param_specs(cfg, mesh, shapes)))
     ctx = LM_PROMPT + TP_DECODE
     cache = steps.shard_cache(cfg, mesh, model.make_cache(LM_BATCH, ctx))
     _sync_all(torch)
@@ -3188,13 +3204,17 @@ def _tp_fp32_train(torch, fa, kv, steps, adamw, SH, TP, cfg32, mesh, batch,
       leaf's max, so two float32 runs cannot meet 1e-4 of each other;
       each is held to float64 instead.)
 
-    The gradients wait on the host, and each tree is freed as soon as it
-    is used, so that zamba2's 9 layers fit."""
+    The tensor-parallel step's params are drawn into their blocks
+    (``SH.init_sharded``, the one-device params' bits) once the float64
+    runs are done. The gradients wait on the host, and each tree is freed
+    as soon as it is used, so that zamba2's 9 layers fit."""
     from unittest import mock
     from repro_torch.models.float64 import in_float64
     from repro_torch.models.model import build
     dev = mesh.devices.flat[0]
-    m32, _, s32, _ = steps.make_train_step(cfg32, dev)
+    m32 = steps.make_train_step(cfg32, dev)[0]
+    _, tp32, s32, o32 = steps.make_train_step(cfg32, mesh)
+    ps32, os32 = steps.train_specs(cfg32, mesh, s32)
     p0 = m32.init(torch.Generator(device=dev).manual_seed(1))
     loss1, g1 = _counted(fa, kv, lambda: _loss_grads(
         torch, adamw, m32, p0, batch), want_one, f"{tag} one device")
@@ -3214,13 +3234,16 @@ def _tp_fp32_train(torch, fa, kv, steps, adamw, SH, TP, cfg32, mesh, batch,
             torch, adamw, m64, p64, b64), _kernels(), f"{tag} float64")
         gn64 = norm(adamw.leaves(g64))
         g64 = adamw.tree_map(lambda g: g.cpu(), g64)
-        P64 = _place_consuming(SH, p64, SH.to_named(mesh, SH.param_specs(
+        P64 = SH.shard_tree(p64, SH.to_named(mesh, SH.param_specs(
             cfg64, mesh, m64.abstract_params())))
-        _, losses, _, gr = _counted(fa, kv, lambda: TP.shard_grads(
+        del p64
+        # the metrics, like the losses, hold the graph and so its leaves
+        # (P64's blocks) and their grads until they are dropped
+        _, losses, metrics, gr = _counted(fa, kv, lambda: TP.shard_grads(
             m64.loss_tp, mesh, P64, b64), _kernels(), f"{tag} float64 tp")
         row = TP.grid(mesh)[0]
         gt64 = TP.assemble(P64, dict(zip(row, gr[0])))
-        del P64, gr
+        del P64, gr, metrics
         loss_err64 = abs(float(losses[0].detach()) - loss64) / abs(loss64)
         gnorm_err64 = abs(norm(t.gather() for t in SH.tree_leaves(gt64))
                           - gn64) / gn64
@@ -3230,12 +3253,11 @@ def _tp_fp32_train(torch, fa, kv, steps, adamw, SH, TP, cfg32, mesh, batch,
     torch.cuda.empty_cache()
     one_err = max(_rel(g.to(dev), w) for g, w in zip(adamw.leaves(g1),
                                                      adamw.leaves(g64)))
-    _, tp32, s32, _ = steps.make_train_step(cfg32, mesh)
-    ps32, os32 = steps.train_specs(cfg32, mesh, s32)
-    O32 = SH.shard_tree(adamw.init(p0), SH.to_named(mesh, os32))
-    P32 = _place_consuming(SH, p0, SH.to_named(mesh, ps32))
     del p0
     torch.cuda.empty_cache()
+    P32 = SH.init_sharded(m32, torch.Generator(device=dev).manual_seed(1),
+                          SH.to_named(mesh, ps32))
+    O32 = SH.zeros_tree(o32, SH.to_named(mesh, os32))
     seen, apply = [], adamw.apply
 
     def spy(p, g, o, **kw):
@@ -3309,7 +3331,9 @@ def _tp_fp32_serve(torch, fa, kv, steps, adamw, SH, cfg32, mesh, batch,
     one-device and the tensor-parallel logits each within
     FP32_LOGITS_VS_F64 of float64's max, and their greedy tokens equal.
     The float32 tensor-parallel prefill launches ``flash_attention_simt``
-    ``n_attn`` times a model shard; the float64 runs launch nothing."""
+    ``n_attn`` times a model shard; the float64 runs launch nothing. The
+    tensor-parallel serve's params are drawn into their blocks
+    (``SH.init_sharded``), as in ``_tp_fp32_train``."""
     from repro_torch.models.float64 import in_float64
     dev = mesh.devices.flat[0]
     M = mesh.shape["model"]
@@ -3325,12 +3349,14 @@ def _tp_fp32_serve(torch, fa, kv, steps, adamw, SH, cfg32, mesh, batch,
     with in_float64():
         m64, pre64, dec64 = steps.make_serve_steps(cfg64, dev)
         p64 = _f64_tree(torch, p32)
+        del p32
         l64, t64 = _counted(fa, kv, lambda: _tp_greedy(
             torch, pre64, dec64, p64, b64, m64.make_cache(B, ctx),
             LM_GREEDY_CHECK, S), _kernels(), f"{tag} float64")
         _, pre, dec = steps.make_serve_steps(cfg64, mesh)
-        P64 = _place_consuming(SH, p64, SH.to_named(
+        P64 = SH.shard_tree(p64, SH.to_named(
             mesh, SH.param_specs(cfg64, mesh, m64.abstract_params())))
+        del p64
         lt64, tt64 = _counted(fa, kv, lambda: _tp_greedy(
             torch, pre, dec, P64, b64, steps.shard_cache(
                 cfg64, mesh, m64.make_cache(B, ctx)), LM_GREEDY_CHECK, S),
@@ -3338,9 +3364,9 @@ def _tp_fp32_serve(torch, fa, kv, steps, adamw, SH, cfg32, mesh, batch,
         del P64
     err64 = _rel(lt64, l64)
     _, pre, dec = steps.make_serve_steps(cfg32, mesh)
-    P = _place_consuming(SH, p32, SH.to_named(
-        mesh, SH.param_specs(cfg32, mesh, m1.abstract_params())))
-    del p32
+    P = SH.init_sharded(m1, torch.Generator(device=dev).manual_seed(1),
+                        SH.to_named(mesh, SH.param_specs(
+                            cfg32, mesh, m1.abstract_params())))
     fa.reset_counts()
     lt, tt = _tp_greedy(torch, pre, dec, P, batch, steps.shard_cache(
         cfg32, mesh, m1.make_cache(B, ctx)), LM_GREEDY_CHECK, S)
@@ -3368,26 +3394,27 @@ def _tp_fp32_serve(torch, fa, kv, steps, adamw, SH, cfg32, mesh, batch,
 
 def _tp_stack(torch, fa, kv, steps, adamw, SH, TP, mesh, devices, cfg, S,
               batch_at, extra, n_attn, fwd, bwd, tag) -> dict:
-    """``cfg`` (bf16, weights from seed 0) on ``mesh``: the one-device loss
-    of batch 0, then through ``make_train_step(cfg, mesh)`` a warm-up and
-    a timed step (each must launch ``fwd`` 2 x ``n_attn`` and ``bwd``
-    ``n_attn`` times a model shard: each attention's forward and its
-    recompute under the layer's checkpoint, and its backward), the model
-    and data replicas bit-equal after each; then the trained params served
+    """``cfg`` (bf16, weights from seed 0 drawn into their blocks by
+    ``SH.init_sharded``) on ``mesh``: the one-device loss of batch 0 (on
+    the blocks gathered), then through ``make_train_step(cfg, mesh)`` a
+    warm-up and a timed step (each must launch ``fwd`` 2 x ``n_attn`` and
+    ``bwd`` ``n_attn`` times a model shard: each attention's forward and
+    its recompute under the layer's checkpoint, and its backward), the
+    model and data replicas bit-equal after each; then the trained params
+    served
     through ``make_serve_steps(cfg, mesh)``: a prefill of batch 0's
     prompts (``n_attn`` ``fwd`` launches a shard) and STACKS_DECODE greedy
     steps, timed. Returns the numbers."""
     M = mesh.shape["model"]
-    model, step, p_shapes, _ = steps.make_train_step(cfg, mesh)
+    model, step, p_shapes, o_shapes = steps.make_train_step(cfg, mesh)
     p_specs, o_specs = steps.train_specs(cfg, mesh, p_shapes)
     _reset_peak(torch, devices)
-    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
+    pr = SH.init_sharded(model, torch.Generator(
+        device=devices[0]).manual_seed(0), SH.to_named(mesh, p_specs))
+    orr = SH.zeros_tree(o_shapes, SH.to_named(mesh, o_specs))
     batches = [{**batch_at(i), **extra} for i in range(2)]
     with torch.no_grad():
-        one_loss = float(model.loss(params, batches[0])[0])
-    orr = SH.shard_tree(adamw.init(params), SH.to_named(mesh, o_specs))
-    pr = _place_consuming(SH, params, SH.to_named(mesh, p_specs))
-    del params
+        one_loss = float(model.loss(SH.gather_tree(pr), batches[0])[0])
     torch.cuda.empty_cache()
     place_peak = _peak(torch, devices)
     _reset_peak(torch, devices)
@@ -3577,7 +3604,8 @@ def phase_lm_serve_seq(torch, fa, kv, steps, ARCHS, SH, TP, make_host_mesh,
     decode step joins the shards' partial softmaxes on shard 0
     (``Group.join``, timed by CUDA events). ``lm_serve``'s params and
     prompts (seed 0, LM_BATCH x LM_PROMPT), SEQ_DECODE greedy steps; the
-    prefill's bf16 logits beside ``lm_serve``'s (``serve_logits``), and as
+    prefill's bf16 logits beside ``lm_serve``'s (``serve_logits``; the
+    params drawn into their blocks by ``SH.init_sharded``), and as
     close to the same weights' float32 one-device prefill as those are
     (the bf16 rule of ``tests/test_torch_ssm.py``: ``max |seq - f32| <= 2
     max |one - f32| + 2e-2 max |f32|``). In float32 at CHECK_LAYERS
@@ -3608,10 +3636,12 @@ def _serve_seq(torch, fa, kv, steps, ARCHS, SH, TP, make_host_mesh,
     tokens = torch.from_numpy(np.random.default_rng(13).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(devices[0])
     _reset_peak(torch, devices)
-    params = model.init(torch.Generator(device=devices[0]).manual_seed(0))
+    pr = SH.init_sharded(model, torch.Generator(
+        device=devices[0]).manual_seed(0), SH.to_named(
+        mesh, SH.param_specs(cfg, mesh, model.abstract_params())))
     m_f32, pre_f32, _ = steps.make_serve_steps(cfg.scaled(dtype="float32"),
                                                 devices[0])
-    p_f32 = SH.tree_map(lambda t, _: t.float(), params)
+    p_f32 = SH.tree_map(lambda t, _: t.gather().float(), pr)
     fa.reset_counts()
     with torch.inference_mode():
         ref32 = pre_f32(p_f32, {"tokens": tokens}, m_f32.make_cache(
@@ -3619,9 +3649,6 @@ def _serve_seq(torch, fa, kv, steps, ARCHS, SH, TP, make_host_mesh,
     ref32_launches = fa.COUNTS["flash_attention_simt"]
     del p_f32
     torch.cuda.empty_cache()
-    pr = _place_consuming(SH, params, SH.to_named(
-        mesh, SH.param_specs(cfg, mesh, model.abstract_params())))
-    del params
     ctx = LM_PROMPT + SEQ_DECODE
     cache = steps.shard_cache(cfg, mesh, model.make_cache(LM_BATCH, ctx))
     blk = cache["k"].blocks.flat[0]
@@ -3741,6 +3768,258 @@ def _serve_seq(torch, fa, kv, steps, ARCHS, SH, TP, make_host_mesh,
                          "cache_block_err_over_leaf_max": cache_err,
                          "greedy_tokens_equal": LM_GREEDY_CHECK}})
     return launches, launches32
+
+
+CONFIG_ARCHS = ("starcoder2-3b", "qwen3-1.7b")   # lm_configs' models
+CONFIG_DECODE = 8          # their greedy steps
+CONFIG_TIMED = 1           # their timed train steps, after a warm-up
+
+
+def phase_lm_configs(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
+                     TokenPipeline, PipelineConfig, smi):
+    """starcoder2-3b (GELU MLP, QKV bias, 24 query heads over 2 KV heads:
+    G 12) and qwen3-1.7b (qk-norm, G 2) at full width and depth in bf16,
+    weights random from a seed. Each served through ``make_serve_steps``
+    (``_serve``: LM_BATCH prompts of LM_PROMPT tokens, a counted prefill
+    of one ``flash_attention_sm90`` launch a layer and CONFIG_DECODE
+    greedy steps, a timed prefill and the decode loop again), with
+    ``_fp32_checks`` at CHECK_LAYERS layers; then trained through
+    ``make_train_step`` (``_train_model``: a warm-up and CONFIG_TIMED
+    timed steps of TRAIN_B x TRAIN_S tokens from ``TokenPipeline``, each
+    2 x L ``flash_attention_sm90`` (the forward and its recompute) and L
+    ``flash_attention_bwd_sm90``, nothing else), the peak beside a
+    reckoning (``_train_reckoning`` and the fp32 logits and their
+    gradient), with ``_fp32_train_check`` at CHECK_LAYERS layers. Returns
+    the bf16 paths' launches of each flash kernel, the float32 checks',
+    and the bf16 paths' of each model."""
+    out, launches, launches32, by_model = {}, _kernels(), _kernels(), {}
+    ntok = TRAIN_B * TRAIN_S
+    for i, name in enumerate(CONFIG_ARCHS):
+        cfg = ARCHS[name]
+        ctx = LM_PROMPT + CONFIG_DECODE
+        tokens, serve = _serve(torch, fa, kv, steps, cfg, 20 + i,
+                               CONFIG_DECODE, ctx,
+                               {"flash_attention_sm90": cfg.n_layers},
+                               repeats=1)
+        serve.update(_fp32_checks(torch, fa, flash_ref, steps, L,
+                                  cfg.scaled(n_layers=CHECK_LAYERS),
+                                  tokens, ctx), fp32_check_layers=CHECK_LAYERS)
+        del tokens
+        pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
+        want = _kernels(flash_attention_sm90=2 * cfg.n_layers,
+                        flash_attention_bwd_sm90=cfg.n_layers)
+        train = _train_model(torch, fa, kv, steps, adamw, cfg,
+                             lambda j: _batch(torch, pipe, j), want,
+                             CONFIG_TIMED, f"lm_configs {name}")
+        rk = train["memory_reckoning_bytes"]
+        del rk["total"]
+        rk.update(fp32_logits=4 * ntok * cfg.vocab,
+                  fp32_logits_grad=4 * ntok * cfg.vocab)
+        rk["total"] = sum(rk.values())
+        want32 = _kernels(flash_attention_simt=2 * CHECK_LAYERS,
+                          flash_attention_bwd=CHECK_LAYERS)
+        pipe32 = TokenPipeline(PipelineConfig(cfg.vocab, CHECK_S, CHECK_B))
+        check = _fp32_train_check(
+            torch, fa, kv, flash_ref, steps, L, adamw,
+            cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32"),
+            _batch(torch, pipe32, 0), want32, f"lm_configs {name}")
+        train.update(B=TRAIN_B, S=TRAIN_S, tokens_per_step=ntok,
+                     tokens_per_s=[ntok / t for t in train["step_s"]],
+                     fp32_check={**check, "B": CHECK_B, "S": CHECK_S})
+        by_model[name] = {k: serve["launches_per_run"].get(k, 0)
+                          + want[k] * (1 + CONFIG_TIMED) for k in want}
+        for k in launches:
+            launches[k] += by_model[name][k]
+            launches32[k] += want32[k]
+        launches32["flash_attention_simt"] += \
+            serve["fp32_flash_attention_simt_launches_per_prefill"]
+        out[name] = {"G": cfg.n_heads // cfg.n_kv_heads,
+                     "param_count": list(cfg.param_count()),
+                     "serve": serve, "train": train}
+    emit({"phase": "lm_configs", "card": smi,
+          "call": "repro_torch.launch.steps.make_serve_steps(cfg), "
+                  "make_train_step(cfg)", **out, "launches": launches,
+          "fp32_launches": launches32})
+    return launches, launches32, by_model
+
+
+BIG_ARCH, BIG_LAYERS = "qwen1.5-110b", 20   # lm_serve_big on one card
+BIG_DECODE = 8             # its greedy steps
+BIG_SEEDS = {"qwen1.5-110b": 30, "qwen2-vl-72b": 31, "mixtral-8x7b": 32}
+
+
+def _nbytes(t) -> int:
+    return t.shape.numel() * t.dtype.itemsize
+
+
+def _big_reckoning(torch, SH, cfg, shapes, pr, cache, devices) -> dict:
+    """Bytes on each device, from the shapes and the blocks: its blocks
+    of the params (``param_specs``) and its share of the cache
+    (``cache_specs``). On the draw device (shard 0's) the init also holds
+    one drawn layer (its leaves in the config's dtype beside its largest
+    leaf's fp32 draw) while every block of the stack is allocated, and,
+    before any stack's blocks exist, one embedding leaf's fp32 draw
+    beside its cast; a run also the whole cache ``make_cache`` makes there
+    before ``shard_cache`` places it. Activations are not reckoned."""
+    leaves, blocks = SH.tree_leaves(pr), SH.tree_leaves(cache)
+    per = {}
+    for pos in np.ndindex(leaves[0].blocks.shape):
+        r = per.setdefault(str(leaves[0].blocks[pos].device),
+                           {"param_blocks": 0, "cache_share": 0})
+        r["param_blocks"] += sum(_nbytes(t.blocks[pos]) for t in leaves)
+        r["cache_share"] += sum(_nbytes(t.blocks[pos]) for t in blocks)
+    stacked = SH.tree_leaves(shapes["layers"])
+    n = cfg.n_layers
+    r0 = per[str(torch.device(devices[0]))]
+    r0["drawn_layer"] = sum(_nbytes(t) // n for t in stacked) \
+        + 4 * max(t.shape.numel() // n for t in stacked)
+    r0["embedding_leaf_draw"] = max(
+        t.shape.numel() * (4 + t.dtype.itemsize)
+        for t in SH.tree_leaves(shapes["embed"]))
+    r0["whole_cache_before_placing"] = sum(_nbytes(t) for t in blocks)
+    for r in per.values():
+        r["init_total"] = r["param_blocks"] + r.get("drawn_layer", 0)
+        r["run_total"] = r["param_blocks"] + r["cache_share"] + r.get(
+            "whole_cache_before_placing", 0)
+    return per
+
+
+def phase_lm_serve_big(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
+                       profile_serve, smi, arch=BIG_ARCH, n_layers=BIG_LAYERS,
+                       place=one_card):
+    """``arch`` at full width and ``n_layers`` of its layers (None: all)
+    served over TP_SHARDS model shards (mesh (1, TP_SHARDS); ``place``: of
+    card 0, or one a card) through ``make_serve_steps(cfg, mesh)`` in
+    bf16, its parameters drawn straight into their blocks
+    (``SH.init_sharded``, seed ``BIG_SEEDS[arch]``: no device holds the
+    model whole); LM_BATCH prompts of LM_PROMPT tokens (after qwen2-vl's
+    VLM_PATCHES patches), a counted prefill (one ``flash_attention_sm90``
+    launch a layer a shard, each shard's query heads over its KV heads)
+    and BIG_DECODE greedy steps, then a timed prefill and the decode loop
+    again; the init's seconds, and the init's and the run's peak on each
+    device beside ``_big_reckoning``. In float32 at CHECK_LAYERS layers
+    on the same mesh, CHECK_B x CHECK_S tokens (after CHECK_B rows of
+    patches), drawn the same way: the prefill's logits within 1e-4 of the
+    one-device serve's (its params from ``model.init``) and
+    LM_GREEDY_CHECK greedy tokens equal. Returns the bf16 run's
+    ``flash_attention_sm90`` launches and the float32 check's
+    ``flash_attention_simt`` launches."""
+    full = ARCHS[arch]
+    cfg = full if n_layers is None else full.scaled(n_layers=n_layers)
+    M = TP_SHARDS
+    devices = place(M)
+    mesh = make_host_mesh(M, devices)
+    seed = BIG_SEEDS[arch]
+    model, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    extra = {} if cfg.family != "vlm" else {
+        k: v.to(devices[0]) for k, v in _frontend(
+            torch, profile_serve, cfg, seed).items()}
+    n_pre = extra["patches"].shape[1] if extra else 0
+    tokens = torch.from_numpy(np.random.default_rng(seed + 13).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(devices[0])
+    batch = {"tokens": tokens, **extra}
+    start = n_pre + LM_PROMPT
+    shapes = model.abstract_params()
+    specs = SH.param_specs(cfg, mesh, shapes)
+    _reset_peak(torch, devices)
+    base = {str(d): torch.cuda.memory_allocated(d) for d in set(devices)}
+    pr, init_s = _synced(torch, lambda: SH.init_sharded(
+        model, torch.Generator(device=devices[0]).manual_seed(seed),
+        SH.to_named(mesh, specs)))
+    init_peak = _peak(torch, devices)
+    _reset_peak(torch, devices)
+    ctx = start + BIG_DECODE
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(LM_BATCH, ctx))
+    want = _kernels(flash_attention_sm90=cfg.n_layers * M)
+
+    def run():
+        return _tp_greedy(torch, prefill, decode, pr, batch, cache,
+                          BIG_DECODE + 1, start)
+
+    (logits, gen), first_s = _synced(torch, lambda: _counted(
+        fa, kv, run, want, f"lm_serve_big {arch}"))
+    if (not bool(torch.isfinite(logits).all())
+            or logits.shape != (LM_BATCH, 1, cfg.vocab)
+            or gen.shape != (LM_BATCH, BIG_DECODE + 1)
+            or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab):
+        raise AssertionError(f"lm_serve_big {arch} gave non-finite logits "
+                             "or bad tokens")
+    _, prefill_s = _synced(torch, lambda: prefill(pr, batch, cache))
+    tok = gen[:, :1]
+
+    def loop():
+        t = tok
+        for i in range(BIG_DECODE):
+            t, _ = decode(pr, t, cache, start + i)
+
+    _, decode_s = _synced(torch, loop)
+    run_peak = _peak(torch, devices)
+    reckoning = _big_reckoning(torch, SH, cfg, shapes, pr, cache, devices)
+    del pr, cache, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.scaled(n_layers=CHECK_LAYERS, dtype="float32")
+    m1, pre1, dec1 = steps.make_serve_steps(cfg32, devices[0])
+    mt, pre_tp, dec_tp = steps.make_serve_steps(cfg32, mesh)
+    b32 = {"tokens": torch.from_numpy(np.random.default_rng(
+        seed + 14).integers(0, cfg.vocab, (CHECK_B, CHECK_S))).to(
+        devices[0]), **{k: v[:CHECK_B] for k, v in extra.items()}}
+    start32 = n_pre + CHECK_S
+    ctx32 = start32 + LM_GREEDY_CHECK
+    p32 = m1.init(torch.Generator(device=devices[0]).manual_seed(1))
+    l1, t1 = _tp_greedy(torch, pre1, dec1, p32, b32, m1.make_cache(
+        CHECK_B, ctx32), LM_GREEDY_CHECK, start32)
+    del p32
+    P32 = SH.init_sharded(mt, torch.Generator(device=devices[0]).manual_seed(
+        1), SH.to_named(mesh, SH.param_specs(cfg32, mesh,
+                                             mt.abstract_params())))
+    fa.reset_counts()
+    lt, tt = _tp_greedy(torch, pre_tp, dec_tp, P32, b32, steps.shard_cache(
+        cfg32, mesh, m1.make_cache(CHECK_B, ctx32)), LM_GREEDY_CHECK,
+        start32)
+    launches32 = fa.COUNTS["flash_attention_simt"]
+    err = float((lt - l1).abs().max())
+    if (err > 1e-4 or not torch.equal(tt, t1)
+            or launches32 != CHECK_LAYERS * M):
+        raise AssertionError(
+            f"float32 lm_serve_big {arch} != one-device serve: logits "
+            f"{err}, tokens {tt.tolist()} vs {t1.tolist()}, {launches32} "
+            "flash_attention_simt launches")
+    del P32, b32, extra, batch
+    torch.cuda.empty_cache()
+    n_params = sum(t.shape.numel() for t in SH.tree_leaves(shapes))
+    emit({"phase": "lm_serve_big", "card": smi, "arch": arch,
+          "call": f"repro_torch.launch.steps.make_serve_steps(ARCHS"
+                  f"['{arch}'], make_host_mesh({M}, "
+                  f"{[str(d) for d in devices]})), params from "
+                  "repro_torch.distributed.sharding.init_sharded",
+          "mesh": dict(mesh.shape), "shards": _shards_on(devices),
+          "label": (f"{M} model shards of one card: shards run in turn, no "
+                    "copies between cards" if len(set(map(str, devices)))
+                    == 1 else "one model shard a card"),
+          "n_layers": cfg.n_layers, "layers_of": full.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+          "param_bytes": sum(_nbytes(t) for t in SH.tree_leaves(shapes)),
+          "full_depth_param_count_x2_bytes": 2 * full.param_count()[0],
+          "dtype": cfg.dtype,
+          "heads_a_shard": [cfg.n_heads // M, cfg.n_kv_heads // M],
+          "experts_a_shard": cfg.n_experts // M if cfg.is_moe else None,
+          "B": LM_BATCH, "S": LM_PROMPT, "patches": n_pre, "ctx": ctx,
+          "decode_steps": BIG_DECODE,
+          "flash_attention_sm90_launches_per_prefill": want[
+              "flash_attention_sm90"],
+          "init_s": init_s, "first_run_s": first_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+          "decode_s": decode_s,
+          "decode_tokens_per_s": LM_BATCH * BIG_DECODE / decode_s,
+          "base_bytes": base, "init_peak_bytes": init_peak,
+          "run_peak_bytes": run_peak, "memory_reckoning_bytes": reckoning,
+          "fp32_check": {"n_layers": CHECK_LAYERS, "B": CHECK_B,
+                         "S": CHECK_S, "mesh": dict(mesh.shape),
+                         "flash_attention_simt_launches": launches32,
+                         "logits_max_abs_err": err,
+                         "greedy_tokens_equal": LM_GREEDY_CHECK}})
+    return want["flash_attention_sm90"], launches32
 
 
 def _leaves(tree):
@@ -4394,8 +4673,8 @@ def kernel_line(name, source, replaces, launches, t, by_path=None):
 # and routes, ``lm_serve_seq`` to ``lm_serve``'s logits.
 LM_PHASES = ("lm_serve", "lm_serve_moe", "lm_serve_ssm", "lm_serve_encdec",
              "lm_serve_vlm", "lm_train", "lm_train_encdec", "lm_train_ssm",
-             "lm_train_dp", "lm_serve_dp", "lm_train_tp", "lm_serve_tp",
-             "lm_tp_stacks", "lm_serve_seq")
+             "lm_configs", "lm_train_dp", "lm_serve_dp", "lm_train_tp",
+             "lm_serve_tp", "lm_tp_stacks", "lm_serve_seq", "lm_serve_big")
 LM_NEEDS = {"lm_serve_tp": ("lm_serve_moe",), "lm_serve_seq": ("lm_serve",)}
 
 
@@ -4439,6 +4718,9 @@ def lm_phases(m: dict) -> dict:
         "lm_train_ssm": lambda: phase_lm_train_ssm(
             torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
             PipelineConfig, smi),
+        "lm_configs": lambda: phase_lm_configs(
+            torch, fa, kv, flash_ref, steps, L, ARCHS, adamw, TokenPipeline,
+            PipelineConfig, smi),
         "lm_train_dp": lambda: phase_lm_train_dp(
             torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
             PipelineConfig, SH, m["OV"], mesh),
@@ -4453,6 +4735,8 @@ def lm_phases(m: dict) -> dict:
             PipelineConfig, SH, TP, mesh, smi, profile_serve),
         "lm_serve_seq": lambda: phase_lm_serve_seq(
             torch, fa, kv, steps, ARCHS, SH, TP, mesh, keep["lm"][0]),
+        "lm_serve_big": lambda: phase_lm_serve_big(
+            torch, fa, kv, steps, ARCHS, SH, mesh, profile_serve, smi),
     }
 
 
@@ -4565,7 +4849,8 @@ def main(argv=None) -> int:
                                (("mc", s_main), ("bc", s_bc)))
     lm = run_lm_phases(lm_phases(locals()), LM_PHASES)
     sm90_launches, simt_launches = lm["lm_serve"]
-    moe_sm90_launches, moe_simt_launches = lm["lm_serve_moe"]
+    moe_sm90_launches, moe_simt_launches, mixtral_launches = \
+        lm["lm_serve_moe"]
     ssm_simt_launches, ssm_fp32_launches = lm["lm_serve_ssm"]
     encdec_sm90_launches, encdec_fp32_launches = lm["lm_serve_encdec"]
     vlm_sm90_launches, vlm_fp32_launches = lm["lm_serve_vlm"]
@@ -4579,6 +4864,9 @@ def main(argv=None) -> int:
     serve_tp_launches, serve_tp_fp32_launches = lm["lm_serve_tp"]
     stacks_launches, stacks_fp32_launches = lm["lm_tp_stacks"]
     seq_launches, seq_fp32_launches = lm["lm_serve_seq"]
+    configs_launches, configs_fp32_launches, by_config = lm["lm_configs"]
+    starcoder2 = by_config["starcoder2-3b"]
+    big_launches, big_fp32_launches = lm["lm_serve_big"]
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
@@ -4592,6 +4880,14 @@ def main(argv=None) -> int:
     bwd_tp = time_flash_bwd(torch, fa, flash_bwd_ref, "bfloat16", (4, 2))[
         "flash_attention_bwd_sm90"]
     bwd_stacks = time_flash_bwd_stacks(torch, fa, flash_bwd_ref)
+    # starcoder2-3b's prefill and training shapes (24 query heads over 2
+    # KV heads: G 12), and a qwen1.5-110b model shard's prefill (16 over 2)
+    flash_g12 = _time_flash_case(torch, fa, flash_ref, LM_BATCH * 24,
+                                 LM_BATCH * 2, LM_PROMPT, 128, True, 98)
+    bwd_g12 = time_flash_bwd(torch, fa, flash_bwd_ref, "bfloat16", (24, 2))[
+        "flash_attention_bwd_sm90"]
+    flash_big = _time_flash_case(torch, fa, flash_ref, LM_BATCH * 16,
+                                 LM_BATCH * 2, LM_PROMPT, 128, True, 99)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
           "flash_attention_simt_zamba2": flash112,
@@ -4605,6 +4901,14 @@ def main(argv=None) -> int:
           "flash_attention_bwd_sm90_whisper_encoder":
           bwd_stacks["whisper_encoder"],
           "flash_attention_bwd_zamba2": bwd_stacks["zamba2"],
+          "flash_attention_sm90_starcoder2_g12": flash_g12,
+          "flash_attention_bwd_sm90_starcoder2_g12": bwd_g12,
+          "flash_attention_sm90_big_shard": flash_big,
+          "launches_on_bf16_configs_paths": configs_launches,
+          "launches_on_fp32_configs_checks": configs_fp32_launches,
+          "sm90_launches_on_bf16_big_serving_path": big_launches,
+          "simt_launches_on_fp32_big_serving_check": big_fp32_launches,
+          "sm90_launches_on_bf16_mixtral_serving_path": mixtral_launches,
           "launches_on_bf16_encdec_train_path": encdec_train_launches,
           "launches_on_fp32_encdec_train_check": fp32_encdec_train_launches,
           "launches_on_bf16_ssm_train_path": ssm_train_launches,
@@ -4660,6 +4964,7 @@ def main(argv=None) -> int:
                        sm90_launches, flash["flash_attention_sm90"],
                        {"lm_serve": sm90_launches,
                         "lm_serve_moe": moe_sm90_launches,
+                        "lm_serve_moe_mixtral": mixtral_launches,
                         "lm_serve_encdec": encdec_sm90_launches,
                         "lm_serve_vlm": vlm_sm90_launches,
                         "lm_train": train_launches["flash_attention_sm90"],
@@ -4671,7 +4976,10 @@ def main(argv=None) -> int:
                         "lm_serve_tp": serve_tp_launches,
                         "lm_tp_stacks":
                         stacks_launches["flash_attention_sm90"],
-                        "lm_serve_seq": seq_launches}),
+                        "lm_serve_seq": seq_launches,
+                        "lm_configs":
+                        configs_launches["flash_attention_sm90"],
+                        "lm_serve_big": big_launches}),
          "other_shapes": {
              name: {"launches": n, **{k: row[k] for k in (
                  "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4682,7 +4990,10 @@ def main(argv=None) -> int:
                  ("qwen2_vl_prefill", vlm_sm90_launches,
                   flash_encdec["qwen2_vl_prefill"]),
                  ("tp_shard", tp_launches["flash_attention_sm90"],
-                  flash_tp))}},
+                  flash_tp),
+                 ("starcoder2_g12", starcoder2["flash_attention_sm90"],
+                  flash_g12),
+                 ("big_shard", big_launches, flash_big))}},
         {**kernel_line("flash_attention_simt",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:33 "
@@ -4712,7 +5023,10 @@ def main(argv=None) -> int:
                         stacks_launches["flash_attention_simt"],
                         "lm_tp_stacks_fp32_checks":
                         stacks_fp32_launches["flash_attention_simt"],
-                        "lm_serve_seq_fp32_check": seq_fp32_launches}),
+                        "lm_serve_seq_fp32_check": seq_fp32_launches,
+                        "lm_configs_fp32_checks":
+                        configs_fp32_launches["flash_attention_simt"],
+                        "lm_serve_big_fp32_check": big_fp32_launches}),
          "case": flash112["case"],
          "fp32": kernel_line("flash_attention_simt",
                              "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4733,7 +5047,9 @@ def main(argv=None) -> int:
                     "lm_train_dp": dp_launches["flash_attention_bwd_sm90"],
                     "lm_train_tp": tp_launches["flash_attention_bwd_sm90"],
                     "lm_tp_stacks":
-                    stacks_launches["flash_attention_bwd_sm90"]}),
+                    stacks_launches["flash_attention_bwd_sm90"],
+                    "lm_configs":
+                    configs_launches["flash_attention_bwd_sm90"]}),
      "other_shapes": {name: {
          "launches": n,
          **{k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
@@ -4742,7 +5058,9 @@ def main(argv=None) -> int:
              ("tp_shard", tp_launches["flash_attention_bwd_sm90"], bwd_tp),
              ("whisper_encoder",
               encdec_train_launches["flash_attention_bwd_sm90"] // 2,
-              bwd_stacks["whisper_encoder"]))}},
+              bwd_stacks["whisper_encoder"]),
+             ("starcoder2_g12", starcoder2["flash_attention_bwd_sm90"],
+              bwd_g12))}},
         {**kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "none: no TPU kernel is replaced; the gradient of "
@@ -4766,6 +5084,8 @@ def main(argv=None) -> int:
                      "lm_tp_stacks": stacks_launches["flash_attention_bwd"],
                      "lm_tp_stacks_fp32_checks":
                      stacks_fp32_launches["flash_attention_bwd"],
+                     "lm_configs_fp32_checks":
+                     configs_fp32_launches["flash_attention_bwd"],
                      "lm_train_bf16": train_launches["flash_attention_bwd"]}),
          "other_shapes": {"zamba2_train": {
              "launches": ssm_train_launches["flash_attention_bwd"],

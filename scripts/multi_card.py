@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s ``sharded``, ``grid`` and ``lm_train_dp`` phases,
 one shard a card; with ``--model-parallel``, its ``lm_train_tp`` phase,
-one model shard a card.
+one model shard a card; with ``--serve-big``, its ``lm_serve_big`` phase
+at full depth for the three models no one card holds, one model shard a
+card.
 
     python3 scripts/multi_card.py [--trace DIR]   # on 4 or more cards
     python3 scripts/multi_card.py --model-parallel
+    python3 scripts/multi_card.py --serve-big
 
 ``chip_smoke.py`` runs the multi-device engines on one and on four shards
 of one card, which tests their logic on a one-card machine. This script
@@ -29,6 +32,14 @@ card m (its float32 check on mesh (2, 2) over cards 0-3), so every
 model-axis sum and gather copies between cards; held to
 ``chip_smoke.py``'s checks (launches, replicas bit-equal, float32 against
 the one-device step), with the sums' and gathers' CUDA-event ms a step.
+``--serve-big`` runs only ``lm_serve_big`` (``BIG_MODELS``): qwen1.5-110b
+(80 layers, 222 GB in bf16), qwen2-vl-72b (80 layers, 145 GB, with its
+256 stub patches) and mixtral-8x7b (32 layers, 93 GB, expert-parallel, 2
+experts a shard) served whole in bf16 on mesh (1, 4) with model shard m
+on card m, each model's parameters drawn straight into their blocks on
+the four cards (``init_sharded``), each card's peak beside its
+reckoning, each model's float32 check at 2 layers against one device;
+one JSON line a model.
 """
 import argparse
 import json
@@ -44,6 +55,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 CARDS = 4
+BIG_MODELS = ("qwen1.5-110b", "qwen2-vl-72b", "mixtral-8x7b")
 
 
 def trace(torch, path: Path, fn) -> None:
@@ -63,6 +75,9 @@ def main() -> int:
                     help="directory for the two runs' traces")
     ap.add_argument("--model-parallel", action="store_true",
                     help="run lm_train_tp only, one model shard a card")
+    ap.add_argument("--serve-big", action="store_true",
+                    help="run lm_serve_big only, at full depth for "
+                         + ", ".join(BIG_MODELS) + ", one model shard a card")
     args = ap.parse_args()
     import torch
     if torch.cuda.device_count() < CARDS:
@@ -79,7 +94,7 @@ def main() -> int:
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import steps
+    from repro_torch.launch import profile_serve, steps
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw
     from repro_torch.kernels import build as kbuild
@@ -92,6 +107,20 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = cs.phase_device(torch)
     kbuild.load()
+    if args.serve_big:
+        big = {arch: cs.phase_lm_serve_big(
+            torch, fa, kv, steps, ARCHS, SH, make_host_mesh, profile_serve,
+            smi, arch, None, place) for arch in BIG_MODELS}
+        cs.emit({"phase": "done", "sm90_launches_on_bf16_big_serving_path":
+                 {a: n for a, (n, _) in big.items()},
+                 "simt_launches_on_fp32_big_serving_check":
+                 {a: n for a, (_, n) in big.items()},
+                 "seconds": time.perf_counter() - t0})
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.model_parallel:
         tp, tp32 = cs.phase_lm_train_tp(
             torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,

@@ -14,10 +14,16 @@ What jax's ``device_put`` does for the reference is here too:
 ``shard_tree`` gives each device of the mesh its block of each leaf (a
 ``ShardedTensor``), ``gather_tree`` joins the blocks back, ``data_shards``
 takes the blocks one data shard holds, and ``replicate`` puts a whole
-tree on every data shard. The steps run over the data axes with
-replicated params where the ``model`` axis is 1, and tensor-parallel on
-the blocks these rules place where it is larger
-(``launch/steps.py``, ``distributed/tensor_parallel.py``).
+tree on every data shard. ``init_sharded`` gives what ``shard_tree(
+model.init(generator), shardings)`` gives, bit for bit, without any
+device holding a whole stacked leaf: each layer goes into its blocks as
+it is drawn. It is the reference's ``device_put(model.init(key),
+shardings)`` (``repro.launch.train``) for a model that no one card
+holds; ``zeros_tree`` gives the optimizer's zero moments block by block.
+The steps run over the data axes with replicated params where the
+``model`` axis is 1, and tensor-parallel on the blocks these rules place
+where it is larger (``launch/steps.py``,
+``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -288,6 +294,75 @@ class ShardedTensor:
                 seen.add(key)
                 out[sl].copy_(self.blocks[pos])
         return out
+
+
+def _blocks(sharding: Sharding, shape, dtype, make=torch.empty
+            ) -> ShardedTensor:
+    """A leaf of ``shape`` on ``sharding``, each block ``make``-d on its
+    device (``torch.empty``: not yet written)."""
+    mesh = sharding.mesh
+    if mesh.devices is None:
+        raise ValueError(f"{mesh!r} has no devices to place a leaf on")
+    meta = torch.empty(shape, dtype=dtype, device="meta")
+    blocks = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(mesh.devices.shape):
+        blocks[pos] = make(meta[sharding.block(shape, pos)].shape,
+                           dtype=dtype, device=mesh.devices[pos])
+    return ShardedTensor(sharding, shape, dtype, blocks)
+
+
+def _write_row(t: ShardedTensor, row: torch.Tensor, i: int) -> None:
+    """Row ``i`` of a stacked leaf (``row`` whole, one layer) into the
+    blocks that hold it."""
+    for pos in np.ndindex(t.blocks.shape):
+        sl = t.sharding.block(t.shape, pos)
+        lo, hi, _ = sl[0].indices(t.shape[0])
+        if lo <= i < hi:
+            t.blocks[pos][i - lo].copy_(row[sl[1:]])
+
+
+class _Blocks:
+    """Where ``init_sharded`` puts what an init draws (the calls of
+    ``models.layers.Whole``): each leaf into its blocks on the
+    ``Sharding`` of ``shardings`` (the subtree's) at the same path."""
+
+    def __init__(self, shardings):
+        self.shardings = shardings
+
+    def at(self, key) -> "_Blocks":
+        return _Blocks(self.shardings[key])
+
+    def put(self, tree):
+        return shard_tree(tree, self.shardings)
+
+    def stack(self, layer, n: int):
+        return tree_map(lambda t, s, _: _blocks(
+            s, (n,) + tuple(t.shape), t.dtype), layer, self.shardings)
+
+    def write(self, out, layer, i: int) -> None:
+        tree_map(lambda o, t, _: _write_row(o, t, i), out, layer)
+
+
+def init_sharded(model, generator: torch.Generator, shardings):
+    """``shard_tree(model.init(generator), shardings)``, bit for bit, drawn
+    straight into the blocks: the same draws in the same order on the
+    generator's device, each layer of a stack written into the blocks it
+    lands in as it is drawn, each leaf outside a stack (the embedding, the
+    head, the norms, zamba2's shared attention) placed as it is drawn and
+    then freed. No device holds more than its own blocks beside one drawn
+    layer (one group of a nested stack) or one such leaf. ``shardings``:
+    a tree of ``Sharding`` (``to_named(mesh, param_specs(...))``)."""
+    return model.init(generator, generator.device, into=_Blocks(shardings))
+
+
+def zeros_tree(shapes, shardings):
+    """A tree of ``ShardedTensor`` of zeros shaped like ``shapes`` (meta
+    tensors, ``make_train_step``'s ``opt_shapes``), on ``shardings``,
+    each block made on its device: ``shard_tree`` of the same zeros with
+    no leaf whole anywhere (the optimizer's moments of a model from
+    ``init_sharded``)."""
+    return tree_map(lambda t, s, _: _blocks(s, t.shape, t.dtype,
+                                            torch.zeros), shapes, shardings)
 
 
 def _place(t, sharding: Sharding) -> ShardedTensor:

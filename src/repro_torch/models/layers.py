@@ -16,9 +16,11 @@ What differs from the reference:
   bf16 tensor-core kernel rounds them to bf16 as ``_sdpa`` casts them to
   v's dtype, but after the running max, not after the whole softmax, so
   in bf16 the two differ by rounding.
-  Windowed attention and decode keep ``_sdpa``, but for zamba2's shared
-  attention (``windowed_attention``): while its window covers the prompt,
-  that is causal attention, and it runs the kernel. ``_sdpa_chunked`` and
+  Causal attention under a sliding window (mixtral's ``swa_window``,
+  zamba2's shared attention) runs the kernel too while the window covers
+  the prompt: there the window masks nothing the causal mask does not
+  (``self_attend``). Past it, and in a decode step, it keeps the masked
+  ``_sdpa``: the reference's kernel has no window. ``_sdpa_chunked`` and
   ``REPRO_ATTN_CHUNK`` have no counterpart: the kernel replaces them.
 * ``attention_decode`` writes the new K/V into the cache in place.
 * ``shard_act`` has no counterpart. The ``tp_*`` functions (tensor
@@ -35,7 +37,9 @@ What differs from the reference:
 * Initializers draw from an explicit ``torch.Generator`` on its own device
   and move the result to ``device``, scaling the fp32 draw in place (one
   fp32 copy of a leaf at a time); on the ``meta`` device they draw
-  nothing and give shapes only (``Model.abstract_params``).
+  nothing and give shapes only (``Model.abstract_params``). The stacks'
+  inits put what they draw ``into`` a place (``Whole``: kept whole;
+  ``distributed.sharding.init_sharded``: into its blocks on a mesh).
 """
 from __future__ import annotations
 
@@ -52,6 +56,36 @@ from .config import ModelConfig
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+class Whole:
+    """Where an init puts what it draws: each leaf whole, where it was
+    drawn (``Model.init``). ``distributed.sharding.init_sharded`` puts
+    each into its blocks on a mesh instead, through the same calls:
+    ``at(key)`` the place of a subtree, ``put(tree)`` a tree drawn whole,
+    ``stack(layer, n)`` the ``[n, ...]`` leaves of n layers shaped like
+    ``layer`` and ``write(out, layer, i)`` layer i into them."""
+
+    def at(self, key) -> "Whole":
+        return self
+
+    def put(self, tree):
+        return tree
+
+    def stack(self, layer, n: int):
+        if isinstance(layer, dict):
+            return {k: self.stack(v, n) for k, v in layer.items()}
+        return layer.new_empty((n,) + tuple(layer.shape))
+
+    def write(self, out, layer, i: int) -> None:
+        if isinstance(out, dict):
+            for k in out:
+                self.write(out[k], layer[k], i)
+        else:
+            out[i].copy_(layer)
+
+
+WHOLE = Whole()
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -207,18 +241,28 @@ def flash_sdpa(q, k, v, causal: bool = True) -> torch.Tensor:
     return out.reshape(B, H, S, dh).transpose(1, 2).reshape(B, S, H * dh)
 
 
+def self_attend(q, k, v, cfg: ModelConfig, window: Optional[int],
+                causal: bool = True) -> torch.Tensor:
+    """A prompt's self-attention under ``window`` (None: none) -> [B, S,
+    H*dh]: the flash kernel (``flash_sdpa``) without a window, and with
+    one while it covers the S keys of a causal prompt (the window then
+    masks nothing the causal mask does not); past it the masked
+    ``_sdpa``, as without causality (a window with no causal mask masks
+    nothing)."""
+    S = q.shape[1]
+    if window is None or (causal and S <= window):
+        return flash_sdpa(q, k, v, causal)
+    mask = causal_mask(S, S, window, device=q.device) if causal else None
+    return _sdpa(q, k, v, mask, cfg)
+
+
 def attention_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   pos: torch.Tensor, window: Optional[int] = None,
                   causal: bool = True) -> torch.Tensor:
     """Full self-attention (training / prefill)."""
     q, k, v = _qkv(p, cfg, x, pos)
-    w = window if window else cfg.swa_window
-    if w is None:
-        out = flash_sdpa(q, k, v, causal)
-    else:
-        mask = causal_mask(x.shape[1], x.shape[1], w, device=x.device) \
-            if causal else None
-        out = _sdpa(q, k, v, mask, cfg)
+    out = self_attend(q, k, v, cfg, window if window else cfg.swa_window,
+                      causal)
     return out @ p["wo"]
 
 
@@ -232,12 +276,7 @@ def windowed_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     nothing the causal mask does not, so it runs the flash kernel
     (``flash_sdpa``); past it, the masked ``_sdpa``."""
     q, k, v = _qkv(p, cfg, x, pos)
-    S = x.shape[1]
-    if S <= window:
-        out = flash_sdpa(q, k, v)
-    else:
-        out = _sdpa(q, k, v, causal_mask(S, S, window, device=x.device), cfg)
-    return out @ p["wo"], k, v
+    return self_attend(q, k, v, cfg, window) @ p["wo"], k, v
 
 
 def cross_attention_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -312,12 +351,16 @@ def mlp_fwd(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ embedding ----
-def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+def embed_init(gen: torch.Generator, cfg: ModelConfig, device,
+               into: Whole = WHOLE) -> Dict:
+    """The token embedding and, untied, the unembedding, each put
+    ``into`` its place as it is drawn."""
     dt = _dtype(cfg)
-    p = {"tok": _randn(gen, (cfg.vocab, cfg.d_model), device).mul_(0.02)
-         .to(dt)}
+    p = {"tok": into.at("tok").put(_randn(
+        gen, (cfg.vocab, cfg.d_model), device).mul_(0.02).to(dt))}
     if not cfg.tie_embeddings:
-        p["out"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
+        p["out"] = into.at("out").put(dense_init(gen, cfg.d_model,
+                                                 cfg.vocab, dt, device))
     return p
 
 
@@ -471,25 +514,19 @@ def _tp_split(ps, cfg: ModelConfig) -> bool:
 
 def tp_attention_fwd(tp, ps, cfg: ModelConfig, hs, pos,
                      window: Optional[int] = None, causal: bool = True):
-    """Self-attention (training, prefill) of each shard's query heads on
-    the flash kernel, causal or not (the masked ``_sdpa`` under a window)
-    -> (outs, kvs, split): each shard's output through its ``wo`` rows,
-    partial sums when ``split`` (``wo`` split by rows) and the whole
-    output otherwise; ``kvs`` each shard's whole ``(k, v)`` for a
-    prefill's cache. ``window`` is ``windowed_attention``'s: the flash
-    kernel while the sequence fits it; without one ``cfg.swa_window``
-    masks, as in ``attention_fwd``."""
+    """Self-attention (training, prefill) of each shard's query heads,
+    causal or not, through ``self_attend`` (the flash kernel, the masked
+    ``_sdpa`` past a window) -> (outs, kvs, split): each shard's output
+    through its ``wo`` rows, partial sums when ``split`` (``wo`` split by
+    rows) and the whole output otherwise; ``kvs`` each shard's whole
+    ``(k, v)`` for a prefill's cache. ``window`` is
+    ``windowed_attention``'s; without one ``cfg.swa_window``'s, as in
+    ``attention_fwd``."""
     outs, kvs = [], []
+    w = cfg.swa_window if window is None else window
     for p, (q, k, v, cols) in zip(ps, tp_qkv(tp, ps, cfg, hs, pos)):
         kv = kv_heads(cfg, cols[2], cols[2] + q.shape[2])
-        S = q.shape[1]
-        w = cfg.swa_window if window is None else (
-            None if S <= window else window)
-        if w is None:
-            o = flash_sdpa(q, k[:, :, kv], v[:, :, kv], causal)
-        else:
-            mask = causal_mask(S, S, w, device=q.device) if causal else None
-            o = _sdpa(q, k[:, :, kv], v[:, :, kv], mask, cfg)
+        o = self_attend(q, k[:, :, kv], v[:, :, kv], cfg, w, causal)
         outs.append(_tp_out(p, cfg, o, cols))
         kvs.append((k, v))
     return outs, kvs, _tp_split(ps, cfg)

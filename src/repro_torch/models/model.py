@@ -84,10 +84,15 @@ class Model:
         return resolve_device(self.device if device is None else device)
 
     # ------------------------------------------------------------- init ----
-    def init(self, generator: torch.Generator, device=None) -> Params:
+    def init(self, generator: torch.Generator, device=None,
+             into: L.Whole = L.WHOLE) -> Params:
         """Random parameters drawn from ``generator`` (on its own device),
-        placed on ``device``: the model's, else the card."""
-        return _init(self.cfg)(generator, self.cfg, self._device(device))
+        placed on ``device``: the model's, else the card; each stack and
+        each leaf outside one put ``into`` its place as it is drawn
+        (``distributed.sharding.init_sharded`` puts them into their
+        blocks on a mesh)."""
+        return _init(self.cfg)(generator, self.cfg, self._device(device),
+                               into)
 
     def abstract_params(self) -> Params:
         """The parameters' shapes and dtypes as meta-device tensors (no

@@ -51,7 +51,9 @@ does, and runs ``_sdpa``.
 
 zamba2's shared attention runs ``layers.windowed_attention``: the flash
 kernel while the prompt fits ``ZAMBA_WINDOW`` (the window then masks
-nothing the causal mask does not), the masked ``_sdpa`` past it; its
+nothing the causal mask does not), the masked ``_sdpa`` past it, as a
+decoder's attention under ``cfg.swa_window`` (mixtral) does in a full
+forward and in ``decoder_prefill`` (``layers.self_attend``); its
 decode keeps ``attention_decode(..., window=ZAMBA_WINDOW)``. The zamba2
 and xLSTM forwards take ``cache=None`` for a full forward, a cache for a
 prefill (from the initial state; every state leaf and K/V slot of the
@@ -63,7 +65,11 @@ chunks of its own (``ssm.SCAN_CHUNK``).
 
 ``_stack_init`` allocates each stacked leaf once and fills layer i in
 place as it is drawn, so an init holds the parameters plus one layer (for
-nested stacks, one group), not the parameters twice.
+nested stacks, one group), not the parameters twice. Each init takes
+``into`` (``layers.Whole``), which places each stack and each leaf drawn
+outside a stack: ``Model.init`` keeps them whole,
+``distributed.sharding.init_sharded`` writes them into their blocks on a
+mesh as they are drawn, so that no device holds the whole model.
 """
 from __future__ import annotations
 
@@ -80,27 +86,16 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 
 
-def _stack_init(gen: torch.Generator, n: int, init_fn) -> Params:
+def _stack_init(gen: torch.Generator, n: int, init_fn,
+                into: L.Whole = L.WHOLE) -> Params:
     """n layers from ``init_fn(gen)``, drawn in order, as stacked
-    ``[n, ...]`` leaves allocated once; layer i is copied into row i as it
-    is drawn."""
-    def empty(t):
-        if isinstance(t, dict):
-            return {k: empty(v) for k, v in t.items()}
-        return t.new_empty((n,) + tuple(t.shape))
-
-    def fill(dst, src, i):
-        if isinstance(dst, dict):
-            for k in dst:
-                fill(dst[k], src[k], i)
-        else:
-            dst[i].copy_(src)
-
+    ``[n, ...]`` leaves allocated once (``into.stack``); layer i is
+    written into row i as it is drawn (``into.write``)."""
     out = None
     for i in range(n):
         layer = init_fn(gen)
-        out = empty(layer) if out is None else out
-        fill(out, layer, i)
+        out = into.stack(layer, n) if out is None else out
+        into.write(out, layer, i)
         del layer      # before the next layer is drawn
     return out
 
@@ -145,12 +140,15 @@ def dense_block_fwd(cfg: ModelConfig, p: Params, x, pos,
     return (x if m is None else x + m), aux
 
 
-def decoder_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def decoder_init(gen: torch.Generator, cfg: ModelConfig, device,
+                 into: L.Whole = L.WHOLE) -> Params:
     return {
-        "embed": L.embed_init(gen, cfg, device),
+        "embed": L.embed_init(gen, cfg, device, into.at("embed")),
         "layers": _stack_init(gen, cfg.n_layers,
-                              lambda g: dense_block_init(g, cfg, device)),
-        "lnf": L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device),
+                              lambda g: dense_block_init(g, cfg, device),
+                              into.at("layers")),
+        "lnf": into.at("lnf").put(
+            L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device)),
     }
 
 
@@ -208,11 +206,7 @@ def decoder_prefill(cfg: ModelConfig, params: Params, x, pos,
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = L._qkv(p["attn"], cfg, hn, pos)
-        if cfg.swa_window is None:
-            a = L.flash_sdpa(q, k, v)
-        else:
-            mask = L.causal_mask(S, S, cfg.swa_window, device=x.device)
-            a = L._sdpa(q, k, v, mask, cfg)
+        a = L.self_attend(q, k, v, cfg, cfg.swa_window)
         x = x + a @ p["attn"]["wo"]
         m, _ = _ffn(cfg, p, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
         if m is not None:
@@ -369,7 +363,8 @@ def _groups(cfg: ModelConfig, every: int) -> Tuple[int, int]:
     return cfg.n_layers // every, cfg.n_layers % every
 
 
-def zamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def zamba2_init(gen: torch.Generator, cfg: ModelConfig, device,
+                into: L.Whole = L.WHOLE) -> Params:
     inner = cfg.attn_every
     n_super, tail = _groups(cfg, inner)
     dt = L._dtype(cfg)
@@ -378,15 +373,18 @@ def zamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
         return _mamba_layer_init(g, cfg, device)
 
     p = {
-        "embed": L.embed_init(gen, cfg, device),
+        "embed": L.embed_init(gen, cfg, device, into.at("embed")),
         "super": _stack_init(gen, n_super,
-                             lambda g: _stack_init(g, inner, layer)),
-        "shared_ln": L.rmsnorm_init(cfg.d_model, dt, device),
-        "shared_attn": L.attention_init(gen, cfg, device),
-        "lnf": L.rmsnorm_init(cfg.d_model, dt, device),
+                             lambda g: _stack_init(g, inner, layer),
+                             into.at("super")),
+        "shared_ln": into.at("shared_ln").put(
+            L.rmsnorm_init(cfg.d_model, dt, device)),
+        "shared_attn": into.at("shared_attn").put(
+            L.attention_init(gen, cfg, device)),
+        "lnf": into.at("lnf").put(L.rmsnorm_init(cfg.d_model, dt, device)),
     }
     if tail:
-        p["tail"] = _stack_init(gen, tail, layer)
+        p["tail"] = _stack_init(gen, tail, layer, into.at("tail"))
     return p
 
 
@@ -481,7 +479,8 @@ def zamba2_fwd(cfg: ModelConfig, params: Params, x, pos,
 
 
 # ------------------------------------------------------------ xlstm --------
-def xlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def xlstm_init(gen: torch.Generator, cfg: ModelConfig, device,
+               into: L.Whole = L.WHOLE) -> Params:
     inner = cfg.slstm_every - 1          # mLSTM layers per group
     n_super, _ = _groups(cfg, cfg.slstm_every)
 
@@ -491,9 +490,10 @@ def xlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
                 "s": _xl_layer_init(g, cfg, "s", device)}
 
     return {
-        "embed": L.embed_init(gen, cfg, device),
-        "super": _stack_init(gen, n_super, group_init),
-        "lnf": L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device),
+        "embed": L.embed_init(gen, cfg, device, into.at("embed")),
+        "super": _stack_init(gen, n_super, group_init, into.at("super")),
+        "lnf": into.at("lnf").put(
+            L.rmsnorm_init(cfg.d_model, L._dtype(cfg), device)),
     }
 
 
@@ -544,7 +544,8 @@ def xlstm_fwd(cfg: ModelConfig, params: Params, x, pos,
 
 
 # ----------------------------------------------------- encoder-decoder -----
-def encdec_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def encdec_init(gen: torch.Generator, cfg: ModelConfig, device,
+                into: L.Whole = L.WHOLE) -> Params:
     """The reference's leaves: ``enc_layers`` (``ln1``, ``attn``, ``ln2``,
     ``mlp``) and ``dec_layers`` (also ``lnx`` and ``cross``), stacked,
     beside ``embed``, ``enc_lnf`` and ``lnf``; drawn in that order."""
@@ -563,11 +564,13 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
                 "ln2": norm(), "mlp": L.mlp_init(g, cfg, device)}
 
     return {
-        "embed": L.embed_init(gen, cfg, device),
-        "enc_layers": _stack_init(gen, cfg.n_enc_layers, enc_layer),
-        "enc_lnf": norm(),
-        "dec_layers": _stack_init(gen, cfg.n_layers, dec_layer),
-        "lnf": norm(),
+        "embed": L.embed_init(gen, cfg, device, into.at("embed")),
+        "enc_layers": _stack_init(gen, cfg.n_enc_layers, enc_layer,
+                                  into.at("enc_layers")),
+        "enc_lnf": into.at("enc_lnf").put(norm()),
+        "dec_layers": _stack_init(gen, cfg.n_layers, dec_layer,
+                                  into.at("dec_layers")),
+        "lnf": into.at("lnf").put(norm()),
     }
 
 

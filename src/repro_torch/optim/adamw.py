@@ -6,7 +6,11 @@ names, the same fp32 arithmetic in the same order. Params of a lower
 precision are read as fp32 and written back rounded to their dtype, as the
 reference's ``upd`` does. ``torch.round`` rounds half to even, as
 ``jnp.round`` does. Every function is functional: it returns new tensors
-and leaves its inputs as they are.
+and leaves its inputs as they are. ``apply`` updates a leaf of more than
+``CHUNK`` elements a slice of its leading axis at a time (the same
+elementwise arithmetic, so the same bits), which bounds its fp32
+temporaries to a few chunks: on a stacked ``[L, ...]`` leaf of a billion
+elements they would otherwise be several whole fp32 copies of it.
 """
 from __future__ import annotations
 
@@ -14,6 +18,10 @@ import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+
+
+# elements of a leaf that ``apply`` updates at once (256 MiB in fp32)
+CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -124,6 +132,17 @@ def apply(params, grads, state: AdamWState, *, lr=None, b1=0.9, b2=0.95,
         new_p = pf - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * pf)
         return new_p.to(p.dtype), m, v
 
+    def upd_chunked(p, g, m, v):
+        if p.dim() == 0 or p.numel() <= CHUNK:
+            return upd(p, g, m, v)
+        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        rows = max(1, CHUNK // (p.numel() // p.shape[0]))
+        for i in range(0, p.shape[0], rows):
+            part = slice(i, i + rows)
+            for o, x in zip(out, upd(p[part], g[part], m[part], v[part])):
+                o[part] = x
+        return out
+
     new_p, new_m, new_v = _unzip(
-        tree_map(upd, params, grads, state.m, state.v), 3)
+        tree_map(upd_chunked, params, grads, state.m, state.v), 3)
     return new_p, AdamWState(step, new_m, new_v, state.ef), gnorm

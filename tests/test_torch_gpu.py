@@ -674,6 +674,62 @@ def test_flash_bwd_sm90_matches_plain(cuda, S, G, dh, causal):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("S", [17, 2048])
+def test_flash_sm90_pair_at_g12_matches_plain(cuda, S):
+    """starcoder2-3b's heads at B = 4: 96 query row-sets over 8 KV
+    row-sets (G = 12), dh 128, causal. The forward against ``flash_ref``
+    within 2e-2, its lse within 1e-3 of ``flash_ref``'s, and the backward
+    against ``flash_bwd_ref(lse=)`` within 2e-2 of each output's max; one
+    launch each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
+    q, k, v = _bf16_qkv(cuda, 96, 8, S, 128, S + 12)
+    do = _bf16_qkv(cuda, 96, 8, S, 128, S + 13)[0]
+    fa.reset_counts()
+    o, lse = fa.flash_attention_sm90(q, k, v, True, return_lse=True)
+    got = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {name: int(name in ("flash_attention_sm90",
+                                            "flash_attention_bwd_sm90"))
+                         for name in fa.COUNTS}
+    want, lse_ref = flash_ref(q, k, v, True, return_lse=True)
+    torch.testing.assert_close(o.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+    for a, b in zip(got, flash_bwd_ref(q, k, v, o, do, True, lse=lse)):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(
+            b.float().abs().max())
+
+
+@pytest.mark.parametrize("name", ["qwen1.5-110b", "mixtral-8x7b",
+                                  "zamba2-7b"])
+def test_sharded_draw_on_four_shards_of_the_card_equals_one_device(cuda,
+                                                                   name):
+    """``init_sharded`` over mesh (1, 4) of ``["cuda:0"] * 4`` (SMOKE
+    size, the generator on the card): every block bit-equal to the same
+    block of ``model.init`` on the card, whole."""
+    from repro_torch.configs import SMOKE
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build
+    cfg = SMOKE[name]
+    model = build(cfg, cuda)
+    mesh = make_host_mesh(4, ["cuda:0"] * 4)
+    sh = SH.to_named(mesh, SH.param_specs(cfg, mesh,
+                                          model.abstract_params()))
+    whole = model.init(torch.Generator(device=cuda).manual_seed(2))
+    got = SH.init_sharded(model, torch.Generator(device=cuda).manual_seed(2),
+                          sh)
+    leaves = SH.tree_leaves(got)
+    assert len(leaves) == len(SH.tree_leaves(whole))
+    for t, w in zip(leaves, SH.tree_leaves(whole)):
+        for pos in np.ndindex(t.blocks.shape):
+            b = t.blocks[pos]
+            assert b.device.type == "cuda"
+            assert torch.equal(b, w[t.sharding.block(w.shape, pos)])
+
+
 def test_flash_sm90_forward_without_lse_gives_the_same_output(cuda):
     """Asking the forward for lse changes nothing in its output."""
     from repro_torch.kernels import flash_attention as fa
