@@ -161,6 +161,13 @@ launch counts set to 0 just before and read just after:
   two layers on the same mesh against one device
   (``scripts/multi_card.py --serve-big``: qwen1.5-110b, qwen2-vl-72b and
   mixtral-8x7b whole, one model shard a card);
+* the dry run (``dryrun``, ``launch/dryrun.py``): qwen3-0.6b whole, a
+  prefill of 1 x 32768 tokens and a train step of 2 x 4096 planned on
+  meta tensors and then run, planned FLOPs, flash launches and peak held
+  to the card's, loss and gradient norm finite; the flash forward at S
+  32768 against ``flash_ref`` row by row, and a planted fault that check
+  must fail; five cells of the 16x16 mesh planned in worker processes,
+  the runs timed after the workers end;
 
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
@@ -1285,8 +1292,20 @@ FLASH_CASES = (
     # key tile of the same heads
     (LM_BATCH * 24, LM_BATCH * 2, LM_PROMPT, 128, "bfloat16", True),
     (LM_BATCH * 24, LM_BATCH * 2, 17, 128, "bfloat16", True),
+    # the dryrun phase's qwen3-0.6b train step, B=2 x S=4096
+    (2 * 16, 2 * 8, 4096, 128, "bfloat16", True),
 )
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# each output row's error over its size, ||o - ref|| / ||ref||, at the
+# worst row: on these random inputs |o| falls as 1/sqrt(keys), so past a
+# few thousand keys FLASH_TOL's absolute limit exceeds the values
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def flash_row_err(o, ref) -> float:
+    """The largest over rows of ||o - ref|| / ||ref||, in float32."""
+    ref = ref.float()
+    return float(((o.float() - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
 
 
 def flash_inputs(torch, BH, BHkv, S, dh, dtype, seed):
@@ -1324,8 +1343,9 @@ def phase_flash(torch, fa, flash_ref, kbuild):
     """Each case through ``flash_attention`` against the plain version on
     the same CUDA tensors, with the kernel that ran (one launch, the one
     ``route`` names); fp32 within 1e-4 (sums in another order), bf16
-    within 2e-2 (P and the output rounded to bf16); the error against
-    ``flash_ref`` in float64 beside it. The cases on
+    within 2e-2 (P and the output rounded to bf16), and each row within
+    FLASH_ROW_TOL of its size; the error against ``flash_ref`` in float64
+    beside it. The cases on
     ``flash_attention_simt`` also through its lse route: the same output
     with ``return_lse``, one launch, lse within 1e-5 (fp32) or 1e-4 (bf16)
     of ``flash_ref``'s, and its error in float64."""
@@ -1344,13 +1364,18 @@ def phase_flash(torch, fa, flash_ref, kbuild):
                f"causal={causal}")
         if ran != [fa.route(q.dtype, dh)]:
             raise AssertionError(f"{tag}: launched {ran}")
+        row = flash_row_err(out, ref)
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
             raise AssertionError(f"{tag}: {ran[0]} != plain (max abs err "
                                  f"{err})")
+        if not row <= FLASH_ROW_TOL[dtype]:
+            raise AssertionError(f"{tag}: {ran[0]} != plain (a row {row} "
+                                 "of its size off)")
         o64, lse64 = flash_ref(*_f64(q, k, v), causal, return_lse=True)
         case = {"BH": BH, "BHkv": BHkv, "S": S, "dh": dh, "dtype": dtype,
                 "causal": causal, "kernel": ran[0], "max_abs_err": err,
-                "tol": tol, "max_abs_err_float64": float(
+                "tol": tol, "row_rel_err": row,
+                "row_tol": FLASH_ROW_TOL[dtype], "max_abs_err_float64": float(
                     (out.double() - o64).abs().max())}
         if ran[0] == "flash_attention_simt":
             fa.reset_counts()
@@ -4022,6 +4047,212 @@ def phase_lm_serve_big(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
     return want["flash_attention_sm90"], launches32
 
 
+DRY_TRAIN_B, DRY_TRAIN_S = 2, 4096      # the planned-then-run train step
+DRY_PREFILL_B, DRY_PREFILL_S = 1, 32768  # the planned-then-run prefill
+DRY_PEAK_TOL = 0.05                     # planned peak against measured
+# one cell a stack kind, planned (not run) on the 16x16 mesh
+DRY_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
+             ("zamba2-7b", "long_500k"), ("whisper-medium", "decode_32k"),
+             ("qwen1.5-110b", "train_4k"))
+# the cells the port cannot run, each with its error (ROADMAP queue C)
+DRY_KNOWN_FAILS = {("zamba2-7b", "long_500k"):
+                   "a batch of 1 does not split over 16 data shards"}
+
+
+def _dry_cell(job):
+    """Worker: one production cell planned on meta devices."""
+    from repro_torch.launch import dryrun as DR
+    return DR._one((*job, False, False, True))
+
+
+def _bound_ms(DR, counts, mf=0.0) -> float:
+    return DR.roofline(counts, 1, mf).step_time * 1e3
+
+
+def _measured_peak(torch, base: int, planned: int, tag: str) -> dict:
+    """The card's peak above ``base`` beside the planned peak; raises
+    past DRY_PEAK_TOL."""
+    peak = torch.cuda.max_memory_allocated() - base
+    rel = abs(planned - peak) / peak
+    if not rel <= DRY_PEAK_TOL:
+        raise AssertionError(f"{tag}: planned peak {planned} bytes, "
+                             f"measured {peak} ({rel:.3f} apart)")
+    return {"planned_peak_bytes": planned, "measured_peak_bytes": peak,
+            "peak_rel_err": rel}
+
+
+def _dry_flash(torch, fa, flash_ref, cfg) -> dict:
+    """The flash forward at the dry-run prefill's shape (BH 16, S 32768,
+    dh 128, causal) against ``flash_ref`` in float32 on two heads, each
+    row within FLASH_ROW_TOL of its size; and the same check given a
+    planted fault (each row past S/2 blind to the keys past S/2), which it
+    must fail. Launches made to compare do not count."""
+    H, Hkv, dh, S = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, DRY_PREFILL_S
+    q, k, v = flash_inputs(torch, DRY_PREFILL_B * H, DRY_PREFILL_B * Hkv, S,
+                           dh, "bfloat16", 97)
+    o = fa.flash_attention_sm90(q, k, v, True)[:2].clone()
+    g = H // Hkv
+    q, k, v = q[:2].float(), k[:2 // g].float(), v[:2 // g].float()
+    want = flash_ref(q, k, v, True)
+    err = flash_row_err(o, want)
+    half = S // 2
+    bad = o.float()
+    bad[:, half:] = flash_ref(q[:, half:], k[:, :half], v[:, :half], False)
+    planted = flash_row_err(bad, want)
+    abs_err = float((o.float() - want).abs().max())
+    torch.cuda.synchronize()
+    tol = FLASH_ROW_TOL["bfloat16"]
+    if not err <= tol:
+        raise AssertionError(f"flash_attention_sm90 at S {S}: a row {err} "
+                             "of its size from flash_ref")
+    if not planted > tol:
+        raise AssertionError(f"flash at S {S}: the check passes a planted "
+                             f"fault (a row {planted} of its size off)")
+    del q, k, v, o, want, bad
+    torch.cuda.empty_cache()
+    return {"BH": DRY_PREFILL_B * H, "BHkv": DRY_PREFILL_B * Hkv, "S": S,
+            "dh": dh, "heads_checked": 2, "row_rel_err": err,
+            "row_tol": tol, "planted_fault_row_rel_err": planted,
+            "max_abs_err": abs_err}
+
+
+def _planned(DR, cfg, mode, S, B) -> tuple:
+    """(plan counts, planned launches, plan record) of a step on one
+    device."""
+    tp0 = time.perf_counter()
+    plan = DR.plan(cfg, mode, S, B)
+    counts = plan["counts"]
+    return counts, {k[1]: int(v) for k, v in counts.items()
+                    if k[0] == "launch"}, {
+        "B": B, "S": S, "plan_s": time.perf_counter() - tp0,
+        "traces": plan["traces"], "bound_ms": _bound_ms(DR, counts)}
+
+
+def phase_dryrun(torch, fa, kv, flash_ref, steps, ARCHS, adamw, smi):
+    """The dry run (``launch/dryrun.py``) held to the card. qwen3-0.6b
+    whole in bf16: the flash forward at the prefill's shape against
+    ``flash_ref`` (``_dry_flash``); a prefill of DRY_PREFILL_B x
+    DRY_PREFILL_S tokens and a train step of DRY_TRAIN_B x DRY_TRAIN_S on
+    one device, each planned on meta tensors, then run: the planned flash
+    launches equal ``COUNTS``, the planned peak is within DRY_PEAK_TOL of
+    ``max_memory_allocated`` above the base before it, the logits are
+    finite; the step's planned FLOPs equal ``FlopCounterMode`` over the
+    real step, its loss and gradient norm finite. Meanwhile DRY_CELLS are
+    planned on the 16x16 mesh in worker processes, each to a record: each
+    must plan, but for DRY_KNOWN_FAILS, which must fail with their known
+    error. The prefill and the step are timed after the workers have
+    ended, on an otherwise idle host, each planned bound beside its time.
+    Returns the flash launches of the two real runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    cfg = ARCHS[LM_ARCH]
+    out = {"arch": LM_ARCH, "nvidia_smi": smi}
+    launches = {}
+    with cf.ProcessPoolExecutor(len(DRY_CELLS),
+                                mp_context=mp.get_context("spawn")) as pool:
+        cells = [pool.submit(_dry_cell, c) for c in DRY_CELLS]
+        torch.cuda.empty_cache()
+        out["flash_s32768"] = _dry_flash(torch, fa, flash_ref, cfg)
+        g = torch.Generator(device="cuda").manual_seed(5)
+
+        # the prefill: planned, then run (its state kept for the timing)
+        base = torch.cuda.memory_allocated()
+        counts, planned, rec = _planned(DR, cfg, "prefill", DRY_PREFILL_S,
+                                        DRY_PREFILL_B)
+        model, prefill, _ = steps.make_serve_steps(cfg)
+        sparams = model.init(torch.Generator(device="cuda").manual_seed(0))
+        cache = model.make_cache(DRY_PREFILL_B, DRY_PREFILL_S)
+        tokens = torch.randint(0, cfg.vocab, (DRY_PREFILL_B, DRY_PREFILL_S),
+                               generator=g, device="cuda",
+                               dtype=torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, _ = _counted(fa, kv, lambda: prefill(
+            sparams, {"tokens": tokens}, cache), planned, "dryrun prefill")
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("dryrun prefill: logits not finite")
+        out["prefill"] = {**rec, "launches": planned, **_measured_peak(
+            torch, base, int(counts[("dev", 0, "peak")]), "dryrun prefill")}
+        launches["prefill"] = planned
+        del logits, model
+
+        # the train step: planned, then run
+        base = torch.cuda.memory_allocated()
+        counts, planned, rec = _planned(DR, cfg, "train", DRY_TRAIN_S,
+                                        DRY_TRAIN_B)
+        model, step, _, _ = steps.make_train_step(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw.init(params)
+        batch = {k: torch.randint(0, cfg.vocab, (DRY_TRAIN_B, DRY_TRAIN_S),
+                                  generator=g, device="cuda",
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            _, _, metrics = _counted(fa, kv, lambda: step(params, opt, batch),
+                                     planned, "dryrun train step")
+        torch.cuda.synchronize()
+        flops = fc.get_total_flops()
+        if int(counts[("dev", 0, "flops")]) != flops:
+            raise AssertionError(f"dryrun train step: planned "
+                                 f"{counts[('dev', 0, 'flops')]} FLOPs, "
+                                 f"counted {flops}")
+        loss, gnorm = float(metrics["loss"]), float(metrics["gnorm"])
+        if not (np.isfinite([loss, gnorm]).all() and gnorm > 0):
+            raise AssertionError(f"dryrun train step: loss {loss}, gnorm "
+                                 f"{gnorm}")
+        out["train"] = {**rec, "flops": flops, "launches": planned,
+                        "loss": loss, "gnorm": gnorm, **_measured_peak(
+                            torch, base, int(counts[("dev", 0, "peak")]),
+                            "dryrun train step")}
+        launches["train"] = planned
+        del metrics, model
+
+        # the production cells, planned in the workers
+        out["cells_16x16"] = []
+        for (arch, shape), fut in zip(DRY_CELLS, cells):
+            _, rec = fut.result()
+            known = DRY_KNOWN_FAILS.get((arch, shape))
+            if known is not None:
+                if rec["status"] != "fail" or known not in rec["error"]:
+                    raise AssertionError(
+                        f"dryrun {arch} {shape} 16x16: expected the known "
+                        f"failure ({known}), got {rec.get('error', 'ok')}")
+                out["cells_16x16"].append({
+                    "arch": arch, "shape": shape, "status": "fail",
+                    "error": rec["error"], "known": "ROADMAP queue C"})
+                continue
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {arch} {shape} 16x16: "
+                                     f"{rec['error']}")
+            r = rec["roofline"]
+            out["cells_16x16"].append({
+                "arch": arch, "shape": shape, "status": "ok",
+                "t_trace_s": rec["t_trace_s"],
+                "peak_bytes": rec["memory"]["peak_bytes"],
+                "bottleneck": r["bottleneck"],
+                "bound_ms": 1e3 * max(r["t_compute"], r["t_memory"],
+                                      r["t_collective"]),
+                "t_compute": r["t_compute"], "t_memory": r["t_memory"],
+                "t_collective": r["t_collective"],
+                "roofline_fraction": r["roofline_fraction"],
+                "measured": "not run: 256 cards", "nvidia_smi": smi})
+    # the workers have ended: the step and the prefill timed on an idle host
+    out["train"].update(ms=cuda_ms(torch, lambda: step(params, opt, batch),
+                                   1, warm=1), nvidia_smi=smi)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    out["prefill"].update(ms=cuda_ms(torch, lambda: prefill(
+        sparams, {"tokens": tokens}, cache), 1, warm=1), nvidia_smi=smi)
+    del sparams, cache, tokens, prefill
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t0, **out})
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4674,7 +4905,8 @@ def kernel_line(name, source, replaces, launches, t, by_path=None):
 LM_PHASES = ("lm_serve", "lm_serve_moe", "lm_serve_ssm", "lm_serve_encdec",
              "lm_serve_vlm", "lm_train", "lm_train_encdec", "lm_train_ssm",
              "lm_configs", "lm_train_dp", "lm_serve_dp", "lm_train_tp",
-             "lm_serve_tp", "lm_tp_stacks", "lm_serve_seq", "lm_serve_big")
+             "lm_serve_tp", "lm_tp_stacks", "lm_serve_seq", "lm_serve_big",
+             "dryrun")
 LM_NEEDS = {"lm_serve_tp": ("lm_serve_moe",), "lm_serve_seq": ("lm_serve",)}
 
 
@@ -4737,6 +4969,8 @@ def lm_phases(m: dict) -> dict:
             torch, fa, kv, steps, ARCHS, SH, TP, mesh, keep["lm"][0]),
         "lm_serve_big": lambda: phase_lm_serve_big(
             torch, fa, kv, steps, ARCHS, SH, mesh, profile_serve, smi),
+        "dryrun": lambda: phase_dryrun(
+            torch, fa, kv, flash_ref, steps, ARCHS, adamw, smi),
     }
 
 
@@ -4867,6 +5101,7 @@ def main(argv=None) -> int:
     configs_launches, configs_fp32_launches, by_config = lm["lm_configs"]
     starcoder2 = by_config["starcoder2-3b"]
     big_launches, big_fp32_launches = lm["lm_serve_big"]
+    dry_launches = lm["dryrun"]
     chunk, seed = phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8)
     flash = time_flash(torch, fa, flash_ref)
     flash32 = time_flash_fp32(torch, fa, flash_ref)
@@ -4979,7 +5214,11 @@ def main(argv=None) -> int:
                         "lm_serve_seq": seq_launches,
                         "lm_configs":
                         configs_launches["flash_attention_sm90"],
-                        "lm_serve_big": big_launches}),
+                        "lm_serve_big": big_launches,
+                        "dryrun_train":
+                        dry_launches["train"]["flash_attention_sm90"],
+                        "dryrun_prefill":
+                        dry_launches["prefill"]["flash_attention_sm90"]}),
          "other_shapes": {
              name: {"launches": n, **{k: row[k] for k in (
                  "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -5049,7 +5288,9 @@ def main(argv=None) -> int:
                     "lm_tp_stacks":
                     stacks_launches["flash_attention_bwd_sm90"],
                     "lm_configs":
-                    configs_launches["flash_attention_bwd_sm90"]}),
+                    configs_launches["flash_attention_bwd_sm90"],
+                    "dryrun_train":
+                    dry_launches["train"]["flash_attention_bwd_sm90"]}),
      "other_shapes": {name: {
          "launches": n,
          **{k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms",

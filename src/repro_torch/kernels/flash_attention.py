@@ -39,6 +39,14 @@ On CPU tensors every wrapper runs its plain version instead
 (``kernels/ref.py``: ``flash_ref``, ``flash_bwd_ref``); on CUDA tensors it
 launches its kernel or raises.
 
+Each launch is a ``torch.library`` custom op (``repro_torch::<wrapper's
+name>``) whose body is the ctypes launch. Its fake implementation gives
+the outputs' shapes and dtypes, so the ops run on fake and meta tensors
+with no launch (the dry run, ``launch/dryrun.py``), and its FLOP formula
+counts it under ``torch.utils.flop_counter.FlopCounterMode``. A wrapper
+adds one to ``COUNTS`` where it calls its op, outside the op, so a fake
+trace counts the launches the card would make.
+
 The kernels are built at first use with the port's other kernels
 (``kernels/build.py``).
 """
@@ -48,6 +56,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 from .build import check, load
 from .ref import flash_bwd_ref, flash_ref
@@ -157,6 +166,18 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _on_card(name: str, q: torch.Tensor) -> None:
+    """Raises unless ``q`` lies on a card."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+
+
+def _lse(q: torch.Tensor, return_lse: bool) -> torch.Tensor:
+    """The forward's lse buffer: ``[BH, S]`` fp32, or empty."""
+    return q.new_empty(q.shape[:2] if return_lse else (0,),
+                       dtype=torch.float32)
+
+
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, return_lse: bool = False):
     """``flash_attention`` on ``csrc/flash_attention_sm90.cu``: bfloat16,
@@ -171,21 +192,31 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"dh={q.shape[-1]}")
     if q.device.type == "cpu":
         return flash_ref(q, k, v, causal, return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_sm90: no kernel for {q.device}")
+    _on_card("flash_attention_sm90", q)
+    o, lse = torch.ops.repro_torch.flash_attention_sm90(
+        q.detach(), k.detach(), v.detach(), causal, return_lse)
+    COUNTS["flash_attention_sm90"] += 1
+    return (o, lse) if return_lse else o
+
+
+@torch.library.custom_op("repro_torch::flash_attention_sm90",
+                         mutates_args=())
+def _sm90_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, return_lse: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of ``csrc/flash_attention_sm90.cu``: (o, lse), lse
+    ``[BH, S]`` fp32 when ``return_lse``, else empty."""
     BH, S, dh = q.shape
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     o = torch.empty_like(q)
-    lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    lse = _lse(q, return_lse)
     with torch.cuda.device(q.device):
         err = load().flash_attention_sm90_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), BH, k.shape[0], S, dh,
+            lse.data_ptr() if return_lse else None, BH, k.shape[0], S, dh,
             int(causal), 1.0 / math.sqrt(dh), _stream(q))
         check("flash_attention_sm90", err)
-    COUNTS["flash_attention_sm90"] += 1
-    return (o, lse) if return_lse else o
+    return o, lse
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,25 +231,35 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route(q.dtype, q.shape[-1])     # raises for what no kernel takes
     if q.device.type == "cpu":
         return flash_ref(q, k, v, causal, return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_simt: no kernel for {q.device}")
-    BH, S, dh = q.shape
-    if BH > 65535:
+    _on_card("flash_attention_simt", q)
+    if q.shape[0] > 65535:
         raise ValueError(f"flash_attention_simt takes BH <= 65535, got "
-                         f"BH={BH}")
+                         f"BH={q.shape[0]}")
+    o, lse = torch.ops.repro_torch.flash_attention_simt(
+        q.detach(), k.detach(), v.detach(), causal, return_lse)
+    COUNTS["flash_attention_simt"] += 1
+    return (o, lse) if return_lse else o
+
+
+@torch.library.custom_op("repro_torch::flash_attention_simt",
+                         mutates_args=())
+def _simt_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, return_lse: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of ``csrc/flash_attention.cu``: (o, lse), lse ``[BH,
+    S]`` fp32 when ``return_lse``, else empty."""
+    BH, S, dh = q.shape
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     o = torch.empty_like(q)
-    lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    lse = _lse(q, return_lse)
     with torch.cuda.device(q.device):
         err = load().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), BH, k.shape[0], S, dh,
+            lse.data_ptr() if return_lse else None, BH, k.shape[0], S, dh,
             int(causal), int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
             _stream(q))
         check("flash_attention_simt", err)
-    COUNTS["flash_attention_simt"] += 1
-    return (o, lse) if return_lse else o
+    return o, lse
 
 
 def _check_lse(name: str, lse: torch.Tensor, q: torch.Tensor) -> None:
@@ -258,12 +299,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route(q.dtype, q.shape[-1])     # raises for what no kernel takes
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, o, do, causal, lse=lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
-    BH, S, dh = q.shape
-    if BH > 65535:
+    _on_card("flash_attention_bwd", q)
+    if q.shape[0] > 65535:
         raise ValueError(f"flash_attention_bwd takes BH <= 65535, got "
-                         f"BH={BH}")
+                         f"BH={q.shape[0]}")
+    grads = torch.ops.repro_torch.flash_attention_bwd(
+        *(t.detach() for t in (q, k, v, o, do)), causal,
+        None if lse is None else lse.detach())
+    COUNTS["flash_attention_bwd"] += 1
+    return grads
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, do: torch.Tensor, causal: bool,
+            lse: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The launch of ``csrc/flash_attention_bwd.cu``: (dq, dk, dv)."""
+    BH, S, dh = q.shape
     q, k, v, o, do = (_aligned(t.contiguous()) for t in (q, k, v, o, do))
     if lse is not None:
         lse = lse.contiguous()
@@ -278,7 +331,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             BH, k.shape[0], S, dh, int(causal),
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), _stream(q))
         check("flash_attention_bwd", err)
-    COUNTS["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
@@ -313,9 +365,21 @@ def flash_attention_bwd_sm90(q: torch.Tensor, k: torch.Tensor,
                          "devices")
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, o, do, causal, lse=lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_sm90: no kernel for "
-                         f"{q.device}")
+    _on_card("flash_attention_bwd_sm90", q)
+    grads = torch.ops.repro_torch.flash_attention_bwd_sm90(
+        *(t.detach() for t in (q, k, v, o, do, lse)), causal)
+    COUNTS["flash_attention_bwd_sm90"] += 1
+    return grads
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_sm90",
+                         mutates_args=())
+def _bwd_sm90_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                 causal: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The launch of ``csrc/flash_attention_bwd_sm90.cu``: (dq, dk,
+    dv)."""
     BH, S, dh = q.shape
     q, k, v, o, do = (_aligned(t.contiguous()) for t in (q, k, v, o, do))
     lse = lse.contiguous()
@@ -330,8 +394,48 @@ def flash_attention_bwd_sm90(q: torch.Tensor, k: torch.Tensor,
             dv.data_ptr(), scratch.data_ptr(), BH, k.shape[0], S, dh,
             int(causal), 1.0 / math.sqrt(dh), _stream(q))
         check("flash_attention_bwd_sm90", err)
-    COUNTS["flash_attention_bwd_sm90"] += 1
     return dq, dk, dv
+
+
+# ---------------------------------------------- fakes and FLOP formulas ----
+# A fake implementation gives an op's outputs' shapes and dtypes with no
+# launch: under ``FakeTensorMode`` and on meta tensors (the dry run's
+# stand-ins for cards, ``launch/dryrun.py``). The FLOP formulas are the
+# ones the timing tables use: forward 4 BH S^2 dh, halved when causal;
+# backward 2.5 times its forward.
+def _fwd_fake(q, k, v, causal, return_lse):
+    return q.new_empty(q.shape), _lse(q, return_lse)
+
+
+def _bwd_fake(q, k, v, *rest):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fwd_flops(q_shape, k_shape, v_shape, causal, *rest, **kwargs) -> int:
+    BH, S, dh = q_shape
+    return 4 * BH * S * S * dh // (2 if causal else 1)
+
+
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, causal,
+               *rest, **kwargs) -> int:
+    return _fwd_flops(q_shape, k_shape, v_shape, causal) * 5 // 2
+
+
+def _bwd_sm90_flops(q_shape, k_shape, v_shape, o_shape, do_shape,
+                    lse_shape, causal, *rest, **kwargs) -> int:
+    return _fwd_flops(q_shape, k_shape, v_shape, causal) * 5 // 2
+
+
+for _name, _op, _fake, _flops in (
+        ("flash_attention_sm90", _sm90_op, _fwd_fake, _fwd_flops),
+        ("flash_attention_simt", _simt_op, _fwd_fake, _fwd_flops),
+        ("flash_attention_bwd", _bwd_op, _bwd_fake, _bwd_flops),
+        ("flash_attention_bwd_sm90", _bwd_sm90_op, _bwd_fake,
+         _bwd_sm90_flops)):
+    _op.register_fake(_fake)
+    _packet = getattr(torch.ops.repro_torch, _name)
+    if _packet not in flop_registry:
+        register_flop_formula(_packet)(_flops)
 
 
 _KERNELS = {"flash_attention_sm90": flash_attention_sm90,

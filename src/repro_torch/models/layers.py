@@ -90,7 +90,7 @@ WHOLE = Whole()
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
     if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device="meta")
+        return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).to(device)
 
