@@ -22,10 +22,12 @@ against its plain PyTorch version on the card:
   whisper-medium (its encoder, not causal over 1500 frames, and its
   decoder, both at dh 64), qwen2-vl-72b (G 8) and starcoder2-3b (G 12,
   and one key tile of the same heads) prefills' (zamba2's
-  shared attention: bf16 at dh 112), each on the kernel that
-  ``flash_attention`` routes it to: bf16 (dh 64 or 128) on the wgmma
-  kernel ``flash_attention_sm90.cu``, float32 (and bf16 at other head
-  dims) on the 3xTF32 kernel ``flash_attention.cu``, there also saving lse
+  shared attention: bf16 at dh 112) and a GQA tail case at dh 96, each on
+  the kernel that ``flash_attention`` routes it to: bf16 (dh 64, or a
+  multiple of 8 from 72 to 128, there on zero columns up to 128) on the
+  wgmma kernel ``flash_attention_sm90.cu``, float32 (and bf16 at other
+  head dims) on the 3xTF32 kernel ``flash_attention.cu``, there also
+  saving lse
   (within 1e-5 of ``flash_ref``'s in fp32); each case's error against
   ``flash_ref`` in float64 beside it; the 3xTF32 split's rounding against
   ``cvt.rna.tf32.f32``;
@@ -35,7 +37,7 @@ against its plain PyTorch version on the card:
   computing lse itself and, at the cases ``flash_attention.cu`` runs,
   given that kernel's lse (against ``flash_bwd_ref(lse=)``, with the error
   against ``flash_bwd_ref`` in float64 beside it); and at the bf16 cases
-  with dh 64 or 128 the wgmma backward kernel
+  the wgmma forward takes the wgmma backward kernel
   ``flash_attention_bwd_sm90.cu`` against ``flash_bwd_ref(lse=)`` with lse
   from the forward kernel (within 2e-2 of each output's max, the same bits
   on a relaunch).
@@ -74,7 +76,7 @@ launch counts set to 0 just before and read just after:
   one ``flash_attention_sm90`` a layer, and 8 decode steps;
 * SSM serving, ``make_serve_steps`` on zamba2-7b at full width and all 81
   layers (random weights from a seed): B=4 prompts of 2048 tokens, one
-  prefill (13 ``flash_attention_simt`` launches, one a group of six
+  prefill (13 ``flash_attention_sm90`` launches, one a group of six
   Mamba2 layers: its shared attention in bf16 at dh 112, causal, since
   its window of 4096 covers the prompt) and 16 greedy decode steps, one
   timed prefill and the decode loop again, the init's peak bytes beside
@@ -110,8 +112,9 @@ launch counts set to 0 just before and read just after:
   encoder's 48 not causal, and 48 ``flash_attention_bwd_sm90``), then
   xlstm-125m whole (no flash launch) and zamba2-7b at 9 of its 81 layers
   (``lm_train_ssm``; 4 x 2048 tokens, a warm-up and a timed step each;
-  zamba2's shared attention 2 ``flash_attention_simt`` and 1
-  ``flash_attention_bwd`` launches a step), every leaf with a gradient,
+  zamba2's shared attention 2 ``flash_attention_sm90`` and 1
+  ``flash_attention_bwd_sm90`` launches a step), every leaf with a
+  gradient,
   the peak beside a reckoning; in float32 at 2 + 2 layers (whisper) and
   9 (zamba2) the step's gradients on the 3xTF32 pair equal the same on
   ``flash_ref`` under autograd;
@@ -166,20 +169,24 @@ launch counts set to 0 just before and read just after:
   meta tensors and then run, planned FLOPs, flash launches and peak held
   to the card's, loss and gradient norm finite; the flash forward at S
   32768 against ``flash_ref`` row by row, and a planted fault that check
-  must fail; five cells of the 16x16 mesh planned in worker processes,
-  the runs timed after the workers end;
+  must fail; four cells of the 16x16 mesh and the six ``long_500k``
+  cells (a batch of 1, replicated over the data axis) of both
+  production meshes planned in worker processes, each of which must
+  plan, the runs timed after the workers end;
 
 and times each kernel against its bound (both flash kernels, the wgmma
 one also saving lse, the plain version and SDPA in turns at the
-prefill's shape in bf16, the 3xTF32 kernel in bf16 at zamba2-7b's
-prefill shape (dh 112, the SSM serving path's) and the wgmma kernel at
+prefill's shape in bf16, the wgmma kernel at zamba2-7b's prefill shape
+(dh 112 on zero columns up to 128, the SSM serving path's) beside the
+3xTF32 kernel that ran it before, and the wgmma kernel at
 whisper-medium's encoder shape and qwen2-vl-72b's prefill shape, each
 against the plain version and SDPA in turns, the 3xTF32 kernel with and
 without lse, the plain version and SDPA in turns in float32, and in bf16
 both backward kernels, the plain version and SDPA's backward in turns,
 in float32 the 3xTF32 one with and without lse, and the backward
 kernels at the new training shapes, the wgmma one not causal at
-whisper's encoder and the 3xTF32 one in bf16 at zamba2's dh 112, and
+whisper's encoder and at zamba2's dh 112 (beside the 3xTF32 one that
+ran it before), and
 the wgmma pair at starcoder2-3b's G 12 and the forward at a
 qwen1.5-110b model shard's heads; the float32 rows give the fp32
 CUDA-core bound and the 3xTF32 tensor-core bound). Each Vcycle
@@ -330,12 +337,13 @@ def phase_build(kbuild, build_future):
     lib = kbuild.load()
     if "flash_attention_sm90" in ptxas:
         ptxas["flash_attention_sm90"]["dynamic_smem_bytes"] = {
-            dh: lib.flash_attention_sm90_smem_bytes(dh) for dh in (64, 128)}
+            dh: lib.flash_attention_sm90_smem_bytes(dh)
+            for dh in (64, 112, 128)}
     if "flash_attention_bwd_sm90" in ptxas:
         ptxas["flash_attention_bwd_sm90"]["dynamic_smem_bytes"] = {
             dh: {"dkdv": lib.flash_attention_bwd_sm90_smem_bytes(dh, 0),
                  "dq": lib.flash_attention_bwd_sm90_smem_bytes(dh, 1)}
-            for dh in (64, 128)}
+            for dh in (64, 112, 128)}
     for name, smem, blocks in (
             ("flash_attention_simt",
              lambda dh, bf: lib.flash_attention_smem_bytes(dh, bf),
@@ -1278,8 +1286,11 @@ FLASH_CASES = (
     (8, 4, 512, 128, "bfloat16", False),
     (6, 3, 1000, 64, "bfloat16", True),
     # the zamba2-7b prefill's shared attention: B=4 x H=32 over Hkv=32,
-    # dh = 3584 / 32 = 112, so bf16 on flash_attention.cu
+    # dh = 3584 / 32 = 112, so bf16 on the wgmma kernel at a tile width of
+    # 128, the columns past 112 zero
     (LM_BATCH * 32, LM_BATCH * 32, LM_PROMPT, 112, "bfloat16", True),
+    # a padded head dim under GQA (G 3) with a ragged tail tile, not causal
+    (6, 2, 1000, 96, "bfloat16", False),
     # whisper-medium: its encoder over 1500 frames (B=4 x H=16, dh = 64,
     # not causal; a ragged tail tile of 92 rows) and its decoder's prefill
     # over 224 tokens
@@ -1427,7 +1438,8 @@ def phase_flash_bwd(torch, fa, flash_bwd_ref, flash_ref):
     ``route`` picks), against ``flash_bwd_ref`` on the same CUDA tensors:
     each of dq, dk, dv within 1e-4 (fp32) or 2e-2 (bf16) of its max; one
     launch each, and the same bits when launched again (no atomics). At
-    the bf16 cases with dh 64 or 128 also ``flash_attention_bwd_sm90``
+    the bf16 cases with dh in ``SM90_HEAD_DIMS`` also
+    ``flash_attention_bwd_sm90``
     with the lse that ``flash_attention_sm90`` saves, against
     ``flash_bwd_ref(..., lse=)``: within 2e-2 of each output's max, one
     launch, the same bits again; and that lse within 1e-3 of
@@ -1896,17 +1908,18 @@ def _ssm_reckoning(cfg, ctx, n_params) -> dict:
 def phase_lm_serve_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, smi):
     """The SSM stacks through ``make_serve_steps`` on the card: zamba2-7b
     at full width and all 81 layers (``_serve``: one prefill, whose
-    shared attention is one ``flash_attention_simt`` launch a group, 13
+    shared attention is one ``flash_attention_sm90`` launch a group, 13
     in bf16 at dh 112, and SSM_DECODE greedy steps; one timed prefill, the
     scan being slow; the init's peak beside ``param_count`` x 2), then
     ``_fp32_checks`` at SSM_CHECK_LAYERS layers (one group, one launch);
     then xlstm-125m whole, which launches no kernel, XLSTM_DECODE steps,
     and its float32 checks. Returns the launches of
-    ``flash_attention_simt`` on the bf16 path and the float32 check."""
+    ``flash_attention_sm90`` on the bf16 path and of
+    ``flash_attention_simt`` in the float32 check."""
     cfg = ARCHS[SSM_ARCH]
     n_attn = cfg.n_layers // cfg.attn_every
     tokens, zamba = _serve(torch, fa, kv, steps, cfg, 8, SSM_DECODE, SSM_CTX,
-                           {"flash_attention_simt": n_attn}, repeats=1)
+                           {"flash_attention_sm90": n_attn}, repeats=1)
     ccfg = cfg.scaled(n_layers=SSM_CHECK_LAYERS)
     checks = _fp32_checks(torch, fa, flash_ref, steps, L, ccfg, tokens,
                           SSM_CTX, want=SSM_CHECK_LAYERS // cfg.attn_every)
@@ -1920,9 +1933,9 @@ def phase_lm_serve_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, smi):
                    param_count_x2_bytes=2 * c.param_count()[0])
     zamba["memory_reckoning_bytes"] = _ssm_reckoning(cfg, SSM_CTX,
                                                      zamba["params"])
-    launches = zamba["launches_per_run"]["flash_attention_simt"]
+    launches = zamba["launches_per_run"]["flash_attention_sm90"]
     emit({"phase": "lm_serve_ssm", "card": smi, **zamba,
-          "flash_attention_simt_launches_per_prefill": launches,
+          "flash_attention_sm90_launches_per_prefill": launches,
           "attention_d_head": cfg.d_head,
           "fp32_check_layers": SSM_CHECK_LAYERS, **checks,
           "xlstm": {**xlstm, **xchecks}})
@@ -2415,8 +2428,8 @@ def phase_lm_train_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     zamba2-7b at full width and SSM_CHECK_LAYERS of its 81 layers (one
     group of six with its shared attention, and a three-layer tail: every
     kind of leaf), whose shared attention (bf16 at dh 112, S 2048 under
-    its 4096 window) launches ``flash_attention_simt`` twice a group (the
-    forward and its recompute) and ``flash_attention_bwd`` once. Then
+    its 4096 window) launches ``flash_attention_sm90`` twice a group (the
+    forward and its recompute) and ``flash_attention_bwd_sm90`` once. Then
     zamba2's float32 check at the same depth (CHECK_B x CHECK_S,
     ``_fp32_train_check``). Returns the bf16 runs' launches of each flash
     kernel and the float32 check's."""
@@ -2431,8 +2444,8 @@ def phase_lm_train_ssm(torch, fa, kv, flash_ref, steps, L, ARCHS, adamw,
     full = ARCHS[SSM_ARCH]
     cfg = full.scaled(n_layers=SSM_CHECK_LAYERS)
     groups = cfg.n_layers // cfg.attn_every
-    want = {**none, "flash_attention_simt": 2 * groups,
-            "flash_attention_bwd": groups}
+    want = {**none, "flash_attention_sm90": 2 * groups,
+            "flash_attention_bwd_sm90": groups}
     call = ((TRAIN_B * cfg.n_heads, TRAIN_S, cfg.d_head),) * 2 + (True,)
     pipe = TokenPipeline(PipelineConfig(cfg.vocab, TRAIN_S, TRAIN_B))
     calls, spy = _spy_flash(L)
@@ -3533,7 +3546,7 @@ def phase_lm_tp_stacks(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
     shards (mesh (1, TP_SHARDS); ``place``: of card 0, or one a card),
     train and serve, at full width (``_tp_stack``): zamba2-7b at
     SSM_CHECK_LAYERS of its 81 layers (a group of six with its shared
-    attention, on ``flash_attention_simt`` at dh 112 over 8 of its 32
+    attention, on ``flash_attention_sm90`` at dh 112 over 8 of its 32
     heads a shard, and a tail of three) and xlstm-125m whole (one of its
     4 heads a shard, no kernel), each on TRAIN_B x STACKS_S tokens (not
     2048: each shard runs its own scans' host loop, so a step launches
@@ -3557,7 +3570,7 @@ def phase_lm_tp_stacks(torch, fa, kv, steps, ARCHS, adamw, TokenPipeline,
     frames = _frontend(torch, profile_serve, wcfg, 16)["frames"]
     cases = (
         ("zamba2", zcfg, STACKS_S, {}, zcfg.n_layers // zcfg.attn_every,
-         "flash_attention_simt", "flash_attention_bwd",
+         "flash_attention_sm90", "flash_attention_bwd_sm90",
          zcfg.scaled(dtype="float32")),
         ("xlstm", xcfg, STACKS_S, {}, 0, None, None,
          xcfg.scaled(n_layers=xcfg.slstm_every, dtype="float32")),
@@ -4050,19 +4063,21 @@ def phase_lm_serve_big(torch, fa, kv, steps, ARCHS, SH, make_host_mesh,
 DRY_TRAIN_B, DRY_TRAIN_S = 2, 4096      # the planned-then-run train step
 DRY_PREFILL_B, DRY_PREFILL_S = 1, 32768  # the planned-then-run prefill
 DRY_PEAK_TOL = 0.05                     # planned peak against measured
-# one cell a stack kind, planned (not run) on the 16x16 mesh
-DRY_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
-             ("zamba2-7b", "long_500k"), ("whisper-medium", "decode_32k"),
-             ("qwen1.5-110b", "train_4k"))
-# the cells the port cannot run, each with its error (ROADMAP queue C)
-DRY_KNOWN_FAILS = {("zamba2-7b", "long_500k"):
-                   "a batch of 1 does not split over 16 data shards"}
+# planned (not run), each must plan: one cell a stack kind on the 16x16
+# mesh, and every long_500k cell (a batch of 1, which the data axis
+# replicates) on both production meshes; (arch, shape, multi_pod)
+DRY_CELLS = (("qwen3-0.6b", "train_4k", False),
+             ("deepseek-moe-16b", "prefill_32k", False),
+             ("whisper-medium", "decode_32k", False),
+             ("qwen1.5-110b", "train_4k", False),
+             *((arch, "long_500k", mp) for mp in (False, True)
+               for arch in ("zamba2-7b", "mixtral-8x7b", "xlstm-125m")))
 
 
 def _dry_cell(job):
     """Worker: one production cell planned on meta devices."""
     from repro_torch.launch import dryrun as DR
-    return DR._one((*job, False, False, True))
+    return DR._one((*job, False, True))
 
 
 def _bound_ms(DR, counts, mf=0.0) -> float:
@@ -4138,9 +4153,8 @@ def phase_dryrun(torch, fa, kv, flash_ref, steps, ARCHS, adamw, smi):
     ``max_memory_allocated`` above the base before it, the logits are
     finite; the step's planned FLOPs equal ``FlopCounterMode`` over the
     real step, its loss and gradient norm finite. Meanwhile DRY_CELLS are
-    planned on the 16x16 mesh in worker processes, each to a record: each
-    must plan, but for DRY_KNOWN_FAILS, which must fail with their known
-    error. The prefill and the step are timed after the workers have
+    planned in worker processes, each to a record, and each must plan. The
+    prefill and the step are timed after the workers have
     ended, on an otherwise idle host, each planned bound beside its time.
     Returns the flash launches of the two real runs."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -4149,7 +4163,8 @@ def phase_dryrun(torch, fa, kv, flash_ref, steps, ARCHS, adamw, smi):
     cfg = ARCHS[LM_ARCH]
     out = {"arch": LM_ARCH, "nvidia_smi": smi}
     launches = {}
-    with cf.ProcessPoolExecutor(len(DRY_CELLS),
+    workers = max(1, min(len(DRY_CELLS), (os.cpu_count() or 2) - 1))
+    with cf.ProcessPoolExecutor(workers,
                                 mp_context=mp.get_context("spawn")) as pool:
         cells = [pool.submit(_dry_cell, c) for c in DRY_CELLS]
         torch.cuda.empty_cache()
@@ -4212,26 +4227,16 @@ def phase_dryrun(torch, fa, kv, flash_ref, steps, ARCHS, adamw, smi):
         del metrics, model
 
         # the production cells, planned in the workers
-        out["cells_16x16"] = []
-        for (arch, shape), fut in zip(DRY_CELLS, cells):
+        out["cells"] = []
+        for (arch, shape, _), fut in zip(DRY_CELLS, cells):
             _, rec = fut.result()
-            known = DRY_KNOWN_FAILS.get((arch, shape))
-            if known is not None:
-                if rec["status"] != "fail" or known not in rec["error"]:
-                    raise AssertionError(
-                        f"dryrun {arch} {shape} 16x16: expected the known "
-                        f"failure ({known}), got {rec.get('error', 'ok')}")
-                out["cells_16x16"].append({
-                    "arch": arch, "shape": shape, "status": "fail",
-                    "error": rec["error"], "known": "ROADMAP queue C"})
-                continue
             if rec["status"] != "ok":
-                raise AssertionError(f"dryrun {arch} {shape} 16x16: "
-                                     f"{rec['error']}")
+                raise AssertionError(f"dryrun {arch} {shape} "
+                                     f"{rec['mesh']}: {rec['error']}")
             r = rec["roofline"]
-            out["cells_16x16"].append({
-                "arch": arch, "shape": shape, "status": "ok",
-                "t_trace_s": rec["t_trace_s"],
+            out["cells"].append({
+                "arch": arch, "shape": shape, "mesh": rec["mesh"],
+                "status": "ok", "t_trace_s": rec["t_trace_s"],
                 "peak_bytes": rec["memory"]["peak_bytes"],
                 "bottleneck": r["bottleneck"],
                 "bound_ms": 1e3 * max(r["t_compute"], r["t_memory"],
@@ -4239,7 +4244,9 @@ def phase_dryrun(torch, fa, kv, flash_ref, steps, ARCHS, adamw, smi):
                 "t_compute": r["t_compute"], "t_memory": r["t_memory"],
                 "t_collective": r["t_collective"],
                 "roofline_fraction": r["roofline_fraction"],
-                "measured": "not run: 256 cards", "nvidia_smi": smi})
+                "calibration": rec["calibration"],
+                "measured": f"not run: {rec['n_chips']} cards",
+                "nvidia_smi": smi})
     # the workers have ended: the step and the prefill timed on an idle host
     out["train"].update(ms=cuda_ms(torch, lambda: step(params, opt, batch),
                                    1, warm=1), nvidia_smi=smi)
@@ -4330,12 +4337,16 @@ def time_flash(torch, fa, flash_ref):
     return res
 
 
-def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed):
+def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed,
+                     earlier=False):
     """The kernel ``route`` picks for bf16 at ``dh``, at (BH, BHkv, S, dh,
     causal), timed in one call in turns with the plain version and SDPA
     (kernel, plain, SDPA, then in reverse): CUDA-event ms and the bound at
     the bf16 tensor-core rate (score and P V products: 2 x BH S^2 dh
-    multiply-adds, half of them when causal)."""
+    multiply-adds, half of them when causal). With ``earlier``, also
+    ``flash_attention_simt`` (the 3xTF32 kernel that ran the shape
+    before), called directly in the same turns and held to the plain
+    version too (``earlier_ms``)."""
     import torch.nn.functional as F
     kernel = fa.route(torch.bfloat16, dh)
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", seed)
@@ -4354,39 +4365,57 @@ def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed):
            "plain": (run("plain", flash_ref), 3, 1),
            "library": (lambda: F.scaled_dot_product_attention(
                q4, k4, v4, is_causal=causal, enable_gqa=BH != BHkv), 20, 3)}
+    if earlier:
+        fns["earlier"] = (run("earlier", fa.flash_attention_simt), 5, 1)
     turns = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
             fn, n, warm = fns[name]
             turns[name].append(cuda_ms(torch, fn, n, warm))
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    err = float((out["kernel"].float() - out["plain"].float()).abs().max())
+    errs = {name: float((out[name].float() - out["plain"].float())
+                        .abs().max()) for name in ("kernel", "earlier")
+            if name in out}
+    err = errs["kernel"]
     tag = (f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 "
            f"{'causal' if causal else 'not causal'}")
-    if err > FLASH_TOL["bfloat16"]:
-        raise AssertionError(f"timed {kernel} at {tag} != plain ({err})")
+    for name, e in errs.items():
+        if e > FLASH_TOL["bfloat16"]:
+            who = kernel if name == "kernel" else "flash_attention_simt"
+            raise AssertionError(f"timed {who} at {tag} != plain ({e})")
     nbytes = 2 * (2 * BH * S * dh + 2 * BHkv * S * dh)
     flops = (2 if causal else 4) * BH * S * S * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"case": tag, "kernel": kernel,
-            "ms": ms["kernel"], "ms_turns": turns["kernel"],
-            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
-            "library_ms": ms["library"], "library_ms_turns": turns["library"],
-            "library": "scaled_dot_product_attention(is_causal="
-            f"{causal}{', enable_gqa' if BH != BHkv else ''})",
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "max_abs_err": err,
-            "tflops_per_s": flops / ms["kernel"] * 1e-9}
+    row = {"case": tag, "kernel": kernel,
+           "ms": ms["kernel"], "ms_turns": turns["kernel"],
+           "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+           "library_ms": ms["library"], "library_ms_turns": turns["library"],
+           "library": "scaled_dot_product_attention(is_causal="
+           f"{causal}{', enable_gqa' if BH != BHkv else ''})",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops, "max_abs_err": err,
+           "row_rel_err": flash_row_err(out["kernel"], out["plain"]),
+           "tflops_per_s": flops / ms["kernel"] * 1e-9}
+    if earlier:
+        row.update(earlier_kernel="flash_attention_simt",
+                   earlier_ms=ms["earlier"],
+                   earlier_ms_turns=turns["earlier"],
+                   earlier_max_abs_err=errs["earlier"],
+                   earlier_tflops_per_s=flops / ms["earlier"] * 1e-9)
+    return row
 
 
 def time_flash_zamba2(torch, fa, flash_ref):
-    """``flash_attention_simt`` at zamba2-7b's prefill shape (BH = BHkv =
-    128, S = 2048, dh = 112, bf16, causal; the route for bf16 at dh 112),
-    by ``_time_flash_case``."""
+    """``flash_attention_sm90`` at zamba2-7b's prefill shape (BH = BHkv =
+    128, S = 2048, dh = 112, bf16, causal; the route for bf16 at dh 112,
+    on zero columns up to 128), by ``_time_flash_case``, beside
+    ``flash_attention_simt`` (the 3xTF32 kernel that ran this shape
+    before) called directly in the same turns."""
     return _time_flash_case(torch, fa, flash_ref, LM_BATCH * 32,
-                            LM_BATCH * 32, LM_PROMPT, 112, True, 98)
+                            LM_BATCH * 32, LM_PROMPT, 112, True, 98,
+                            earlier=True)
 
 
 def time_flash_encdec(torch, fa, flash_ref):
@@ -4582,7 +4611,7 @@ def time_flash_bwd(torch, fa, flash_bwd_ref, dtype: str, heads=(16, 8)):
 
 
 def _time_flash_bwd_case(torch, fa, flash_bwd_ref, BH, BHkv, S, dh, causal,
-                         seed):
+                         seed, earlier=False):
     """The backward kernel that ``FlashAttention`` runs for bf16 at
     ``dh`` (``flash_attention_bwd_sm90`` after ``flash_attention_sm90``,
     else ``flash_attention_bwd`` after ``flash_attention_simt``), given
@@ -4592,7 +4621,11 @@ def _time_flash_bwd_case(torch, fa, flash_bwd_ref, BH, BHkv, S, dh, causal,
     reverse): CUDA-event ms, and the bound at the bf16 tensor-core rate
     (the gradient's products: 2.5x the forward's 2 BH S^2 dh
     multiply-adds, halved when causal) against each input read and each
-    output written once, lse's bytes too."""
+    output written once, lse's bytes too. With ``earlier``, also
+    ``flash_attention_bwd`` (the 3xTF32 kernel that ran the shape before)
+    given ``flash_attention_simt``'s lse, called directly in the same
+    turns and held to ``flash_bwd_ref`` with that lse
+    (``earlier_ms``)."""
     import torch.nn.functional as F
     fwd = fa.route(torch.bfloat16, dh)
     kernel = ("flash_attention_bwd_sm90" if fwd == "flash_attention_sm90"
@@ -4625,51 +4658,75 @@ def _time_flash_bwd_case(torch, fa, flash_bwd_ref, BH, BHkv, S, dh, causal,
     fast = kernel == "flash_attention_bwd_sm90"
     fns = {"kernel": (run, 20 if fast else 5, 3 if fast else 1),
            "plain": (plain, 3, 1), "library": (sdpa_bwd, 10, 2)}
+    if earlier:
+        o_old, lse_old = fa.flash_attention_simt(q, k, v, causal,
+                                                 return_lse=True)
+        out["plain_earlier"] = flash_bwd_ref(q, k, v, o_old, do, causal,
+                                             lse=lse_old)
+
+        def run_earlier():
+            out["earlier"] = fa.flash_attention_bwd(q, k, v, o_old, do,
+                                                    causal, lse=lse_old)
+        fns["earlier"] = (run_earlier, 5, 1)
     turns = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
             fn, n, warm = fns[name]
             turns[name].append(cuda_ms(torch, fn, n, warm))
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    errs = [(float((a.float() - b.float()).abs().max()),
-             float(b.float().abs().max()))
-            for a, b in zip(out["kernel"], out["plain"])]
-    rel = max(e / m for e, m in errs)
     tag = (f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 "
            f"{'causal' if causal else 'not causal'}")
-    if rel > FLASH_TOL["bfloat16"]:
-        raise AssertionError(f"timed {kernel} at {tag} != plain ({rel} of "
-                             "an output's max)")
+
+    def held(key, plain_key, who):
+        errs = [(float((a.float() - b.float()).abs().max()),
+                 float(b.float().abs().max()))
+                for a, b in zip(out[key], out[plain_key])]
+        rel = max(e / m for e, m in errs)
+        if rel > FLASH_TOL["bfloat16"]:
+            raise AssertionError(f"timed {who} at {tag} != plain ({rel} of "
+                                 "an output's max)")
+        return errs, rel
+
+    errs, rel = held("kernel", "plain", kernel)
     nbytes = 2 * (4 * BH + 4 * BHkv) * S * dh + 4 * BH * S
     flops = (5 if causal else 10) * BH * S * S * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"case": tag, "kernel": kernel, "forward": fwd,
-            "ms": ms["kernel"], "ms_turns": turns["kernel"],
-            "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
-            "library_ms": ms["library"], "library_ms_turns": turns["library"],
-            "library": "backward of scaled_dot_product_attention(is_causal="
-            f"{causal}{', enable_gqa' if BH != BHkv else ''}) in bfloat16",
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
-            "max_abs_err": max(e for e, _ in errs), "err_over_max": rel,
-            "tflops_per_s": flops / ms["kernel"] * 1e-9}
+    row = {"case": tag, "kernel": kernel, "forward": fwd,
+           "ms": ms["kernel"], "ms_turns": turns["kernel"],
+           "plain_ms": ms["plain"], "plain_ms_turns": turns["plain"],
+           "library_ms": ms["library"], "library_ms_turns": turns["library"],
+           "library": "backward of scaled_dot_product_attention(is_causal="
+           f"{causal}{', enable_gqa' if BH != BHkv else ''}) in bfloat16",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops,
+           "max_abs_err": max(e for e, _ in errs), "err_over_max": rel,
+           "tflops_per_s": flops / ms["kernel"] * 1e-9}
+    if earlier:
+        old, old_rel = held("earlier", "plain_earlier", "flash_attention_bwd")
+        row.update(earlier_kernel="flash_attention_bwd",
+                   earlier_ms=ms["earlier"], earlier_ms_turns=turns["earlier"],
+                   earlier_max_abs_err=max(e for e, _ in old),
+                   earlier_err_over_max=old_rel,
+                   earlier_tflops_per_s=flops / ms["earlier"] * 1e-9)
+    return row
 
 
 def time_flash_bwd_stacks(torch, fa, flash_bwd_ref):
     """The backward kernels at the new training paths' shapes, by
     ``_time_flash_bwd_case``: ``flash_attention_bwd_sm90`` not causal at
     whisper-medium's encoder (BH = BHkv = 64, S = 1500, dh = 64;
-    ``lm_train_encdec``) and ``flash_attention_bwd`` at zamba2-7b's
-    shared attention (BH = BHkv = 128, S = 2048, dh = 112, causal;
-    ``lm_train_ssm``)."""
+    ``lm_train_encdec``) and at zamba2-7b's shared attention (BH = BHkv =
+    128, S = 2048, dh = 112 on zero columns up to 128, causal;
+    ``lm_train_ssm``), there beside ``flash_attention_bwd``, the 3xTF32
+    kernel that ran it before."""
     return {"whisper_encoder": _time_flash_bwd_case(
                 torch, fa, flash_bwd_ref, TRAIN_B * 16, TRAIN_B * 16, 1500,
                 64, False, 93),
             "zamba2": _time_flash_bwd_case(
                 torch, fa, flash_bwd_ref, TRAIN_B * 32, TRAIN_B * 32,
-                TRAIN_S, 112, True, 91)}
+                TRAIN_S, 112, True, 91, earlier=True)}
 
 
 def cuda_ms(torch, fn, n: int, warm: int = 3) -> float:
@@ -4883,6 +4940,17 @@ def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8):
     return chunk, seed
 
 
+SHAPE_KEYS = ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "row_rel_err", "earlier_kernel", "earlier_ms")
+
+
+def shape_row(launches, t) -> dict:
+    """A kernel's row at another shape of the ``kernels`` line: its
+    launches there and the timing's SHAPE_KEYS it has (``earlier_ms``:
+    the kernel that ran the shape before, timed in the same turns)."""
+    return {"launches": launches, **{k: t[k] for k in SHAPE_KEYS if k in t}}
+
+
 def kernel_line(name, source, replaces, launches, t, by_path=None):
     """One kernel's entry of the ``kernels`` line; ``launches`` counts the
     main path, ``by_path`` (where given) every path that launches it."""
@@ -5085,7 +5153,7 @@ def main(argv=None) -> int:
     sm90_launches, simt_launches = lm["lm_serve"]
     moe_sm90_launches, moe_simt_launches, mixtral_launches = \
         lm["lm_serve_moe"]
-    ssm_simt_launches, ssm_fp32_launches = lm["lm_serve_ssm"]
+    ssm_sm90_launches, ssm_fp32_launches = lm["lm_serve_ssm"]
     encdec_sm90_launches, encdec_fp32_launches = lm["lm_serve_encdec"]
     vlm_sm90_launches, vlm_fp32_launches = lm["lm_serve_vlm"]
     train_launches, fp32_train_launches = lm["lm_train"]
@@ -5125,7 +5193,7 @@ def main(argv=None) -> int:
                                  LM_BATCH * 2, LM_PROMPT, 128, True, 99)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
-          "flash_attention_simt_zamba2": flash112,
+          "flash_attention_sm90_zamba2": flash112,
           "flash_attention_sm90_encdec": flash_encdec,
           "flash_attention_bwd_sm90": bwd["bfloat16"][
               "flash_attention_bwd_sm90"],
@@ -5135,7 +5203,7 @@ def main(argv=None) -> int:
           "flash_attention_bwd_sm90_tp_shard": bwd_tp,
           "flash_attention_bwd_sm90_whisper_encoder":
           bwd_stacks["whisper_encoder"],
-          "flash_attention_bwd_zamba2": bwd_stacks["zamba2"],
+          "flash_attention_bwd_sm90_zamba2": bwd_stacks["zamba2"],
           "flash_attention_sm90_starcoder2_g12": flash_g12,
           "flash_attention_bwd_sm90_starcoder2_g12": bwd_g12,
           "flash_attention_sm90_big_shard": flash_big,
@@ -5168,7 +5236,7 @@ def main(argv=None) -> int:
           "simt_launches_on_fp32_serving_path": simt_launches,
           "sm90_launches_on_bf16_moe_serving_path": moe_sm90_launches,
           "simt_launches_on_fp32_moe_serving_check": moe_simt_launches,
-          "simt_launches_on_bf16_ssm_serving_path": ssm_simt_launches,
+          "sm90_launches_on_bf16_ssm_serving_path": ssm_sm90_launches,
           "simt_launches_on_fp32_ssm_serving_check": ssm_fp32_launches,
           "sm90_launches_on_bf16_encdec_serving_path": encdec_sm90_launches,
           "simt_launches_on_fp32_encdec_serving_check": encdec_fp32_launches,
@@ -5195,16 +5263,20 @@ def main(argv=None) -> int:
         {**kernel_line("flash_attention_sm90",
                        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                        "src/repro/kernels/flash_attention.py:33 "
-                       "_flash_kernel (bf16, dh 64 or 128)",
+                       "_flash_kernel (bf16, dh 64 or a multiple of 8 from "
+                       "72 to 128)",
                        sm90_launches, flash["flash_attention_sm90"],
                        {"lm_serve": sm90_launches,
                         "lm_serve_moe": moe_sm90_launches,
                         "lm_serve_moe_mixtral": mixtral_launches,
+                        "lm_serve_ssm": ssm_sm90_launches,
                         "lm_serve_encdec": encdec_sm90_launches,
                         "lm_serve_vlm": vlm_sm90_launches,
                         "lm_train": train_launches["flash_attention_sm90"],
                         "lm_train_encdec":
                         encdec_train_launches["flash_attention_sm90"],
+                        "lm_train_ssm":
+                        ssm_train_launches["flash_attention_sm90"],
                         "lm_train_dp": dp_launches["flash_attention_sm90"],
                         "lm_serve_dp": serve_dp_launches,
                         "lm_train_tp": tp_launches["flash_attention_sm90"],
@@ -5219,33 +5291,27 @@ def main(argv=None) -> int:
                         dry_launches["train"]["flash_attention_sm90"],
                         "dryrun_prefill":
                         dry_launches["prefill"]["flash_attention_sm90"]}),
-         "other_shapes": {
-             name: {"launches": n, **{k: row[k] for k in (
-                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")}}
-             for name, n, row in (
-                 ("whisper_encoder", encdec_sm90_launches // 2,
-                  flash_encdec["whisper_encoder"]),
-                 ("qwen2_vl_prefill", vlm_sm90_launches,
-                  flash_encdec["qwen2_vl_prefill"]),
-                 ("tp_shard", tp_launches["flash_attention_sm90"],
-                  flash_tp),
-                 ("starcoder2_g12", starcoder2["flash_attention_sm90"],
-                  flash_g12),
-                 ("big_shard", big_launches, flash_big))}},
+         "other_shapes": {name: shape_row(n, row) for name, n, row in (
+             ("zamba2_dh112", ssm_sm90_launches, flash112),
+             ("whisper_encoder", encdec_sm90_launches // 2,
+              flash_encdec["whisper_encoder"]),
+             ("qwen2_vl_prefill", vlm_sm90_launches,
+              flash_encdec["qwen2_vl_prefill"]),
+             ("tp_shard", tp_launches["flash_attention_sm90"], flash_tp),
+             ("starcoder2_g12", starcoder2["flash_attention_sm90"],
+              flash_g12),
+             ("big_shard", big_launches, flash_big))}},
         {**kernel_line("flash_attention_simt",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:33 "
-                       "_flash_kernel (float32, other head dims)",
-                       ssm_simt_launches, flash112,
-                       {"lm_serve_ssm": ssm_simt_launches,
-                        "lm_train_ssm":
-                        ssm_train_launches["flash_attention_simt"],
+                       "_flash_kernel (float32, and bf16 at the head dims "
+                       "flash_attention_sm90 does not take)",
+                       simt_launches, flash32,
+                       {"lm_serve_fp32_check": simt_launches,
                         "lm_train_encdec_fp32_check":
                         fp32_encdec_train_launches["flash_attention_simt"],
                         "lm_train_ssm_fp32_check":
                         fp32_ssm_train_launches["flash_attention_simt"],
-                        "lm_serve_fp32_check": simt_launches,
                         "lm_serve_moe_fp32_check": moe_simt_launches,
                         "lm_serve_ssm_fp32_check": ssm_fp32_launches,
                         "lm_serve_encdec_fp32_check": encdec_fp32_launches,
@@ -5258,31 +5324,27 @@ def main(argv=None) -> int:
                         "lm_train_tp_fp32_check":
                         fp32_tp_launches["flash_attention_simt"],
                         "lm_serve_tp_fp32_check": serve_tp_fp32_launches,
-                        "lm_tp_stacks":
-                        stacks_launches["flash_attention_simt"],
                         "lm_tp_stacks_fp32_checks":
                         stacks_fp32_launches["flash_attention_simt"],
                         "lm_serve_seq_fp32_check": seq_fp32_launches,
                         "lm_configs_fp32_checks":
                         configs_fp32_launches["flash_attention_simt"],
                         "lm_serve_big_fp32_check": big_fp32_launches}),
-         "case": flash112["case"],
-         "fp32": kernel_line("flash_attention_simt",
-                             "src/repro_torch/kernels/csrc/flash_attention.cu",
-                             "src/repro/kernels/flash_attention.py:33 "
-                             "_flash_kernel (float32)", simt_launches,
-                             flash32)},
+         "case": flash32["case"]},
         {**kernel_line("flash_attention_bwd_sm90",
                    "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
                    "none: no TPU kernel is replaced; the gradient of "
                    "src/repro/kernels/flash_attention.py:33 _flash_kernel "
-                   "(bf16, dh 64 or 128), which the reference takes by "
-                   "XLA's autodiff of src/repro/models/layers.py:116 _sdpa",
+                   "(bf16, dh 64 or a multiple of 8 from 72 to 128), which "
+                   "the reference takes by XLA's autodiff of "
+                   "src/repro/models/layers.py:116 _sdpa",
                    train_launches["flash_attention_bwd_sm90"],
                    bwd["bfloat16"]["flash_attention_bwd_sm90"],
                    {"lm_train": train_launches["flash_attention_bwd_sm90"],
                     "lm_train_encdec":
                     encdec_train_launches["flash_attention_bwd_sm90"],
+                    "lm_train_ssm":
+                    ssm_train_launches["flash_attention_bwd_sm90"],
                     "lm_train_dp": dp_launches["flash_attention_bwd_sm90"],
                     "lm_train_tp": tp_launches["flash_attention_bwd_sm90"],
                     "lm_tp_stacks":
@@ -5291,28 +5353,26 @@ def main(argv=None) -> int:
                     configs_launches["flash_attention_bwd_sm90"],
                     "dryrun_train":
                     dry_launches["train"]["flash_attention_bwd_sm90"]}),
-     "other_shapes": {name: {
-         "launches": n,
-         **{k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")}}
-         for name, n, row in (
+         "other_shapes": {name: shape_row(n, row) for name, n, row in (
+             ("zamba2_train", ssm_train_launches["flash_attention_bwd_sm90"],
+              bwd_stacks["zamba2"]),
              ("tp_shard", tp_launches["flash_attention_bwd_sm90"], bwd_tp),
              ("whisper_encoder",
               encdec_train_launches["flash_attention_bwd_sm90"] // 2,
               bwd_stacks["whisper_encoder"]),
              ("starcoder2_g12", starcoder2["flash_attention_bwd_sm90"],
               bwd_g12))}},
-        {**kernel_line("flash_attention_bwd",
+        kernel_line("flash_attention_bwd",
                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                     "none: no TPU kernel is replaced; the gradient of "
                     "src/repro/kernels/flash_attention.py:33 _flash_kernel "
-                    "(float32, other head dims), which the reference takes "
-                    "by XLA's autodiff of src/repro/models/layers.py:116 "
-                    "_sdpa",
+                    "(float32, and bf16 at the head dims "
+                    "flash_attention_bwd_sm90 does not take), which the "
+                    "reference takes by XLA's autodiff of "
+                    "src/repro/models/layers.py:116 _sdpa",
                     fp32_train_launches["flash_attention_bwd"],
                     bwd["float32"]["flash_attention_bwd"],
-                    {"lm_train_ssm": ssm_train_launches["flash_attention_bwd"],
-                     "lm_train_fp32_check":
+                    {"lm_train_fp32_check":
                      fp32_train_launches["flash_attention_bwd"],
                      "lm_train_encdec_fp32_check":
                      fp32_encdec_train_launches["flash_attention_bwd"],
@@ -5322,17 +5382,11 @@ def main(argv=None) -> int:
                      fp32_dp_launches["flash_attention_bwd"],
                      "lm_train_tp_fp32_check":
                      fp32_tp_launches["flash_attention_bwd"],
-                     "lm_tp_stacks": stacks_launches["flash_attention_bwd"],
                      "lm_tp_stacks_fp32_checks":
                      stacks_fp32_launches["flash_attention_bwd"],
                      "lm_configs_fp32_checks":
                      configs_fp32_launches["flash_attention_bwd"],
-                     "lm_train_bf16": train_launches["flash_attention_bwd"]}),
-         "other_shapes": {"zamba2_train": {
-             "launches": ssm_train_launches["flash_attention_bwd"],
-             **{k: bwd_stacks["zamba2"][k] for k in (
-                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")}}}}]
+                     "lm_train_bf16": train_launches["flash_attention_bwd"]})]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

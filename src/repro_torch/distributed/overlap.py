@@ -114,18 +114,39 @@ def dp_devices(mesh: Mesh, axis="data") -> List[torch.device]:
 
 def split_batch(batch: Dict[str, torch.Tensor], devices
                 ) -> List[Dict[str, torch.Tensor]]:
-    """Each device's rows of every input (split along dim 0, in order);
-    raises when the shard count does not divide the batch."""
+    """Each device's rows of every input, input by input as the
+    reference's divisibility guard places them: split along dim 0 in order
+    where the shard count divides the input's batch, else the whole input
+    on every device (the data axis dropped: each shard computes the whole
+    batch; ``replicated`` says when). Raises ``ValueError`` when the inputs
+    disagree in their batch."""
+    sizes = {k: v.shape[0] for k, v in batch.items()}
+    if len(set(sizes.values())) > 1:
+        raise ValueError(f"the inputs disagree in their batch: {sizes}")
     D = len(devices)
     out: List[Dict[str, torch.Tensor]] = [{} for _ in devices]
     for k, v in batch.items():
-        if v.shape[0] % D:
-            raise ValueError(f"input {k!r}: a batch of {v.shape[0]} does "
-                             f"not split over {D} data shards")
-        b = v.shape[0] // D
+        whole, b = replicated(v.shape[0], D), v.shape[0] // D
         for d, dev in enumerate(devices):
-            out[d][k] = v[d * b:(d + 1) * b].to(dev)
+            out[d][k] = (v if whole else v[d * b:(d + 1) * b]).to(dev)
     return out
+
+
+def replicated(B: int, D: int) -> bool:
+    """Whether ``split_batch`` hands each of ``D`` shards the whole batch
+    of ``B`` rows (D > 1 and D does not divide B): the shards' results are
+    then copies of one another, and a caller keeps shard 0's."""
+    return D > 1 and B % D != 0
+
+
+def gather_rows(parts: Sequence[torch.Tensor], B: int, device
+                ) -> torch.Tensor:
+    """A batch of ``B`` rows on ``device`` from each shard's result along
+    dim 0: the shards' rows in order, or shard 0's where the batch was
+    replicated (``replicated``)."""
+    if replicated(B, len(parts)):
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts])
 
 
 def pmean(values: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -150,7 +171,10 @@ def make_manual_dp_step(loss_fn: Callable, optimizer_apply: Callable,
     """Returns ``step(params, opt, batch) -> (params, opt, metrics)`` over
     the data shards of ``mesh`` along ``axis``. ``params`` and ``opt`` are
     replicated, one tree a shard (``sharding.replicate``); ``batch`` is
-    split along B (a B the shard count does not divide raises). Each
+    split along B by ``split_batch``: where the shard count does not
+    divide B, every shard gets the whole batch, its gradient is the
+    full-batch gradient, and ``bucketed_mean``'s division by D gives that
+    gradient back, as ``pmean`` gives back the loss. Each
     shard's ``loss_fn(params, batch) -> (loss, metrics)`` goes into one
     ``torch.autograd.backward`` over the D losses; the gradients are
     reduced by ``bucketed_mean``; then

@@ -300,8 +300,12 @@ def make_train_step(loss_fn: Callable, mesh: Mesh,
     ``mesh`` (``model`` axis > 1): ``params`` and ``opt`` trees of
     ``ShardedTensor`` placed by ``param_specs`` (the moments the same,
     ``opt.step`` whole), returned placed the same way; ``batch`` split
-    along B over the data shards. ``loss_fn(group, blocks, batch) ->
-    (loss, metrics)`` is ``Model.loss_tp``. ``metrics`` holds each loss
+    along B over the data shards (``split_batch``; where they do not
+    divide B, each data shard takes the whole batch, its gradient is the
+    full-batch gradient, and ``bucketed_mean``'s division by the shard
+    count gives it back, as ``pmean`` gives back the loss).
+    ``loss_fn(group, blocks, batch) -> (loss, metrics)`` is
+    ``Model.loss_tp``. ``metrics`` holds each loss
     metric's mean over the data shards, ``loss`` and ``gnorm``.
     ``step.groups`` are the data shards' groups; ``step.buckets`` (set at
     the first call) the data-axis mean's leaf paths a bucket."""

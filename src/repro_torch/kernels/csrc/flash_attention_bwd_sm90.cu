@@ -1,6 +1,7 @@
 // The gradient of fused (flash) softmax attention in bf16 on Hopper's tensor
-// cores (sm_90a): dh = 64 or 128, any S, causal or not, grouped-query
-// attention with query row-set i reading key/value row-set i / G.
+// cores (sm_90a): dh = 64 or a multiple of 8 from 72 to 128, any S, causal
+// or not, grouped-query attention with query row-set i reading key/value
+// row-set i / G.
 //
 // No TPU kernel is replaced: this is the gradient of
 // src/repro/kernels/flash_attention.py:33 `_flash_kernel`, which the
@@ -11,15 +12,21 @@
 //   D = rowsum(dO * O), P = exp(S - lse), dV = P^T dO, dP = dO V^T,
 //   dS = P (dP - D), dQ = dS K / sqrt(dh), dK = dS^T Q / sqrt(dh),
 // with dK and dV summed over the G query row-sets of a key/value row-set.
-// Every sum is fp32; dq, dk and dv are rounded to bf16. The SIMT kernel
+// Every sum is fp32; dq, dk and dv are rounded to bf16. The 3xTF32 kernel
 // flash_attention_bwd.cu keeps float32 and the other head dims.
 //
 // What bounds it on this card: at the qwen3-0.6b training shape (BH = 64,
 // BHkv = 32, S = 2048, dh = 128, causal) the five products of the
 // gradient are 171.8 GFLOP, 0.174 ms at the tensor cores' 989 TFLOP/s
 // bf16; its bytes (q, k, v, o, dO, lse in; dq, dk, dv out) are about
-// 0.1 GB, 0.03 ms. So the tensor cores bound it. Design: three kernels on
-// one stream, and no atomics, so a relaunch gives the same bits:
+// 0.1 GB, 0.03 ms. So the tensor cores bound it. The tile width DP (64 or
+// 128) is a template argument and the real dh a run-time one, as in the
+// forward: a dh between 72 and 128 runs at DP = 128, the tensor maps have
+// the real dh as inner dimension and row stride, and TMA fills the columns
+// from dh to 128 with zeros, so every product over 128 columns equals the
+// product over dh and the extra columns of dQ, dK and dV are zero and never
+// stored. Design: three kernels on one stream, and no atomics, so a
+// relaunch gives the same bits:
 // 1. delta: one warp a query row computes D from o and dO, and stores
 //    {lse * log2(e), D} as a float2 into scratch [BH, Sp] (Sp = S rounded
 //    up to 128). Rows past S get {+inf, 0}, so P = exp2(x - inf) = 0 for
@@ -71,80 +78,87 @@ constexpr uint32_t kBox128 = 128 * 128; // 128 rows x 64 bf16 columns
 constexpr uint32_t kBox64 = 64 * 128;   // 64 rows x 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A [rows, DH] bf16 tile: DH / 64 boxes of 128-byte rows.
-template <int DH>
+// A [rows, DP] bf16 tile: DP / 64 boxes of 128-byte rows.
+template <int DP>
 __host__ __device__ constexpr uint32_t tile128() {
-  return (DH / 64) * kBox128;
+  return (DP / 64) * kBox128;
 }
-template <int DH>
+template <int DP>
 __host__ __device__ constexpr uint32_t tile64() {
-  return (DH / 64) * kBox64;
+  return (DP / 64) * kBox64;
 }
 
 // dkdv: K, V (128 rows), then kStages (Q, dO) pairs of 64 rows; dq: Q, dO
 // (128 rows), then kStages (K, V) pairs of 128 rows. Plus slack to align
 // the base to 1024 bytes.
-template <int DH>
+template <int DP>
 __host__ __device__ constexpr size_t dkdv_smem() {
-  return 1024 + 2 * static_cast<size_t>(tile128<DH>()) +
-         2 * kStages * static_cast<size_t>(tile64<DH>());
+  return 1024 + 2 * static_cast<size_t>(tile128<DP>()) +
+         2 * kStages * static_cast<size_t>(tile64<DP>());
 }
-template <int DH>
+template <int DP>
 __host__ __device__ constexpr size_t dq_smem() {
-  return 1024 + (2 + 2 * kStages) * static_cast<size_t>(tile128<DH>());
+  return 1024 + (2 + 2 * kStages) * static_cast<size_t>(tile128<DP>());
 }
 
-// D[64 x DH] += A[64 x 16] B[16 x DH], A in registers, B N-major.
-template <int DH>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[DH / 2],
+// D[64 x DP] += A[64 x 16] B[16 x DP], A in registers, B N-major.
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[DP / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  if constexpr (DH == 128)
+  if constexpr (DP == 128)
     wgmma_rs_m64n128k16_tb(d, a, db);
   else
     wgmma_rs_m64n64k16_tb(d, a, db);
 }
 
-// Rows r and r + 8 of a [64, DH] fp32 accumulator, times `scale`, into
-// rows of a [S, DH] bf16 row-set; rows at or past S are not written.
-template <int DH>
+// Rows r and r + 8 of a [64, DP] fp32 accumulator, times `scale`, into
+// rows of a [S, dh] bf16 row-set; rows at or past S and columns at or past
+// dh (zero: dh is a multiple of 8, so a pair at col < dh ends below dh) are
+// not written.
+template <int DP>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
-                                           const float (&acc)[DH / 2], int r,
-                                           int c0, int S, float scale) {
+                                           const float (&acc)[DP / 2], int r,
+                                           int c0, int S, int dh,
+                                           float scale) {
 #pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
+  for (int i = 0; i < DP / 8; ++i) {
     const int col = 8 * i + c0;
+    if (col >= dh) continue;
     if (r < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * DH +
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * dh +
                                          col) =
           __floats2bfloat162_rn(acc[4 * i] * scale, acc[4 * i + 1] * scale);
     if (r + 8 < S)
       *reinterpret_cast<__nv_bfloat162*>(
-          out + static_cast<size_t>(r + 8) * DH + col) =
+          out + static_cast<size_t>(r + 8) * dh + col) =
           __floats2bfloat162_rn(acc[4 * i + 2] * scale,
                                 acc[4 * i + 3] * scale);
   }
 }
 
 // 1. {lse * log2(e), rowsum(dO * O)} of row blockIdx.x * 8 + warp of the
-// padded [BH, Sp] scratch; {+inf, 0} past S.
-template <int DH>
+// padded [BH, Sp] scratch; {+inf, 0} past S. o and dO are read directly,
+// rows of dh columns; the loop over DP is unrolled, so a lane's loads are
+// all in flight at once.
+template <int DP>
 __global__ void __launch_bounds__(256)
     flash_attention_bwd_sm90_delta_kernel(
         const __nv_bfloat16* __restrict__ o,
         const __nv_bfloat16* __restrict__ dout,
         const float* __restrict__ lse, float2* __restrict__ ld, int BH,
-        int S, int Sp) {
+        int S, int Sp, int dh) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row = static_cast<size_t>(blockIdx.x) * 8 + warp;
   if (row >= static_cast<size_t>(BH) * Sp) return;
   const int bh = static_cast<int>(row / Sp), i = static_cast<int>(row % Sp);
   float2 out = make_float2(INFINITY, 0.f);
   if (i < S) {  // the same for the whole warp
-    const size_t base = (static_cast<size_t>(bh) * S + i) * DH;
+    const size_t base = (static_cast<size_t>(bh) * S + i) * dh;
     float acc = 0.f;
 #pragma unroll
-    for (int d = 2 * lane; d < DH; d += 64) {
+    for (int d = 2 * lane; d < DP; d += 64) {
+      if (d >= dh) break;
       const float2 a = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(o + base + d));
       const float2 b = __bfloat1622float2(
@@ -162,18 +176,18 @@ __global__ void __launch_bounds__(256)
 
 // Q and dO of dkdv iteration `it` (query row-set g = it / per_g, query
 // tile qt0 + it % per_g) into ring stage it % kStages.
-template <int DH>
+template <int DP>
 __device__ __forceinline__ void load_qdo(const CUtensorMap* tq,
                                          const CUtensorMap* tdo,
                                          uint32_t ring, uint32_t full,
                                          int it, int per_g, int qt0,
                                          int kvh, int G) {
-  constexpr uint32_t kT = tile64<DH>();
+  constexpr uint32_t kT = tile64<DP>();
   const uint32_t qs = ring + 2 * (it % kStages) * kT;
   const int bh = kvh * G + it / per_g, q0 = (qt0 + it % per_g) * kQTile;
   mbar_arrive_expect_tx(full, 2 * kT);
 #pragma unroll
-  for (int h = 0; h < DH / 64; ++h) {
+  for (int h = 0; h < DP / 64; ++h) {
     tma_load_3d(qs + h * kBox64, tq, full, 64 * h, q0, bh);
     tma_load_3d(qs + kT + h * kBox64, tdo, full, 64 * h, q0, bh);
   }
@@ -181,7 +195,7 @@ __device__ __forceinline__ void load_qdo(const CUtensorMap* tq,
 
 // 2. dK and dV of keys [k0, k0 + 128) of key/value row-set blockIdx.x,
 // k0 = 128 blockIdx.y (the longest causal loops first).
-template <int DH>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bwd_sm90_dkdv_kernel(
         __grid_constant__ const CUtensorMap tq,
@@ -189,9 +203,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         __grid_constant__ const CUtensorMap tk,
         __grid_constant__ const CUtensorMap tv,
         const float2* __restrict__ ld, __nv_bfloat16* __restrict__ dk,
-        __nv_bfloat16* __restrict__ dv, int S, int Sp, int G, int causal,
-        float scale_log2, float scale) {
-  constexpr uint32_t kKV = tile128<DH>(), kQ = tile64<DH>();
+        __nv_bfloat16* __restrict__ dv, int S, int Sp, int dh, int G,
+        int causal, float scale_log2, float scale) {
+  constexpr uint32_t kKV = tile128<DP>(), kQ = tile64<DP>();
   extern __shared__ uint8_t smem[];
   // barrier 0: K and V; 1 + s: stage s full; 1 + kStages + s: stage s empty
   __shared__ uint64_t bars[1 + 2 * kStages];
@@ -221,19 +235,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     mbar_arrive_expect_tx(kvbar, 2 * kKV);
 #pragma unroll
-    for (int h = 0; h < DH / 64; ++h) {
+    for (int h = 0; h < DP / 64; ++h) {
       tma_load_3d(sk + h * kBox128, &tk, kvbar, 64 * h, k0, kvh);
       tma_load_3d(sv + h * kBox128, &tv, kvbar, 64 * h, k0, kvh);
     }
     for (int it = 0; it < kStages && it < n_it; ++it)
-      load_qdo<DH>(&tq, &tdo, ring, smem_u32(&bars[1 + it]), it, per_g, qt0,
+      load_qdo<DP>(&tq, &tdo, ring, smem_u32(&bars[1 + it]), it, per_g, qt0,
                    kvh, G);
   }
   __syncwarp();
 
-  float adk[DH / 2], adv[DH / 2];
+  float adk[DP / 2], adv[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) adk[i] = adv[i] = 0.f;
   const int kmin = k0 + wg * 64;                   // this warpgroup's keys
   const int kr = kmin + warp * 16 + lane / 4;      // rows kr and kr + 8
   const int c0 = 2 * (lane % 4);                   // its first column in 8
@@ -248,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s1 = (it + 1) % kStages;
       mbar_wait(smem_u32(&bars[1 + kStages + s1]),
                 ((it + 1) / kStages - 1) & 1);
-      load_qdo<DH>(&tq, &tdo, ring, smem_u32(&bars[1 + s1]), it + 1, per_g,
+      load_qdo<DP>(&tq, &tdo, ring, smem_u32(&bars[1 + s1]), it + 1, per_g,
                    qt0, kvh, G);
     }
     __syncwarp();
@@ -259,19 +273,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     // every key of this warpgroup past S, or above every query of the tile
     const bool skip = kmin >= S || (causal && kmin > q0 + kQTile - 1);
     if (!skip) {
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, dh / 16
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, DP / 16
       // steps of k16 (32 bytes into a 128-byte swizzled row, 4 a box)
       float st[32], dpt[32];
       fence_regs(st);
       fence_regs(dpt);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < DH / 16; ++j)
+      for (int j = 0; j < DP / 16; ++j)
         wgmma_ss_m64n64k16(
             st, desc_sw128(ka + (j / 4) * kBox128 + (j % 4) * 32, 16, 1024),
             desc_sw128(qs + (j / 4) * kBox64 + (j % 4) * 32, 16, 1024), j > 0);
 #pragma unroll
-      for (int j = 0; j < DH / 16; ++j)
+      for (int j = 0; j < DP / 16; ++j)
         wgmma_ss_m64n64k16(
             dpt, desc_sw128(va + (j / 4) * kBox128 + (j % 4) * 32, 16, 1024),
             desc_sw128(dos + (j / 4) * kBox64 + (j % 4) * 32, 16, 1024),
@@ -329,10 +343,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wgmma_rs_tb<DH>(adv, pa[j], desc_sw128(dos + j * 2048, kBox64, 1024));
+        wgmma_rs_tb<DP>(adv, pa[j], desc_sw128(dos + j * 2048, kBox64, 1024));
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wgmma_rs_tb<DH>(adk, da[j], desc_sw128(qs + j * 2048, kBox64, 1024));
+        wgmma_rs_tb<DP>(adk, da[j], desc_sw128(qs + j * 2048, kBox64, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(adv);
@@ -342,21 +356,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(smem_u32(&bars[1 + kStages + s]));
   }
 
-  const size_t off = static_cast<size_t>(kvh) * S * DH;
-  store_rows<DH>(dk + off, adk, kr, c0, S, scale);
-  store_rows<DH>(dv + off, adv, kr, c0, S, 1.f);
+  const size_t off = static_cast<size_t>(kvh) * S * dh;
+  store_rows<DP>(dk + off, adk, kr, c0, S, dh, scale);
+  store_rows<DP>(dv + off, adv, kr, c0, S, dh, 1.f);
 }
 
 // K and V tile t of key/value row-set kvh into ring stage t % kStages.
-template <int DH>
+template <int DP>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
                                         const CUtensorMap* tv, uint32_t ring,
                                         uint32_t full, int t, int kvh) {
-  constexpr uint32_t kT = tile128<DH>();
+  constexpr uint32_t kT = tile128<DP>();
   const uint32_t ks = ring + 2 * (t % kStages) * kT;
   mbar_arrive_expect_tx(full, 2 * kT);
 #pragma unroll
-  for (int h = 0; h < DH / 64; ++h) {
+  for (int h = 0; h < DP / 64; ++h) {
     tma_load_3d(ks + h * kBox128, tk, full, 64 * h, t * kKeys, kvh);
     tma_load_3d(ks + kT + h * kBox128, tv, full, 64 * h, t * kKeys, kvh);
   }
@@ -364,7 +378,7 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
 
 // 3. dQ of query rows [q0, q0 + 128) of row-set blockIdx.x (the longest
 // causal rows first).
-template <int DH>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bwd_sm90_dq_kernel(
         __grid_constant__ const CUtensorMap tq,
@@ -372,8 +386,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         __grid_constant__ const CUtensorMap tk,
         __grid_constant__ const CUtensorMap tv,
         const float2* __restrict__ ld, __nv_bfloat16* __restrict__ dq, int S,
-        int Sp, int G, int causal, float scale_log2, float scale) {
-  constexpr uint32_t kT = tile128<DH>();
+        int Sp, int dh, int G, int causal, float scale_log2, float scale) {
+  constexpr uint32_t kT = tile128<DP>();
   extern __shared__ uint8_t smem[];
   // barrier 0: Q and dO; 1 + s: stage s full; 1 + kStages + s: stage s empty
   __shared__ uint64_t bars[1 + 2 * kStages];
@@ -404,18 +418,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     mbar_arrive_expect_tx(qbar, 2 * kT);
 #pragma unroll
-    for (int h = 0; h < DH / 64; ++h) {
+    for (int h = 0; h < DP / 64; ++h) {
       tma_load_3d(sq + h * kBox128, &tq, qbar, 64 * h, q0, bh);
       tma_load_3d(sdo + h * kBox128, &tdo, qbar, 64 * h, q0, bh);
     }
     for (int t = 0; t < kStages && t < n_kt; ++t)
-      load_kv<DH>(&tk, &tv, ring, smem_u32(&bars[1 + t]), t, kvh);
+      load_kv<DP>(&tk, &tv, ring, smem_u32(&bars[1 + t]), t, kvh);
   }
   __syncwarp();
 
-  float adq[DH / 2];
+  float adq[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) adq[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) adq[i] = 0.f;
   const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows r0, r0 + 8
   const int c0 = 2 * (lane % 4);
   // {lse2, D} of the two rows (past S: {+inf, 0}, and never stored)
@@ -430,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s1 = (t + 1) % kStages;
       mbar_wait(smem_u32(&bars[1 + kStages + s1]),
                 ((t + 1) / kStages - 1) & 1);
-      load_kv<DH>(&tk, &tv, ring, smem_u32(&bars[1 + s1]), t + 1, kvh);
+      load_kv<DP>(&tk, &tv, ring, smem_u32(&bars[1 + s1]), t + 1, kvh);
     }
     __syncwarp();
     mbar_wait(smem_u32(&bars[1 + s]), (t / kStages) & 1);
@@ -442,13 +456,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
+    for (int j = 0; j < DP / 16; ++j) {
       const uint32_t off = (j / 4) * kBox128 + (j % 4) * 32;
       wgmma_ss_m64n128k16(sc, desc_sw128(qa + off, 16, 1024),
                           desc_sw128(ks + off, 16, 1024), j > 0);
     }
 #pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
+    for (int j = 0; j < DP / 16; ++j) {
       const uint32_t off = (j / 4) * kBox128 + (j % 4) * 32;
       wgmma_ss_m64n128k16(dp, desc_sw128(doa + off, 16, 1024),
                           desc_sw128(vs + off, 16, 1024), j > 0);
@@ -492,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      wgmma_rs_tb<DH>(adq, da[j], desc_sw128(ks + j * 2048, kBox128, 1024));
+      wgmma_rs_tb<DP>(adq, da[j], desc_sw128(ks + j * 2048, kBox128, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(adq);
@@ -500,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(smem_u32(&bars[1 + kStages + s]));
   }
 
-  store_rows<DH>(dq + static_cast<size_t>(bh) * S * DH, adq, r0, c0, S,
+  store_rows<DP>(dq + static_cast<size_t>(bh) * S * dh, adq, r0, c0, S, dh,
                  scale);
 }
 
@@ -512,43 +526,45 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int DH>
+template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    void* dq, void* dk, void* dv, float2* ld, int BH,
-                   int BHkv, int S, int causal, float scale,
+                   int BHkv, int S, int dh, int causal, float scale,
                    cudaStream_t stream) {
   const int G = BH / BHkv, Sp = (S + kPad - 1) / kPad * kPad;
   const int n_tiles = (S + kKeys - 1) / kKeys;
-  // encoded per call: the pointers change
+  // encoded per call: the pointers change; the real dh is the maps' inner
+  // dimension and row stride, so columns past it read as zeros
   CUtensorMap q64, do64, q128, do128, k128, v128;
-  if (!make_map(&q64, q, BH, S, DH, kQTile) ||
-      !make_map(&do64, dout, BH, S, DH, kQTile) ||
-      !make_map(&q128, q, BH, S, DH, kQBlock) ||
-      !make_map(&do128, dout, BH, S, DH, kQBlock) ||
-      !make_map(&k128, k, BHkv, S, DH, kKeys) ||
-      !make_map(&v128, v, BHkv, S, DH, kKeys))
+  if (!make_map(&q64, q, BH, S, dh, kQTile) ||
+      !make_map(&do64, dout, BH, S, dh, kQTile) ||
+      !make_map(&q128, q, BH, S, dh, kQBlock) ||
+      !make_map(&do128, dout, BH, S, dh, kQBlock) ||
+      !make_map(&k128, k, BHkv, S, dh, kKeys) ||
+      !make_map(&v128, v, BHkv, S, dh, kKeys))
     return cudaErrorInvalidValue;
-  auto dkdv = flash_attention_bwd_sm90_dkdv_kernel<DH>;
-  auto dqk = flash_attention_bwd_sm90_dq_kernel<DH>;
+  auto dkdv = flash_attention_bwd_sm90_dkdv_kernel<DP>;
+  auto dqk = flash_attention_bwd_sm90_dq_kernel<DP>;
   cudaError_t err;
-  if ((err = allow_smem(dkdv, dkdv_smem<DH>())) != cudaSuccess ||
-      (err = allow_smem(dqk, dq_smem<DH>())) != cudaSuccess)
+  if ((err = allow_smem(dkdv, dkdv_smem<DP>())) != cudaSuccess ||
+      (err = allow_smem(dqk, dq_smem<DP>())) != cudaSuccess)
     return err;
   const float scale_log2 = scale * kLog2e;
   const size_t rows = static_cast<size_t>(BH) * Sp;
-  flash_attention_bwd_sm90_delta_kernel<DH>
-      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(o),
-          static_cast<const __nv_bfloat16*>(dout), lse, ld, BH, S, Sp);
+  flash_attention_bwd_sm90_delta_kernel<DP><<<
+      static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, ld, BH, S, Sp, dh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkdv<<<dim3(BHkv, n_tiles), kThreads, dkdv_smem<DH>(), stream>>>(
+  dkdv<<<dim3(BHkv, n_tiles), kThreads, dkdv_smem<DP>(), stream>>>(
       q64, do64, k128, v128, ld, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, Sp, G, causal, scale_log2, scale);
+      static_cast<__nv_bfloat16*>(dv), S, Sp, dh, G, causal, scale_log2,
+      scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dqk<<<dim3(BH, n_tiles), kThreads, dq_smem<DH>(), stream>>>(
+  dqk<<<dim3(BH, n_tiles), kThreads, dq_smem<DP>(), stream>>>(
       q128, do128, k128, v128, ld, static_cast<__nv_bfloat16*>(dq), S, Sp,
-      G, causal, scale_log2, scale);
+      dh, G, causal, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -560,8 +576,9 @@ extern "C" {
 // [BH, S, dh] over k, v [BHkv, S, dh] given dO = dout and the forward's
 // lse (fp32 [BH, S], natural log-sum-exp of q k^T * scale), on `stream`.
 // q, k, v, o, dout, dq, dk, dv contiguous bf16 on 16-byte boundaries,
-// dh = 64 or 128; `scratch` is fp32 [BH, Sp, 2] with Sp = S rounded up to
-// 128, on a 16-byte boundary. Returns the cudaError_t of the launches.
+// dh = 64 or a multiple of 8 from 72 to 128 (the latter at tile width 128);
+// `scratch` is fp32 [BH, Sp, 2] with Sp = S rounded up to 128, on a 16-byte
+// boundary. Returns the cudaError_t of the launches.
 int flash_attention_bwd_sm90_launch(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* dout, const void* lse,
@@ -570,7 +587,7 @@ int flash_attention_bwd_sm90_launch(const void* q, const void* k,
                                     int dh, int causal, float scale,
                                     void* stream) {
   if (BH <= 0 || BHkv <= 0 || BH % BHkv || S <= 0 ||
-      (S + kKeys - 1) / kKeys > 65535 || (dh != 64 && dh != 128) ||
+      (S + kKeys - 1) / kKeys > 65535 || !head_dim_ok(dh) ||
       !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) ||
       !aligned16(dout) || !aligned16(dq) || !aligned16(dk) ||
       !aligned16(dv) || !aligned16(scratch) || lse == nullptr)
@@ -579,19 +596,21 @@ int flash_attention_bwd_sm90_launch(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float2* ld = static_cast<float2*>(scratch);
   const cudaError_t err =
-      dh == 128 ? launch<128>(q, k, v, o, dout, l, dq, dk, dv, ld, BH, BHkv,
-                              S, causal, scale, s)
-                : launch<64>(q, k, v, o, dout, l, dq, dk, dv, ld, BH, BHkv, S,
-                             causal, scale, s);
+      tile_width(dh) == 128
+          ? launch<128>(q, k, v, o, dout, l, dq, dk, dv, ld, BH, BHkv, S, dh,
+                        causal, scale, s)
+          : launch<64>(q, k, v, o, dout, l, dq, dk, dv, ld, BH, BHkv, S, dh,
+                       causal, scale, s);
   return static_cast<int>(err);
 }
 
 // Dynamic shared memory a block of each pass takes for head dim dh:
 // pass 0 the dK/dV pass, 1 the dQ pass.
 int flash_attention_bwd_sm90_smem_bytes(int dh, int pass) {
+  const bool wide = tile_width(dh) == 128;
   if (pass == 0)
-    return static_cast<int>(dh == 128 ? dkdv_smem<128>() : dkdv_smem<64>());
-  return static_cast<int>(dh == 128 ? dq_smem<128>() : dq_smem<64>());
+    return static_cast<int>(wide ? dkdv_smem<128>() : dkdv_smem<64>());
+  return static_cast<int>(wide ? dq_smem<128>() : dq_smem<64>());
 }
 
 }  // extern "C"

@@ -285,4 +285,12 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The head dims the flash kernels take: 64 at a tile width of 64, and the
+// multiples of 8 from 72 to 128 at a tile width of 128, the columns past
+// dh zero (a row of dh bf16 is then a multiple of 16 bytes, as TMA needs).
+inline bool head_dim_ok(int dh) {
+  return dh == 64 || (dh >= 72 && dh <= 128 && dh % 8 == 0);
+}
+constexpr int tile_width(int dh) { return dh == 64 ? 64 : 128; }
+
 }  // namespace sm90

@@ -6,9 +6,12 @@ The two forward kernels replace the TPU kernel
 ``flash_attention`` :74), each for its own part of the inputs:
 
 * ``flash_attention_sm90`` launches ``csrc/flash_attention_sm90.cu``:
-  bfloat16 with ``dh`` 64 or 128, on the tensor cores (wgmma, K/V tiles
-  by TMA into a ring of shared memory). Every served dense config has
-  ``dh = 128``.
+  bfloat16 with ``dh`` 64, or a multiple of 8 from 72 to 128
+  (``SM90_HEAD_DIMS``), on the tensor cores (wgmma, K/V tiles by TMA into
+  a ring of shared memory). ``dh`` 64 runs at a tile width of 64; the
+  others at 128, where TMA fills the columns past ``dh`` with zeros (no
+  padded copy; zamba2-7b's ``dh`` 112 costs 8/7 of the products). Every
+  served dense config has ``dh = 128``.
 * ``flash_attention_simt`` launches ``csrc/flash_attention.cu``: float32,
   and bfloat16 with any other ``dh <= 128``. The name is the route's, kept
   so that launch counts stay comparable: the kernel runs on the tensor
@@ -26,8 +29,8 @@ lse, and whose backward is one of two kernels, which replace no TPU kernel
 none):
 
 * ``flash_attention_bwd_sm90`` launches ``csrc/flash_attention_bwd_sm90.cu``
-  where the forward ran on ``flash_attention_sm90`` (bfloat16, ``dh`` 64
-  or 128): wgmma and TMA.
+  where the forward ran on ``flash_attention_sm90`` (bfloat16, ``dh`` in
+  ``SM90_HEAD_DIMS``, padded the same way): wgmma and TMA.
 * ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``
   otherwise: float32, and bfloat16 with any other ``dh <= 128``, on the
   tensor cores in 3xTF32 with ``cp.async``, as the forward. Given no lse it
@@ -66,7 +69,10 @@ from .ref import flash_bwd_ref, flash_ref
 COUNTS = {"flash_attention_sm90": 0, "flash_attention_simt": 0,
           "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0}
 MAX_HEAD_DIM = 128
-SM90_HEAD_DIMS = (64, 128)
+# the wgmma kernels' head dims: 64 at its own tile width, the multiples of 8
+# from 72 to 128 at a tile width of 128 (TMA reads the rows' 16-byte
+# multiples and zero-fills the columns past dh)
+SM90_HEAD_DIMS = (64,) + tuple(range(72, MAX_HEAD_DIM + 1, 8))
 
 
 def reset_counts() -> None:
@@ -77,9 +83,9 @@ def reset_counts() -> None:
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel that runs attention of ``dtype`` and head dimension
     ``dh``: ``"flash_attention_sm90"`` for bfloat16 with ``dh`` in
-    ``SM90_HEAD_DIMS``, ``"flash_attention_simt"`` for float32 and for
-    bfloat16 with any other ``dh <= MAX_HEAD_DIM``. Raises ``ValueError``
-    for anything else."""
+    ``SM90_HEAD_DIMS`` (64, or a multiple of 8 from 72 to 128),
+    ``"flash_attention_simt"`` for float32 and for bfloat16 with any other
+    ``dh <= MAX_HEAD_DIM``. Raises ``ValueError`` for anything else."""
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention's kernels take dh <= "
                          f"{MAX_HEAD_DIM}, got dh={dh}")
@@ -115,9 +121,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B * H]`` query heads over ``[B * Hkv]`` KV heads is grouped-query
     attention with head h reading KV head ``h // G`` and no copy of K/V.
     Returns ``[BH, S, dh]`` in q's dtype, for any S. The kernel is
-    ``route(q.dtype, dh)``'s: bfloat16 with dh 64 or 128 on
-    ``flash_attention_sm90``, float32 and bfloat16 with any other
-    ``dh <= 128`` on ``flash_attention_simt``; anything else raises.
+    ``route(q.dtype, dh)``'s: bfloat16 with dh 64 or a multiple of 8
+    from 72 to 128 on ``flash_attention_sm90``, float32 and bfloat16 with
+    any other ``dh <= 128`` on ``flash_attention_simt``; anything else
+    raises.
     With grad mode on and an input that requires grad, it runs through
     ``FlashAttention``, whose backward is ``flash_attention_bwd_sm90`` or
     ``flash_attention_bwd``."""
@@ -181,7 +188,9 @@ def _lse(q: torch.Tensor, return_lse: bool) -> torch.Tensor:
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, return_lse: bool = False):
     """``flash_attention`` on ``csrc/flash_attention_sm90.cu``: bfloat16,
-    ``dh`` 64 or 128, any S (``ceil(S / 128) <= 65535``). With
+    ``dh`` in ``SM90_HEAD_DIMS`` (64, or a multiple of 8 from 72 to 128,
+    computed at a tile width of 128 on zero columns), any S
+    (``ceil(S / 128) <= 65535``). With
     ``return_lse`` it returns (output, lse): lse ``[BH, S]`` fp32, each
     row's natural log-sum-exp of ``q k^T / sqrt(dh)`` (masked), which
     ``flash_attention_bwd_sm90`` takes."""
@@ -342,8 +351,8 @@ def flash_attention_bwd_sm90(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """The gradient of ``flash_attention`` on
     ``csrc/flash_attention_bwd_sm90.cu`` (tensor cores): q, o, do
-    ``[BH, S, dh]`` and k, v ``[BHkv, S, dh]`` in bfloat16 with ``dh`` 64
-    or 128, any S, and ``lse`` ``[BH, S]`` fp32 as
+    ``[BH, S, dh]`` and k, v ``[BHkv, S, dh]`` in bfloat16 with ``dh`` in
+    ``SM90_HEAD_DIMS``, any S, and ``lse`` ``[BH, S]`` fp32 as
     ``flash_attention_sm90(..., return_lse=True)`` gives it. Returns (dq,
     dk, dv) in bfloat16; dk and dv sum the G = BH / BHkv query row-sets
     that read each key/value row-set. No atomics: a relaunch gives the
@@ -402,7 +411,8 @@ def _bwd_sm90_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # launch: under ``FakeTensorMode`` and on meta tensors (the dry run's
 # stand-ins for cards, ``launch/dryrun.py``). The FLOP formulas are the
 # ones the timing tables use: forward 4 BH S^2 dh, halved when causal;
-# backward 2.5 times its forward.
+# backward 2.5 times its forward. They count the real dh: the zero columns
+# the wgmma kernels add past it are the kernel's waste, not the function's.
 def _fwd_fake(q, k, v, causal, return_lse):
     return q.new_empty(q.shape), _lse(q, return_lse)
 

@@ -30,11 +30,12 @@ Costs are extrapolated where a full trace would take too long:
   as every config is under ``--no-calibrate``;
 * data rows: on a mesh of more than ``TRACE_DEVICES`` devices, 2 and 3
   rows of the data axes are traced, each with the full model axis and its
-  rows of the batch; rows 1.. are identical by construction, and row 0
-  (whose shards sum the data-axis reductions, ``bucketed_mean``,
-  ``pmean``, and take the whole batch) grows by the same amount for each
-  further row, so row 0 at D rows is row 0 at 2 plus (D - 2) times the
-  difference;
+  rows of the batch (the whole batch where neither 2, 3 nor D rows divide
+  it: ``split_batch`` replicates it); rows 1.. are identical by
+  construction, and row 0 (whose shards sum the data-axis reductions,
+  ``bucketed_mean``, ``pmean``, and take the whole batch) grows by the
+  same amount for each further row, so row 0 at D rows is row 0 at 2 plus
+  (D - 2) times the difference;
 * the recurrent scans (``models/ssm.py``): a Python loop a step, too slow
   to trace at 32768 steps; a scan longer than 4 chunks is traced at 2, 3
   and 4 chunks (forward, and backward under grad) and its costs and
@@ -83,6 +84,9 @@ from ..optim import adamw
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 # the most devices a trace runs; a larger mesh is traced 2 and 3 data rows
 TRACE_DEVICES = 16
+# torch.device keeps its index in 8 signed bits (meta:128 is meta:-128,
+# meta:255 the index-less meta, meta:256 meta:0), so no trace takes more
+MAX_TRACE_DEVICES = 128
 GB = 1e9
 CARD_BYTES = 80 * GB          # an H100's memory, as its name gives it
 
@@ -361,6 +365,9 @@ def trace(cfg: ModelConfig, mode: str, seq: int, batch: int,
     and ``("launch", kernel)``. ``plan_scans=False`` runs every scan
     step by step."""
     n = int(np.prod(mesh_shape)) if mesh_shape else 1
+    if n > MAX_TRACE_DEVICES:
+        raise ValueError(f"a trace takes at most {MAX_TRACE_DEVICES} "
+                         f"devices (torch's device index), not {n}")
     devices = [torch.device("meta", i) for i in range(n)]
     where = (Mesh(mesh_shape, axes, devices) if mesh_shape
              else devices[0])
@@ -575,12 +582,14 @@ def plan(cfg: ModelConfig, mode: str, seq: int, batch: int,
     n = int(np.prod(mesh_shape)) if mesh_shape else 1
     model_axis = mesh_shape[-1] if mesh_shape else 1
     D = n // model_axis
-    by_rows = n > trace_devices and D > 3 and batch % D == 0
+    split = batch % D == 0
+    whole = all(batch % r for r in (2, 3, D))    # replicated on every row
+    by_rows = n > trace_devices and D > 3 and (split or whole)
     if by_rows:
         rows = (2, 3)
         shapes = [tuple(1 for _ in mesh_shape[:-2]) + (r, model_axis)
                   for r in rows]
-        batches = [batch // D * r for r in rows]
+        batches = [batch // D * r if split else batch for r in rows]
     else:
         shapes, batches = [mesh_shape], [batch]
 

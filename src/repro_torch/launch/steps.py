@@ -41,7 +41,8 @@ from ..device import resolve_device
 from ..distributed import sharding as SH
 from ..distributed import tensor_parallel as TP
 from ..distributed.ctx import Mesh, batch_axes, mesh_context
-from ..distributed.overlap import dp_devices, make_manual_dp_step, split_batch
+from ..distributed.overlap import (dp_devices, gather_rows,
+                                   make_manual_dp_step, split_batch)
 from ..models.config import ModelConfig
 from ..models.model import build
 from ..optim import adamw
@@ -100,7 +101,9 @@ def make_train_step(cfg: ModelConfig, device=None,
     reference's ``mesh`` argument) with a ``model`` axis of 1, its data
     shards (``make_manual_dp_step``): ``params`` and ``opt`` are then
     lists of one replica a shard (``sharding.replicate``), the batch is
-    split along B, each metric is its mean over the shards, and the step
+    split along B (replicated where the shards do not divide B: every
+    shard then takes the full-batch gradient, and the mean gives it back),
+    each metric is its mean over the shards, and the step
     returns the replicas, bit-equal; a ``Mesh`` with a larger ``model``
     axis, tensor-parallel within each data shard
     (``tensor_parallel.make_train_step``): ``params`` and ``opt`` are then
@@ -170,7 +173,11 @@ def make_serve_steps(cfg: ModelConfig, device=None):
     shard's model shards then run it tensor-parallel), and ``cache`` a
     tree of ``ShardedTensor`` (``shard_cache``); each data shard runs its
     rows of the batch on its block of the cache, and the whole logits and
-    the tokens come back on shard 0's device in row order."""
+    the tokens come back on shard 0's device in row order. A batch that
+    the data shards do not divide is replicated (``split_batch``), as is
+    its cache (``cache_specs``' guard): every shard runs the whole batch
+    on its copy of the cache, and shard 0's logits and tokens come
+    back."""
     if isinstance(device, Mesh) and TP.model_size(device) > 1:
         return _tp_serve_steps(cfg, device)
     if not isinstance(device, Mesh):
@@ -200,7 +207,8 @@ def make_serve_steps(cfg: ModelConfig, device=None):
         logits = [model.prefill(p, part, SH.blocks_at(cache, pos))[0]
                   for p, part, pos in zip(
                       params, split_batch(batch, devices), positions)]
-        return torch.cat([x.to(devices[0]) for x in logits]), cache
+        return gather_rows(logits, batch["tokens"].shape[0],
+                           devices[0]), cache
 
     @torch.inference_mode()
     def dp_decode(params, tokens: torch.Tensor, cache: Any, pos: int
@@ -210,9 +218,8 @@ def make_serve_steps(cfg: ModelConfig, device=None):
                                                    devices), positions):
             logits, _ = model.decode_step(p, part["tokens"],
                                           SH.blocks_at(cache, at), pos)
-            out.append(torch.argmax(logits[:, -1], dim=-1).to(
-                devices[0], torch.int32))
-        return torch.cat(out)[:, None], cache
+            out.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
+        return gather_rows(out, tokens.shape[0], devices[0])[:, None], cache
 
     return model, dp_prefill, dp_decode
 
@@ -239,9 +246,9 @@ def _tp_serve_steps(cfg: ModelConfig, mesh: Mesh):
     def tp_prefill(params, batch: Dict, cache: Any
                    ) -> Tuple[torch.Tensor, Any]:
         out = [model.prefill_tp(group(g, cache), blocks(params, row),
-                                part, blocks(cache, row))[0].to(heads[0])
+                                part, blocks(cache, row))[0]
                for g, row, part in zip(gs, rows, split_batch(batch, heads))]
-        return torch.cat(out), cache
+        return gather_rows(out, batch["tokens"].shape[0], heads[0]), cache
 
     @torch.inference_mode()
     def tp_decode(params, tokens: torch.Tensor, cache: Any, pos: int
@@ -253,8 +260,7 @@ def _tp_serve_steps(cfg: ModelConfig, mesh: Mesh):
                                              blocks(params, row),
                                              part["tokens"],
                                              blocks(cache, row), pos)
-            out.append(torch.argmax(logits[:, -1], dim=-1).to(
-                heads[0], torch.int32))
-        return torch.cat(out)[:, None], cache
+            out.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
+        return gather_rows(out, tokens.shape[0], heads[0])[:, None], cache
 
     return model, tp_prefill, tp_decode

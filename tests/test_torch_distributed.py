@@ -388,9 +388,58 @@ def test_bucketed_mean_is_the_shard_order_sum_on_every_shard():
         assert get(out[1]).data_ptr() != get(out[2]).data_ptr()
 
 
-def test_split_batch_refuses_an_uneven_batch():
-    with pytest.raises(ValueError, match="does not split"):
-        OV.split_batch({"tokens": torch.zeros(6, 4)}, CPU4)
+def test_split_batch_replicates_a_batch_it_does_not_split():
+    """As the reference's guard drops the data axis of an input whose batch
+    it does not divide: every shard gets the whole input, on its device;
+    a batch the shards divide is split in order; inputs that disagree in
+    their batch raise."""
+    devices = ["cpu", "meta", "cpu", "meta"]
+    batch = {"tokens": torch.arange(24).reshape(6, 4),
+             "frames": torch.ones(6, 3, 2)}
+    parts = OV.split_batch(batch, devices)
+    assert OV.replicated(6, 4) and not OV.replicated(8, 4)
+    assert not OV.replicated(1, 1)
+    for part, dev in zip(parts, devices):
+        assert set(part) == set(batch)
+        for k, v in part.items():
+            assert v.device.type == dev and v.shape == batch[k].shape
+            if dev == "cpu":
+                assert torch.equal(v, batch[k])
+    even = OV.split_batch({"tokens": torch.arange(32).reshape(8, 4)}, CPU4)
+    assert [p["tokens"][:, 0].tolist() for p in even] == [
+        [0, 4], [8, 12], [16, 20], [24, 28]]
+    with pytest.raises(ValueError, match="disagree in their batch"):
+        OV.split_batch({"tokens": torch.zeros(6, 4),
+                        "frames": torch.zeros(4, 3)}, CPU4)
+
+
+def test_gather_rows_keeps_shard_zero_of_a_replicated_batch():
+    parts = [torch.full((3, 2), float(i)) for i in range(2)]
+    assert torch.equal(OV.gather_rows(parts, 3, "cpu"), parts[0])
+    assert torch.equal(OV.gather_rows(parts, 6, "cpu"), torch.cat(parts))
+
+
+def test_manual_dp_step_on_a_batch_the_shards_do_not_split():
+    """B = 3 over 2 shards: each shard takes the whole batch, so the step
+    equals the one-device full-batch step (loss, gnorm, the params and the
+    moments after it), with the replicas bit-equal."""
+    params, opt = DP.start()
+    mesh = MESH.make_host_mesh(devices=["cpu"] * 2)
+    _, one, _, _ = steps.make_train_step(DP.cfg, device="cpu")
+    _, step, _, _ = steps.make_train_step(DP.cfg, mesh)
+    batch = {k: v[:3] for k, v in DP.batch(0).items()}
+    pr, orr, m = step(SH.replicate(params, mesh), SH.replicate(opt, mesh),
+                      batch)
+    params, opt, m1 = one(params, opt, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(m1["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["gnorm"]), float(m1["gnorm"]),
+                               rtol=1e-4)
+    assert bit_equal(pr[0], pr[1]) and bit_equal(orr[0], orr[1])
+    for a, b in zip(SH.tree_leaves(pr[0]), SH.tree_leaves(params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+    for a, b in zip(SH.tree_leaves(orr[0].m), SH.tree_leaves(opt.m)):
+        rel_close(a, b.numpy(), 1e-4)
 
 
 # ------------------------------------------- make_train_step on a mesh ----
@@ -592,6 +641,36 @@ def test_mesh_serve_steps_match_one_device(name):
     for leaf in SH.tree_leaves(cache):
         spec = tuple(leaf.sharding.spec)
         assert ("data",) in spec or "data" in spec, spec
+
+
+@pytest.mark.parametrize("name,B", [("qwen3-0.6b", 1), ("qwen3-0.6b", 6),
+                                    ("zamba2-7b", 1)])
+def test_mesh_serve_steps_replicate_a_batch_they_do_not_split(name, B):
+    """4 data shards of B = 1 or 6 prompts, which they do not divide: the
+    batch and its cache are replicated, every shard serves the whole batch
+    on its copy, and the prefill's logits and the greedy tokens are
+    bit-equal to the one-device serve's (zamba2: its SSM states updated in
+    place on each copy)."""
+    cfg = SMOKE[name].scaled(dtype="float32")
+    rcfg = REF_SMOKE[name].scaled(dtype="float32")
+    params = params_from_jax(np_tree(ref_build(rcfg).init(
+        jax.random.key(2))), device="cpu")
+    tb = {"tokens": torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (B, SERVE_S)).astype(np.int32))}
+    ctx = SERVE_S + SERVE_DECODE + 4
+    mesh = MESH.make_host_mesh(devices=CPU4)
+    model, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(B, ctx))
+    logits, toks = serve(prefill, decode, SH.replicate(params, mesh), tb,
+                         cache)
+    m1, p1, d1 = steps.make_serve_steps(cfg, device="cpu")
+    want, wtoks = serve(p1, d1, params, tb, m1.make_cache(B, ctx))
+    assert logits.shape == want.shape == (B, 1, cfg.vocab)
+    assert torch.equal(logits, want) and torch.equal(toks, wtoks)
+    for leaf in SH.tree_leaves(cache):
+        assert "data" not in tuple(leaf.sharding.spec)
+        assert all(torch.equal(b, leaf.blocks[0, 0])
+                   for b in leaf.blocks.flat)
 
 
 # ------------------------------------------------ placement, reshard ----

@@ -15,6 +15,10 @@ live bytes from the op stream. Held here:
 * a train step's planned FLOPs equal ``FlopCounterMode`` over the same
   step on real CPU tensors, exactly, with each attention call counted at
   its kernel's formula;
+* a long_500k cell (a batch of 1) plans on a mesh whose data axis does
+  not divide it, each data row serving the whole batch, and 2 and 3
+  such rows extrapolate to the traced mesh; a trace past torch's 8-bit
+  device index raises;
 * the depth calibration (2 and 3 units) equals a full-depth trace of a
   4-layer config, the 2-and-3-row scaling a traced (4, 2) mesh, and the
   planned scans the step-by-step ones: every count, exactly.
@@ -214,6 +218,37 @@ def test_train_flops_equal_flop_counter_on_real_tensors(mesh):
     assert swap["calls"] == launches == 3 * cfg.n_layers
     assert counts[("dev", 0, "flops")] == \
         fc.get_total_flops() + swap["flops"] > 0
+
+
+def test_long_500k_plans_where_the_data_axis_does_not_divide_the_batch():
+    """xlstm-125m's long_500k cell (one sequence) on a (4, 2) mesh standing
+    in for the production one: the data axis does not divide the batch of
+    1, so every data row serves it whole, and the cell plans; each data
+    row's devices count the same work as row 0's."""
+    mesh = Mesh((4, 2), AXES)
+    with mock.patch.object(DR, "make_production_mesh",
+                           lambda multi_pod=False: mesh):
+        rec = DR.run_cell("xlstm-125m", "long_500k", False)
+    assert rec["status"] == "ok" and rec["n_chips"] == 8
+    cfg = SMOKE["xlstm-125m"]
+    whole = DR.plan(cfg, "decode", 64, 1, (4, 2), AXES, calibrate=False)
+    devs = DR.per_device(whole["counts"])
+    for i in range(2, 8):
+        assert devs[i]["flops"] == devs[i % 2]["flops"] > 0
+    # from 2 and 3 rows, each with the whole batch: every count the same
+    rows = DR.plan(cfg, "decode", 64, 1, (4, 2), AXES, calibrate=False,
+                   trace_devices=4)
+    assert rows["rows"] == [2, 3] and whole["rows"] is None
+    assert rows["counts"] == whole["counts"]
+
+
+def test_a_trace_past_torchs_device_index_raises():
+    """``torch.device`` keeps its index in 8 signed bits (meta:256 is
+    meta:0), so a trace of more than 128 devices would merge two cards:
+    it raises before it runs."""
+    assert torch.device("meta", 256) == torch.device("meta", 0)
+    with pytest.raises(ValueError, match="at most 128 devices"):
+        DR.trace(SMOKE["xlstm-125m"], "decode", 8, 1, (16, 16), AXES)
 
 
 def test_depth_calibration_equals_full_depth():

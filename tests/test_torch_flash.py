@@ -92,7 +92,7 @@ def test_plain_version_is_the_cpu_path_and_is_not_counted():
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "flash_attention_sm90",
                                      "flash_attention_simt"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 def test_every_wrapper_runs_the_plain_version_on_the_cpu(wrapper, dh):
     """bf16 at the tensor-core kernel's head dims: on CPU tensors each
     wrapper returns ``flash_ref``'s output and bumps neither counter."""
@@ -108,15 +108,21 @@ def test_every_wrapper_runs_the_plain_version_on_the_cpu(wrapper, dh):
     (torch.bfloat16, 64, "flash_attention_sm90"),
     (torch.bfloat16, 32, "flash_attention_simt"),
     (torch.bfloat16, 16, "flash_attention_simt"),
-    (torch.bfloat16, 96, "flash_attention_simt"),
+    (torch.bfloat16, 96, "flash_attention_sm90"),
+    (torch.bfloat16, 112, "flash_attention_sm90"),
+    (torch.bfloat16, 80, "flash_attention_sm90"),
+    (torch.bfloat16, 72, "flash_attention_sm90"),
+    (torch.bfloat16, 100, "flash_attention_simt"),
+    (torch.bfloat16, 56, "flash_attention_simt"),
     (torch.bfloat16, 1, "flash_attention_simt"),
     (torch.float32, 128, "flash_attention_simt"),
     (torch.float32, 64, "flash_attention_simt"),
     (torch.float32, 16, "flash_attention_simt"),
 ])
 def test_route_by_dtype_and_head_dim(dtype, dh, kernel):
-    """bf16 with dh 64 or 128 on the wgmma kernel; float32 and every other
-    bf16 head dim up to 128 on the 3xTF32 kernel."""
+    """bf16 with dh 64, or a multiple of 8 from 72 to 128 (computed at a
+    tile width of 128 on zero columns), on the wgmma kernel; float32 and
+    every other bf16 head dim up to 128 on the 3xTF32 kernel."""
     assert fa.route(dtype, dh) == kernel
 
 

@@ -3,8 +3,8 @@ forward's log-sum-exp (``flash_ref(..., return_lse=True)``), the plain
 version ``flash_bwd_ref(..., lse=)`` of ``flash_attention_bwd_sm90``
 against ``jax.vjp`` of the reference's oracle
 ``repro.kernels.ref.flash_ref``, and the routing of ``FlashAttention``'s
-backward between ``flash_attention_bwd_sm90`` (a saved lse) and
-``flash_attention_bwd``.
+backward between ``flash_attention_bwd_sm90`` (a saved lse; bf16 at dh
+64 or a multiple of 8 from 72 to 128) and ``flash_attention_bwd``.
 
 Inputs and the incoming gradient are numpy normals from a seed, handed to
 both packages; the reference's oracle gets K/V repeated per group
@@ -106,14 +106,16 @@ def _recording():
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 64, "flash_attention_bwd_sm90"),
     (torch.bfloat16, 128, "flash_attention_bwd_sm90"),
+    (torch.bfloat16, 112, "flash_attention_bwd_sm90"),
     (torch.bfloat16, 100, "flash_attention_bwd"),
     (torch.float32, 64, "flash_attention_bwd"),
     (torch.float32, 128, "flash_attention_bwd"),
 ])
 def test_flash_attention_backward_routes_by_the_saved_lse(dtype, dh, want):
-    """bf16 with dh 64 or 128 saves lse in the forward and runs
-    ``flash_attention_bwd_sm90`` with it; float32, or bf16 with another
-    head dim, runs ``flash_attention_bwd``. On the CPU neither counts."""
+    """bf16 with dh in ``SM90_HEAD_DIMS`` (64, 112, 128 here) saves lse in
+    the forward and runs ``flash_attention_bwd_sm90`` with it; float32, or
+    bf16 with another head dim, runs ``flash_attention_bwd``. On the CPU
+    neither counts."""
     q, k, v, do = inputs(dh, 2, 2, 40, dh)
     tq, tk, tv = (torch.from_numpy(a).to(dtype).requires_grad_()
                   for a in (q, k, v))
@@ -136,7 +138,7 @@ def test_flash_attention_backward_routes_by_the_saved_lse(dtype, dh, want):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("BHkv,G,S", [(2, 1, 77), (1, 4, 130), (2, 2, 64)])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 96, 112, 128])
 def test_flash_attention_sm90_path_gives_the_reference_gradients(
         BHkv, G, S, dh, causal):
     """bf16 through ``FlashAttention``: the forward saves lse and the

@@ -316,6 +316,11 @@ FLASH_SHAPES = [
     (64, 32, 2048, 128, torch.bfloat16, True),
     # whisper-medium's encoder (B=4, H=16, 1500 frames, not causal)
     (64, 64, 1500, 64, torch.bfloat16, False),
+    # zamba2-7b's shared attention (B=4, H=32, dh 112: the wgmma kernel
+    # on zero columns up to 128) and a padded head dim under GQA with a
+    # ragged tail tile
+    (128, 128, 2048, 112, torch.bfloat16, True),
+    (6, 2, 1000, 96, torch.bfloat16, False),
 ]
 
 
@@ -347,7 +352,7 @@ def _bf16_qkv(cuda, BH, BHkv, S, dh, seed):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 96, 112, 128])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("S", [1, 17, 128, 129, 1000, 2048])
 def test_flash_sm90_matches_plain(cuda, S, G, dh, causal):
@@ -355,7 +360,8 @@ def test_flash_sm90_matches_plain(cuda, S, G, dh, causal):
     one key tile and less (S = 1, 17, 128: the accumulator-to-A-fragment
     identity on one tile), a tail tile of one row (129), many tiles with a
     ragged tail (1000) and the serving length (2048), each with 2 KV heads
-    read by G query heads (G = 8: qwen2-vl-72b's)."""
+    read by G query heads (G = 8: qwen2-vl-72b's); dh 96 and 112 at a tile
+    width of 128 on zero columns."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_ref
     q, k, v = _bf16_qkv(cuda, 2 * G, 2, S, dh, S * 100 + G * 10 + dh)
@@ -383,11 +389,13 @@ def test_flash_sm90_reads_kv_head_h_div_g(cuda):
     assert float((out - tiled).abs().max()) > 0.2
 
 
-def test_flash_routing_picks_the_kernel(cuda):
-    """bf16 at dh = 128 runs on the wgmma kernel, float32 on the 3xTF32
-    one, each launched once."""
+@pytest.mark.parametrize("dh", [128, 112])
+def test_flash_routing_picks_the_kernel(cuda, dh):
+    """bf16 at dh = 128 and 112 runs on the wgmma kernel, float32 on the
+    3xTF32 one, each launched once; bf16 at dh 100 (not a multiple of 8)
+    on the 3xTF32 one."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = _bf16_qkv(cuda, 4, 2, 64, 128, 0)
+    q, k, v = _bf16_qkv(cuda, 4, 2, 64, dh, 0)
     for dtype, kernel in ((torch.bfloat16, "flash_attention_sm90"),
                           (torch.float32, "flash_attention_simt")):
         fa.reset_counts()
@@ -396,6 +404,9 @@ def test_flash_routing_picks_the_kernel(cuda):
                              for name in fa.COUNTS}
     with pytest.raises(ValueError, match="flash_attention_sm90 takes"):
         fa.flash_attention_sm90(q.float(), k.float(), v.float())
+    fa.reset_counts()
+    fa.flash_attention(*(t[..., :100].contiguous() for t in (q, k, v)))
+    assert fa.COUNTS["flash_attention_simt"] == 1
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(cuda):
@@ -641,7 +652,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, BH, BHkv, S, dh, dtype,
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 96, 112, 128])
 @pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("S", [64, 77, 129, 300, 1000, 2048])
 def test_flash_bwd_sm90_matches_plain(cuda, S, G, dh, causal):

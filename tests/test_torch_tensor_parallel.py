@@ -439,6 +439,44 @@ def test_tp_serve_steps_match_one_device(name, D, M):
         assert torch.count_nonzero(blk) > 0
 
 
+def test_tp_serve_steps_replicate_a_batch_of_one():
+    """One prompt on a (2, 2) mesh: the two data shards do not split it,
+    so each serves it whole, tensor-parallel over its model shards, on its
+    copy of the cache; the prefill's logits within 1e-5 of the one-device
+    serve's, the greedy tokens equal."""
+    cfg, rcfg = cfgs("qwen3-0.6b")
+    params = params_from_jax(np_tree(ref_build(rcfg).init(
+        jax.random.key(2))), device="cpu")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (1, SERVE_S)).astype(np.int32))}
+    ctx = SERVE_S + SERVE_DECODE + 4
+
+    def serve(prefill, decode, p, cache):
+        logits, cache = prefill(p, batch, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        toks = [tok]
+        for i in range(SERVE_DECODE):
+            tok, cache = decode(p, tok, cache, SERVE_S + i)
+            toks.append(tok)
+        return logits, torch.cat(toks, 1)
+
+    m1, p1, d1 = steps.make_serve_steps(cfg, device="cpu")
+    want, wtoks = serve(p1, d1, params, m1.make_cache(1, ctx))
+    mesh = mesh_of(2, 2)
+    model, prefill, decode = steps.make_serve_steps(cfg, mesh)
+    P = SH.shard_tree(params, SH.to_named(
+        mesh, SH.param_specs(cfg, mesh, params)))
+    cache = steps.shard_cache(cfg, mesh, model.make_cache(1, ctx))
+    logits, toks = serve(prefill, decode, P, cache)
+    assert logits.shape == want.shape == (1, 1, cfg.vocab)
+    rel_close(logits, want.numpy(), 1e-5)
+    assert torch.equal(toks, wtoks)
+    for leaf in (cache["k"], cache["v"]):
+        assert tuple(leaf.sharding.spec) == (None, None, None, "model", None)
+        for m in range(2):
+            assert torch.equal(leaf.blocks[0, m], leaf.blocks[1, m])
+
+
 def test_train_cli_model_parallel_resumes_onto_another_mesh(tmp_path,
                                                             capsys):
     """``--model-parallel 2`` over 4 CPU devices takes two steps; the run
