@@ -360,11 +360,16 @@ def phase_build(kbuild, build_future):
                 for dt in ("fp32", "bf16") for dh in (32, 64, 128)}
             ptxas[name]["fp32_blocks_per_sm"] = {
                 dh: blocks(dh) for dh in (32, 64, 128)}
+    # the compiler's notes on the warp-specialised kernels: a setmaxnreg it
+    # ignored, or wgmma issues it serialized
+    wgmma_notes = [ln.strip() for ln in log.splitlines()
+                   if "setmaxnreg" in ln or "serialized" in ln]
     emit({"phase": "build", "library": str(path.relative_to(ROOT)),
           "registers_per_thread": {k: v["registers"]
                                    for k, v in ptxas.items()},
           "ptxas": ptxas, "ptxas_warnings": [
               ln.strip() for ln in log.splitlines() if "arning" in ln],
+          "ptxas_wgmma_notes": wgmma_notes,
           "build_s": build_s, "waited_s": time.perf_counter() - t0})
     for name in ("flash_attention_sm90", "flash_attention_simt",
                  "flash_attention_bwd", "flash_attention_bwd_sm90",
@@ -372,6 +377,9 @@ def phase_build(kbuild, build_future):
         info = ptxas.get(name)
         if info is None or info["spill_bytes"]:
             raise AssertionError(f"{name}: not built or spills ({info})")
+    ignored = [ln for ln in wgmma_notes if "setmaxnreg" in ln]
+    if ignored:
+        raise AssertionError(f"the compiler ignored setmaxnreg: {ignored}")
 
 
 def _same(a, b) -> int:
@@ -4338,20 +4346,28 @@ def time_flash(torch, fa, flash_ref):
 
 
 def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed,
-                     earlier=False):
+                     earlier=False, plain_heads=None):
     """The kernel ``route`` picks for bf16 at ``dh``, at (BH, BHkv, S, dh,
     causal), timed in one call in turns with the plain version and SDPA
     (kernel, plain, SDPA, then in reverse): CUDA-event ms and the bound at
     the bf16 tensor-core rate (score and P V products: 2 x BH S^2 dh
-    multiply-adds, half of them when causal). With ``earlier``, also
+    multiply-adds, half of them when causal). The kernel's output is held
+    to the plain version's within FLASH_TOL and, at its worst row, within
+    FLASH_ROW_TOL of the row's norm. With ``earlier``, also
     ``flash_attention_simt`` (the 3xTF32 kernel that ran the shape
     before), called directly in the same turns and held to the plain
-    version too (``earlier_ms``)."""
+    version too (``earlier_ms``). With ``plain_heads``, the plain version
+    runs on the first ``plain_heads`` query row-sets and their key/value
+    row-sets only (its S x S scores over every head would not fit the
+    card), the kernel is held to it there, and ``plain_ms`` is its time on
+    those heads."""
     import torch.nn.functional as F
     kernel = fa.route(torch.bfloat16, dh)
     q, k, v = flash_inputs(torch, BH, BHkv, S, dh, "bfloat16", seed)
     q4, k4, v4 = (t.view(LM_BATCH, t.shape[0] // LM_BATCH, S, dh)
                   for t in (q, k, v))
+    ph = plain_heads or BH
+    qp, kp, vp = q[:ph], k[:ph // (BH // BHkv)], v[:ph // (BH // BHkv)]
     out = {}
 
     def run(name, fn):
@@ -4359,10 +4375,13 @@ def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed,
             out[name] = fn(q, k, v, causal)
         return launch
 
+    def plain():
+        out["plain"] = flash_ref(qp, kp, vp, causal)
+
     fast = kernel == "flash_attention_sm90"
     fns = {"kernel": (run("kernel", getattr(fa, kernel)),
                       20 if fast else 5, 3 if fast else 1),
-           "plain": (run("plain", flash_ref), 3, 1),
+           "plain": (plain, 3, 1),
            "library": (lambda: F.scaled_dot_product_attention(
                q4, k4, v4, is_causal=causal, enable_gqa=BH != BHkv), 20, 3)}
     if earlier:
@@ -4373,16 +4392,20 @@ def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed,
             fn, n, warm = fns[name]
             turns[name].append(cuda_ms(torch, fn, n, warm))
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    errs = {name: float((out[name].float() - out["plain"].float())
+    errs = {name: float((out[name][:ph].float() - out["plain"].float())
                         .abs().max()) for name in ("kernel", "earlier")
             if name in out}
     err = errs["kernel"]
     tag = (f"BH={BH} BHkv={BHkv} S={S} dh={dh} bf16 "
            f"{'causal' if causal else 'not causal'}")
+    rows = {name: flash_row_err(out[name][:ph], out["plain"])
+            for name in errs}
     for name, e in errs.items():
-        if e > FLASH_TOL["bfloat16"]:
+        if e > FLASH_TOL["bfloat16"] or not (
+                rows[name] <= FLASH_ROW_TOL["bfloat16"]):
             who = kernel if name == "kernel" else "flash_attention_simt"
-            raise AssertionError(f"timed {who} at {tag} != plain ({e})")
+            raise AssertionError(f"timed {who} at {tag} != plain ({e}; "
+                                 f"worst row {rows[name]} of its norm)")
     nbytes = 2 * (2 * BH * S * dh + 2 * BHkv * S * dh)
     flops = (2 if causal else 4) * BH * S * S * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4396,8 +4419,10 @@ def _time_flash_case(torch, fa, flash_ref, BH, BHkv, S, dh, causal, seed,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "flops": flops, "max_abs_err": err,
-           "row_rel_err": flash_row_err(out["kernel"], out["plain"]),
+           "row_rel_err": rows["kernel"],
            "tflops_per_s": flops / ms["kernel"] * 1e-9}
+    if plain_heads:
+        row["plain_heads"] = plain_heads
     if earlier:
         row.update(earlier_kernel="flash_attention_simt",
                    earlier_ms=ms["earlier"],
@@ -4941,7 +4966,8 @@ def phase_timing(torch, kv, bsp, eng, s_mc, bat_fig8):
 
 
 SHAPE_KEYS = ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms", "row_rel_err", "earlier_kernel", "earlier_ms")
+              "library_ms", "row_rel_err", "earlier_kernel", "earlier_ms",
+              "plain_heads")
 
 
 def shape_row(launches, t) -> dict:
@@ -5191,6 +5217,11 @@ def main(argv=None) -> int:
         "flash_attention_bwd_sm90"]
     flash_big = _time_flash_case(torch, fa, flash_ref, LM_BATCH * 16,
                                  LM_BATCH * 2, LM_PROMPT, 128, True, 99)
+    # the dry run's prefill of qwen3-0.6b (16 query and 8 KV heads a row),
+    # the plain version on two heads
+    flash_s32768 = _time_flash_case(torch, fa, flash_ref, DRY_PREFILL_B * 16,
+                                    DRY_PREFILL_B * 8, DRY_PREFILL_S, 128,
+                                    True, 96, plain_heads=2)
     emit({"phase": "timing", "vcycle_chunk": chunk, "vcycle_seed": seed,
           **flash, "flash_attention_simt_fp32": flash32,
           "flash_attention_sm90_zamba2": flash112,
@@ -5207,6 +5238,7 @@ def main(argv=None) -> int:
           "flash_attention_sm90_starcoder2_g12": flash_g12,
           "flash_attention_bwd_sm90_starcoder2_g12": bwd_g12,
           "flash_attention_sm90_big_shard": flash_big,
+          "flash_attention_sm90_dryrun_prefill": flash_s32768,
           "launches_on_bf16_configs_paths": configs_launches,
           "launches_on_fp32_configs_checks": configs_fp32_launches,
           "sm90_launches_on_bf16_big_serving_path": big_launches,
@@ -5300,7 +5332,10 @@ def main(argv=None) -> int:
              ("tp_shard", tp_launches["flash_attention_sm90"], flash_tp),
              ("starcoder2_g12", starcoder2["flash_attention_sm90"],
               flash_g12),
-             ("big_shard", big_launches, flash_big))}},
+             ("big_shard", big_launches, flash_big),
+             ("dryrun_prefill_s32768",
+              dry_launches["prefill"]["flash_attention_sm90"],
+              flash_s32768))}},
         {**kernel_line("flash_attention_simt",
                        "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:33 "

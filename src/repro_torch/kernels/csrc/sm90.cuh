@@ -29,6 +29,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 2^x by the SFU's ex2.approx with denormal results flushed to zero: the
+// instruction exp2f() wraps, without its handling of denormal results
+// (a softmax weight below 2^-126 counts as 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------------ mbarriers ----
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -84,6 +93,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both ends on 16-byte
+// boundaries) from global `src` into shared memory at `dst`, completing
+// them on barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensormap(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -112,8 +133,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// still in flight (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Ties the accumulator registers to this point of the program, so that the
@@ -237,6 +261,91 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 112] += A[64 x 16] B[16 x 112], A in registers, B N-major in shared memory
+// (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_m64n112k16_tb(float (&d)[56],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------- warp specialisation ----
+// A warpgroup gives back registers to, or takes them up to, N a thread
+// (a multiple of 8 from 24 to 256); all four of its warps execute it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads:
+// bar_sync waits for them all, bar_arrive counts this warp and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Items of a section of m that block b of g gets when they are dealt in
+// snake order: round r takes items [r g, (r + 1) g), in even rounds block b
+// the b-th, in odd rounds the b-th from the end.
+__device__ __forceinline__ int snake_count(int m, int g, int b) {
+  const int r = m / g, rem = m - r * g;
+  return r + (r % 2 == 0 ? b < rem : b >= g - rem);
+}
+
+// The j-th item (j = 0, 1, ...) of this persistent block among n_heads x
+// n_tiles items (head, y): the heads in sections of `hs` (the last one may
+// be smaller), each section's items y-major (for a causal kernel: its
+// longest loops first) and dealt to the blocks in snake order, section
+// after section. Each block's share of a section is then about even, and
+// the blocks running at once share the heads of a section, whose operand
+// stays in L2. Returns false past the block's last item.
+__device__ __forceinline__ bool block_item(int j, int n_heads, int n_tiles,
+                                           int hs, int& head, int& y) {
+  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  const int n_full = n_heads / hs, c = snake_count(hs * n_tiles, g, b);
+  int sec, jl;
+  if (j < n_full * c) {
+    sec = j / c;
+    jl = j - sec * c;
+  } else {
+    sec = n_full;
+    jl = j - n_full * c;
+    if (jl >= snake_count((n_heads - n_full * hs) * n_tiles, g, b))
+      return false;
+  }
+  const int h0 = sec * hs;
+  const int hn = n_heads - h0 < hs ? n_heads - h0 : hs;
+  const int l = jl * g + (jl % 2 ? g - 1 - b : b);
+  y = l / hn;
+  head = h0 + l - y * hn;
+  return true;
+}
+
 // ----------------------------------------------------------------- host ----
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -279,6 +388,35 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int n, int S, int dh,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// Streaming multiprocessors of the current device: a persistent grid's
+// width (read once a device).
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// Heads to a section of block_item: as many groups of `group` heads as
+// keep the operand a group shares (`bytes` of it) within an L2 budget
+// (32 MB of the H100's 50 MB), and at least enough for two rounds of the
+// grid's blocks, so that each block's share of a section is even.
+inline int heads_per_section(int n_heads, int group, size_t bytes,
+                             int n_tiles, int grid) {
+  constexpr size_t kL2Budget = size_t(32) << 20;
+  const size_t fit = bytes ? kL2Budget / bytes : 1;
+  long long hs = static_cast<long long>(fit < 1 ? 1 : fit) * group;
+  const long long rounds = (2LL * grid + n_tiles - 1) / n_tiles;
+  const long long least = (rounds + group - 1) / group * group;
+  if (hs < least) hs = least;
+  return hs < n_heads ? static_cast<int>(hs) : n_heads;
+}
+
+// The shared memory a block may use on sm_90 (227 KB).
+constexpr size_t kSmemPerBlock = 232448;
 
 // TMA reads only from 16-byte boundaries.
 inline bool aligned16(const void* p) {

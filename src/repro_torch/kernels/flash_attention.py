@@ -7,11 +7,12 @@ The two forward kernels replace the TPU kernel
 
 * ``flash_attention_sm90`` launches ``csrc/flash_attention_sm90.cu``:
   bfloat16 with ``dh`` 64, or a multiple of 8 from 72 to 128
-  (``SM90_HEAD_DIMS``), on the tensor cores (wgmma, K/V tiles by TMA into
-  a ring of shared memory). ``dh`` 64 runs at a tile width of 64; the
-  others at 128, where TMA fills the columns past ``dh`` with zeros (no
-  padded copy; zamba2-7b's ``dh`` 112 costs 8/7 of the products). Every
-  served dense config has ``dh = 128``.
+  (``SM90_HEAD_DIMS``), on the tensor cores: a persistent block on each SM,
+  a producer warpgroup feeding K/V tiles by TMA into a ring of shared
+  memory, two consumer warpgroups running wgmma. ``dh`` 64 runs at a tile
+  width of 64; the others at 128, where TMA fills the columns past ``dh``
+  with zeros (no padded copy; at zamba2-7b's ``dh`` 112 the products skip
+  the zero columns). Every served dense config has ``dh = 128``.
 * ``flash_attention_simt`` launches ``csrc/flash_attention.cu``: float32,
   and bfloat16 with any other ``dh <= 128``. The name is the route's, kept
   so that launch counts stay comparable: the kernel runs on the tensor
@@ -190,7 +191,7 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``flash_attention`` on ``csrc/flash_attention_sm90.cu``: bfloat16,
     ``dh`` in ``SM90_HEAD_DIMS`` (64, or a multiple of 8 from 72 to 128,
     computed at a tile width of 128 on zero columns), any S
-    (``ceil(S / 128) <= 65535``). With
+    (``BH * ceil(S / 128) <= 2**30``). With
     ``return_lse`` it returns (output, lse): lse ``[BH, S]`` fp32, each
     row's natural log-sum-exp of ``q k^T / sqrt(dh)`` (masked), which
     ``flash_attention_bwd_sm90`` takes."""

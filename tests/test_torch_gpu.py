@@ -713,6 +713,167 @@ def test_flash_sm90_pair_at_g12_matches_plain(cuda, S):
             b.float().abs().max())
 
 
+# each row's error over the row's size, as chip_smoke.py's FLASH_ROW_TOL:
+# on random inputs |o| falls as 1/sqrt(keys), so past a few thousand keys
+# an absolute 2e-2 exceeds the values
+ROW_TOL = 1e-2
+
+
+def _worst_row(a, b):
+    """The largest over rows of ||a - b|| / ||b||, in float32, where a
+    row's ||b|| is taken as at least 1e-3 of the largest: dq's first
+    causal row is zero but for rounding, in the kernel and the plain
+    version alike."""
+    a, b = a.float(), b.float()
+    size = b.norm(dim=-1)
+    size = size.clamp_min(1e-3 * float(size.max()))
+    return float(((a - b).norm(dim=-1) / size).max())
+
+
+def _check_sm90_pair(cuda, BH, BHkv, S, dh, causal, seed, heads=None):
+    """The wgmma forward (saving lse) and backward at (BH, BHkv, S, dh,
+    causal), one launch each: the output within 2e-2 of ``flash_ref``,
+    lse within 1e-3 of its lse, each of dq, dk, dv within 2e-2 of its max
+    off ``flash_bwd_ref(lse=)``, and each row of the four within ROW_TOL
+    of its size (``_worst_row``). With ``heads``, the plain versions run
+    on the first ``heads`` query row-sets and their key/value row-sets
+    only (their S x S scores over every head would not fit), which the
+    kernels' outputs are held to there."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref, flash_ref
+    q, k, v = _bf16_qkv(cuda, BH, BHkv, S, dh, seed)
+    do = _bf16_qkv(cuda, BH, BHkv, S, dh, seed + 1)[0]
+    fa.reset_counts()
+    o, lse = fa.flash_attention_sm90(q, k, v, causal, return_lse=True)
+    got = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa.COUNTS == {name: int(name in ("flash_attention_sm90",
+                                            "flash_attention_bwd_sm90"))
+                         for name in fa.COUNTS}
+    h = heads or BH
+    hk = h // (BH // BHkv)
+    q, o, do, lse = q[:h], o[:h], do[:h], lse[:h]
+    k, v = k[:hk], v[:hk]
+    want, lse_ref = flash_ref(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(o.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _worst_row(o, want) <= ROW_TOL
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+    del want, lse_ref
+    got = (got[0][:h], got[1][:hk], got[2][:hk])
+    for a, b in zip(got, flash_bwd_ref(q, k, v, o, do, causal, lse=lse)):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(
+            b.float().abs().max())
+        assert _worst_row(a, b) <= ROW_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("grid", ["below", "equal", "many"])
+def test_flash_sm90_pair_persistent_grid_covers_every_item(cuda, grid,
+                                                           causal):
+    """The persistent kernels walk their items (row-set, 128-row tile) in
+    snake order over one block an SM: fewer items than SMs (some blocks
+    idle), exactly as many (one item a block), and about nine times as
+    many (rounds in both directions, longest causal rows first). Every
+    output row must be computed, by the pair against the plain versions;
+    G = 1, so the forward's, the dK/dV pass's and the dQ pass's item
+    counts are all BH x ceil(S / 128)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if grid == "below":
+        BH, S = 2, 3 * 128 - 5
+    elif grid == "equal":
+        BH = 2 if sms % 2 == 0 else 1
+        S = 128 * (sms // BH)
+    else:
+        BH, S = 12, 128 * -(-9 * sms // 12)
+    _check_sm90_pair(cuda, BH, BH, S, 128, causal, BH * S + int(causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 112, 128])
+@pytest.mark.parametrize("G", [12, 16])
+def test_flash_sm90_pair_at_g12_and_g16_matches_plain(cuda, G, dh, causal):
+    """Wide query groups (starcoder2-3b's G 12, and 16) over 2 KV
+    row-sets at a ragged S: the dK/dV pass sums G query row-sets a key
+    tile, the forward and the dQ pass read each KV tile for G row-sets."""
+    _check_sm90_pair(cuda, 2 * G, 2, 300, dh, causal, G * 1000 + dh)
+
+
+def test_flash_sm90_pair_at_s32768_on_two_heads(cuda):
+    """The dry run's prefill length, S 32768 (256 key tiles, the longest
+    causal loop), at two query heads over one KV head (G 2, as
+    qwen3-0.6b's), causal, against the plain versions."""
+    _check_sm90_pair(cuda, 2, 1, 32768, 128, True, 32768)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dh", [64, 112, 128])
+def test_flash_sm90_pair_with_items_of_128_keys(cuda, dh, G, causal):
+    """The dK/dV pass keeps items of 128 keys (each warpgroup its own 64)
+    where they fill the card more than once, and splits them where they
+    do not (the shapes of the matrix above): enough KV row-sets here for
+    the first shape, at a ragged S."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    BHkv = -(-2 * sms // 8)
+    _check_sm90_pair(cuda, G * BHkv, BHkv, 1000, dh, causal, dh + G)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_bwd_sm90_rerun_step_keeps_another_heads_inf_out(cuda, dh):
+    """Where the dK/dV items are split (64 keys over both warpgroups) and
+    an item's query tile count is odd, warpgroup 1's last step reruns
+    warpgroup 0's last tile on P = dS = 0; that tile's ring stage must not
+    take the next item's Q and dO under the rerun's products. Here every
+    item's count is odd (G 3, not causal, 129 query tiles; G 12 makes it
+    even), the blocks take about two items each, and the second KV
+    row-set's query heads have dO = inf: dK and dV of the first KV
+    row-set and dq of its heads stay finite and equal to the plain
+    versions', over three launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_bwd_ref
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    S = 64 * 129
+    assert 2 * -(-S // 128) <= sms  # the launch splits the items
+    assert 2 * -(-S // 64) > sms  # and some blocks take two
+    q, k, v = _bf16_qkv(cuda, 6, 2, S, dh, dh)
+    do = _bf16_qkv(cuda, 6, 2, S, dh, dh + 1)[0]
+    o, lse = fa.flash_attention_sm90(q, k, v, False, return_lse=True)
+    want = flash_bwd_ref(q[:3], k[:1], v[:1], o[:3], do[:3], False,
+                         lse=lse[:3])
+    do[3:] = float("inf")
+    first = None
+    for _ in range(3):
+        dq, dk, dv = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, False)
+        got = (dq[:3], dk[:1], dv[:1])
+        for a, b in zip(got, want):
+            assert bool(torch.isfinite(a).all())
+            assert _worst_row(a, b) <= ROW_TOL
+        if first is None:
+            first = got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+@pytest.mark.parametrize("BH,BHkv,dh", [(16, 16, 112), (96, 8, 128),
+                                        (128, 128, 112), (64, 32, 128)])
+def test_flash_bwd_sm90_relaunch_gives_the_same_bits(cuda, BH, BHkv, dh):
+    """No atomics and an item order that changes no result: the backward
+    relaunched twice gives the same bits at zamba2-7b's dh 112 and at
+    starcoder2-3b's G 12, at the training length (several rounds of items
+    a block), with the dK/dV items split (few KV row-sets) and whole
+    (zamba2's training shape, 128 KV row-sets; qwen3-0.6b's)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _bf16_qkv(cuda, BH, BHkv, 2048, dh, BH + dh)
+    do = _bf16_qkv(cuda, BH, BHkv, 2048, dh, BH + dh + 1)[0]
+    o, lse = fa.flash_attention_sm90(q, k, v, True, return_lse=True)
+    first = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, True)
+    for _ in range(2):
+        again = fa.flash_attention_bwd_sm90(q, k, v, o, do, lse, True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 @pytest.mark.parametrize("name", ["qwen1.5-110b", "mixtral-8x7b",
                                   "zamba2-7b"])
 def test_sharded_draw_on_four_shards_of_the_card_equals_one_device(cuda,
